@@ -31,6 +31,7 @@ The telemetry hooks (``observe*``) arrive with the telemetry slice.
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Optional
 
 import torch
@@ -40,6 +41,13 @@ BIG = 1e30
 BIG_CUT = 1e29
 
 _U32 = 0xFFFFFFFF
+
+
+@functools.lru_cache(maxsize=None)
+def _const(value, dtype, device) -> torch.Tensor:
+    """A 0-d constant on ``device``, made once: a Python scalar handed to
+    ``torch.where`` costs a fill kernel on every call."""
+    return torch.full((), value, dtype=dtype, device=device)
 
 
 def time_to_bucket(eta, time_slice, n_groups: int, m: int):
@@ -58,8 +66,8 @@ def time_to_bucket(eta, time_slice, n_groups: int, m: int):
     # clamped in float: a float beyond the integer range has no defined
     # conversion, and everything past nb lands in the last bucket anyway
     idx = torch.floor((s - start.float()) / glen.float()).clamp(max=1e9)
-    b = torch.clamp(g * m + idx.to(torch.int32), 0, nb - 1)
-    return torch.where(eta <= 0.0, 0, b).to(torch.int32)
+    b = torch.clamp(g * m + idx.to(torch.int32), 0, nb - 1)   # i32
+    return torch.where(eta <= 0.0, _const(0, torch.int32, b.device), b)
 
 
 def next_consumption(page_first, page_last, page_col, cols_cur, cur_abs,
@@ -103,17 +111,21 @@ def next_consumption(page_first, page_last, page_col, cols_cur, cur_abs,
     )
     e = torch.clamp(trigger - cur, min=0.0) / torch.clamp(
         speed, min=1e-6).unsqueeze(2)
-    return torch.where(interest, e, BIG).amin(dim=1)
+    return torch.where(interest, e, _const(BIG, e.dtype, e.device)).amin(dim=1)
 
 
-def target_buckets(eta, time_slice, n_groups: int, m: int, page_valid):
+def target_buckets(eta, time_slice, n_groups: int, m: int, page_valid=None):
     """Bucket every page would get if pushed now: ``time_to_bucket`` for
-    requested pages, the not-requested sentinel (== nb) otherwise."""
+    requested pages, the not-requested sentinel (== nb) otherwise.
+    ``page_valid=None`` means every page is valid."""
     nb = n_groups * m
-    requested = (eta < BIG_CUT) & page_valid
-    b = time_to_bucket(torch.where(requested, eta, 0.0), time_slice,
-                       n_groups, m)
-    return torch.where(requested, b, nb).to(torch.int32)
+    requested = eta < BIG_CUT
+    if page_valid is not None:
+        requested = requested & page_valid
+    b = time_to_bucket(
+        torch.where(requested, eta, _const(0.0, eta.dtype, eta.device)),
+        time_slice, n_groups, m)
+    return torch.where(requested, b, _const(nb, torch.int32, eta.device))
 
 
 def shift_timeline(bucket, b_target, slices_done, k, *, nb: int, m: int,
@@ -347,8 +359,8 @@ class ArrayPBM(ArrayPolicy):
                 | (b_target == 0)
             )
             bucket_pre = torch.where(
-                ~interested, NR, torch.where(assign, b_target, bucket)
-            ).to(torch.int32)
+                interested, torch.where(assign, b_target, bucket),
+                _const(NR, torch.int32, bucket.device))
             k = 1 if ctx.slices_elapsed is None else ctx.slices_elapsed
             return shift_timeline(bucket_pre, b_target, ctx.slices_done,
                                   k, nb=spec.nb, m=m, k_max=ctx.slices_max)
@@ -358,11 +370,11 @@ class ArrayPBM(ArrayPolicy):
         # so the result does not depend on the order of the scatter.
         upd, upd_on = ctx.upd_pages, ctx.upd_on
         eta_u = ctx.eta_estimate_at(upd)
-        b_u = target_buckets(eta_u, ctx.time_slice, spec.n_groups, m,
-                             torch.ones_like(upd_on))
+        b_u = target_buckets(eta_u, ctx.time_slice, spec.n_groups, m)
+        off = _const(NR + 1, torch.int32, bucket.device)
         new_b = torch.full_like(bucket, NR + 1).scatter_reduce_(
-            1, upd, torch.where(upd_on, b_u, NR + 1).to(torch.int32),
-            "amin", include_self=True)
+            1, upd, torch.where(upd_on, b_u, off), "amin",
+            include_self=True)
         return torch.where(new_b <= NR, new_b, bucket)
 
     def score_victims(self, bucket, ctx: StepCtx) -> torch.Tensor:

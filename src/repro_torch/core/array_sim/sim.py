@@ -303,6 +303,8 @@ class _LaneConsts(NamedTuple):
     batch: torch.Tensor      # (L,) f32 amortised eviction batch bytes
     inc_ref: torch.Tensor    # (L,) f32 credit bytes per fine step
     pops_wake: torch.Tensor  # (L,) i32 pops per fine step (wake solve)
+    pop_cap: torch.Tensor    # (L,) i32 most pops one macro-step may take
+    h_cap: torch.Tensor      # (L,) f32 longest jump the lane may plan
 
 
 def make_step(spec: SimSpec, dt: float, time_slice: float,
@@ -378,7 +380,8 @@ def make_step(spec: SimSpec, dt: float, time_slice: float,
     f32 = np.float32
     dt_ref = float(f32(dt))
     time_slice_f = float(f32(time_slice))
-    jit_amp = float(f32(_JIT_STEPS) * f32(dt))
+    # jitter amplitude times the hash's 2^-24 (a power of two: exact)
+    jit_scale = float(f32(_JIT_STEPS) * f32(dt)) * 2.0 ** -24
     t_io_base = float(f32(h_io) * f32(dt))
     gate_base = float(f32(_GATE_P))
     dip_p0 = float(f32(_DIP_P))
@@ -399,7 +402,6 @@ def make_step(spec: SimSpec, dt: float, time_slice: float,
     inv_tpp = 1.0 / col_tpp
     s_idx = torch.arange(S, device=dev)
     s_mul = _idx_mul(S, dev)
-    s_mul_gate = _idx_mul(S, dev, 2246822519)
     p_mul = _idx_mul(P, dev)
     tie_idx = (32767 - torch.arange(P, device=dev)).to(torch.int32)
     wk = torch.arange(W + 1, device=dev)
@@ -410,6 +412,24 @@ def make_step(spec: SimSpec, dt: float, time_slice: float,
     bk = torch.arange(_SEG_WIN, device=dev)
     U = min(P, _UPD_CAP)
     slot_ids = torch.arange(C * (K_LOOP + 1), device=dev)
+    # 0-d constants: a Python scalar in torch.where costs a fill kernel on
+    # every call, a tensor made once does not
+    zero_f = torch.zeros((), device=dev)
+    inf_f = torch.full((), _INF, device=dev)
+    ninf_f = torch.full((), -_INF, device=dev)
+    neg1_i = torch.full((), -1, dtype=torch.int32, device=dev)
+    none_i = torch.full((), _REQ_NONE, dtype=torch.int32, device=dev)
+    tie_max_i = torch.full((), 32767, dtype=torch.int32, device=dev)
+    dt_ref_f = torch.full((), dt_ref, device=dev)
+    t_io_base_f = torch.full((), t_io_base, device=dev)
+    dip_p0_f = torch.full((), dip_p0, device=dev)
+    dip_q0_f = torch.full((), dip_q0, device=dev)
+    cap4_f = torch.full((), 4 * max_page, device=dev)
+    cap1_f = torch.full((), max_page, device=dev)
+    # the three per-(stream, step) draws of one step share one hash pass:
+    # rows = request gate, cohort order, speed dip
+    s_mul3 = torch.stack([_idx_mul(S, dev, 2246822519), s_mul, s_mul])
+    t_mul3 = torch.tensor([[3266489917], [40503], [3266489917]], device=dev)
 
     # ---- policy dispatch tables (policy-provided, id-indexed) ------------
     n_pol = len(policies)
@@ -436,16 +456,25 @@ def make_step(spec: SimSpec, dt: float, time_slice: float,
         # livelock guard on its first step and ends truncated
         ok_id = (pid >= 0) & (pid <= max_id) & id_valid[pid_c]
         pol_local = lookup[pid_c]
+        sat = cfg.capacity_bytes < sat_bytes
         return _LaneConsts(
             ok_id=ok_id,
             pol_local=pol_local,
-            sat=cfg.capacity_bytes < sat_bytes,
+            sat=sat,
             k_win=k_wins[pol_local].view(-1, 1, 1, 1),
             plan_tie=plan_flags[pol_local].view(-1, 1),
             dt_bad=cfg.max_time + 1.0,
             batch=torch.clamp(cfg.capacity_bytes, max=16 * max_page),
             inc_ref=cfg.bandwidth * dt_ref,
             pops_wake=torch.full_like(cfg.policy, _LOAD_MAX),
+            # non-saturated lanes keep the short pop cap; a wake-exact
+            # supersaturated jump needs every pop its fine steps would take
+            pop_cap=(torch.where(sat, n_rounds, n_rounds_io) if wake_exact
+                     else torch.full_like(cfg.policy, n_rounds)
+                     ).to(torch.int32),
+            h_cap=(torch.where(sat, float(wake_cap_i), float(h_max_i))
+                   if wake_exact
+                   else torch.full_like(cfg.bandwidth, float(h_max_i))),
         )
 
     def pool_bytes(mask: torch.Tensor) -> torch.Tensor:
@@ -535,8 +564,8 @@ def make_step(spec: SimSpec, dt: float, time_slice: float,
         _w_pidx, _w_trig, w_need, w_dist = win
         if absent is None:
             absent = absent_in(win, resident)
-        lim = torch.where(absent, w_dist[..., :W], _INF).amin(dim=3)
-        cap = torch.where(w_need[..., W], w_dist[..., W], _INF)
+        lim = torch.where(absent, w_dist[..., :W], inf_f).amin(dim=3)
+        cap = torch.where(w_need[..., W], w_dist[..., W], inf_f)
         return torch.minimum(lim, cap).amin(dim=2)           # (L, S)
 
     def compact(mask: torch.Tensor):
@@ -564,6 +593,10 @@ def make_step(spec: SimSpec, dt: float, time_slice: float,
         t2c = t2.unsqueeze(1)
         steps1 = state.steps.unsqueeze(1)
         one_step = (h_u == 1)
+        # this step's three per-(stream, step) uniform draws, (L, 3, S)
+        steps_l = state.steps.long()
+        h3 = ((s_mul3 + steps_l.view(L, 1, 1) * t_mul3) & _U32) >> 8
+        u3 = h3.float() * 2.0 ** -24
 
         # ============ CPU: consume up to the first absent trigger =========
         (active, length, rate, _cols, _start, cur, _end, eps, _frontier,
@@ -573,7 +606,8 @@ def make_step(spec: SimSpec, dt: float, time_slice: float,
         # the ties by page index, a systematic bias.  A deterministic
         # per-(page, step) hash spanning _JIT_STEPS FINE step lengths
         # reproduces the event engine's order noise.
-        jit_p = jit_amp * _u01(p_mul, steps1, 40503)        # (L, P)
+        jit_p = (((p_mul + steps_l.unsqueeze(1) * 40503) & _U32) >> 8
+                 ).float() * jit_scale                      # (L, P)
         w_pidx, w_trig, w_need, _w_dist = win
         # per-(stream, query) CPU-rate skew: scans at the same position
         # drift apart within a query instead of advancing in lockstep
@@ -584,26 +618,31 @@ def make_step(spec: SimSpec, dt: float, time_slice: float,
         adv_io = torch.where(
             runnable,
             torch.minimum(torch.minimum(rate_j * dt1, remaining), adv_lim),
-            0.0,
+            zero_f,
         ).clamp(min=0.0)
         margin = torch.clamp(3e-5 * length, min=0.5)
         finished = runnable & (remaining - adv_io <= margin)
         # invalid-lane freeze: no consumption, no completions — the lane
         # must end truncated, not half-run
         ok1 = ok_id.unsqueeze(1)
-        adv = torch.where(ok1, adv_io, 0.0)
+        adv = torch.where(ok1, adv_io, zero_f)
         finished = finished & ok1
         cur2_pre = cur + adv_io
 
         qidx2 = state.qidx + finished.long()
-        pos2 = torch.where(finished, 0.0, state.pos + adv)
+        pos2 = torch.where(finished, zero_f, state.pos + adv)
         newly_done = (qidx2 >= n_q) & (state.stream_done_t < 0)
         stream_done_t2 = torch.where(newly_done, t2c, state.stream_done_t)
 
         # speed estimation on the engine's report cadence, not per step:
         # once per PBM slice from the cumulative consumed-tuples counter
         consumed2 = state.consumed + adv
-        next_rate = q_rate[s_idx, qidx2.clamp(0, Q - 1)]
+        # post-advance view (the I/O demand below works on it); its rate
+        # is the rate of the query each stream is in after this step
+        view2 = query_view(qidx2, pos2)
+        (active2, len2, rate2, cols2, start2, cur2, end2, eps2, frontier2,
+         _fpidx2, _ftrig2, need2) = view2
+        next_rate = rate2
         speed1 = torch.where(finished, next_rate, state.speed)
         if refresh:
             prog = consumed2 - state.consumed_ref
@@ -633,19 +672,15 @@ def make_step(spec: SimSpec, dt: float, time_slice: float,
         )
         # the LRU clock ticks when a page is consumed
         touch = torch.where(
-            crossed, t2.view(L, 1, 1, 1) + gather_w(jit_p, cross_flat), -_INF)
+            crossed, t2.view(L, 1, 1, 1) + gather_w(jit_p, cross_flat), ninf_f)
         last_used2 = state.last_used.scatter_reduce(
             1, cross_flat, touch.view(L, -1), "amax", include_self=True)
 
-        # ================= post-advance view (I/O demand) =================
-        view2 = query_view(qidx2, pos2)
-        (active2, len2, rate2, cols2, start2, cur2, end2, eps2, frontier2,
-         _fpidx2, _ftrig2, need2) = view2
-
+        # ================= I/O demand of the post-advance view ===========
         # request set = the engine's plan window: the blocking page plus
         # the next ~K plan entries in (trigger, column, page) order — an
         # entry-COUNT window, resident entries included in the budget
-        dens = torch.where(need2, inv_tpp, 0.0).sum(dim=2)    # (L, S)
+        dens = torch.where(need2, inv_tpp, zero_f).sum(dim=2)  # (L, S)
         pf_local = frontier2.unsqueeze(3) + ks
         pf_pidx = col_start4 + torch.minimum(pf_local, col_last4)
         pf_first = page_first[pf_pidx]
@@ -654,7 +689,7 @@ def make_step(spec: SimSpec, dt: float, time_slice: float,
             & (pf_first < end2.view(L, S, 1, 1))
         )
         pf_trig = torch.maximum(pf_first, start2.view(L, S, 1, 1))
-        e_trig = torch.where(exists, pf_trig, _INF)
+        e_trig = torch.where(exists, pf_trig, inf_f)
         # rank in the plan order: a stable sort resolves equal triggers by
         # (column, page) flat position — the engine's plan sort key — and
         # the rank is the inverse permutation
@@ -667,7 +702,7 @@ def make_step(spec: SimSpec, dt: float, time_slice: float,
         # request cadence gate: a scan issues requests only while it runs
         # and at the instant it blocks; a blocked scan's window refreshes
         # as a per-fine-step Bernoulli process scaled by its duty cycle
-        ug = _u01(s_mul_gate, steps1, 3266489917)
+        ug = u3[:, 0]
         t_pos = torch.clamp(state.t, min=1e-9).unsqueeze(1)
         duty_g = torch.clamp(
             (state.consumed / t_pos) / torch.clamp(rate, min=1.0), 0.0, 1.0)
@@ -685,7 +720,7 @@ def make_step(spec: SimSpec, dt: float, time_slice: float,
         pf_flat = pf_pidx.reshape(L, -1)
         bonus = torch.full((L, P), -1, dtype=torch.int32, device=dev)
         bonus.scatter_reduce_(
-            1, pf_flat, torch.where(ok, kb, -1).view(L, -1), "amax",
+            1, pf_flat, torch.where(ok, kb, neg1_i).view(L, -1), "amax",
             include_self=True)
         not_res = ~state.resident & page_valid
         in_plan_window = (bonus >= 0) & not_res
@@ -696,22 +731,24 @@ def make_step(spec: SimSpec, dt: float, time_slice: float,
         wanted = in_plan_window | ((state.req_step != _REQ_NONE) & not_res)
         stamp_now = (state.steps + 1).unsqueeze(1)
         req_step2 = torch.where(
-            wanted, torch.minimum(state.req_step, stamp_now), _REQ_NONE)
+            wanted, torch.minimum(state.req_step, stamp_now), none_i)
         # strict FIFO by first-wanted step; ties within one step's cohort
         # resolve by a (stream hash, plan rank) slot fixed at stamp time
         stamp_age = torch.clamp(stamp_now - req_step2, 0, 32767)
-        s_ord = (512.0 * _u01(s_mul, steps1, 40503)).long()
+        # cohort order of the streams, 512 * u truncated: the top 9 of the
+        # draw's 24 bits
+        s_ord = h3[:, 1] >> 15
         slot = (s_ord.view(L, S, 1, 1) * 64 + rank.clamp(0, 63)).to(
             torch.int32)
         tie_now = torch.full((L, P), 32767, dtype=torch.int32, device=dev)
         tie_now.scatter_reduce_(
-            1, pf_flat, torch.where(ok, slot, 32767).view(L, -1), "amin",
+            1, pf_flat, torch.where(ok, slot, tie_max_i).view(L, -1), "amin",
             include_self=True)
         new_stamp = wanted & (state.req_step == _REQ_NONE)
         req_tie2 = torch.where(new_stamp, tie_now, state.req_tie)
         # per-policy cohort order: stream-block order or plan order
         tie15 = torch.where(lc.plan_tie, tie_idx, 32767 - req_tie2)
-        load_key = torch.where(wanted, stamp_age * 32768 + tie15, -1)
+        load_key = torch.where(wanted, stamp_age * 32768 + tie15, neg1_i)
 
         # ================= I/O server: budgeted admission =================
         used = pool_bytes(state.resident)
@@ -742,16 +779,12 @@ def make_step(spec: SimSpec, dt: float, time_slice: float,
         # not fund requests that only appear at the end of the jump, so the
         # serviceable bytes are capped at the queue content present when
         # the jump began plus one fine step's credit.
-        budget = torch.where(ok_id, torch.minimum(credit, headroom), 0.0)
+        budget = torch.where(ok_id, torch.minimum(credit, headroom), zero_f)
         budget = torch.minimum(
             budget, state.io_credit + pend_in + lc.inc_ref)
         # budgeted FIFO pop as ONE batched grant: strict head-of-line,
         # _LOAD_MAX pops per fine step stood in for
-        if wake_exact:
-            pop_cap = torch.where(sat, n_rounds, n_rounds_io)
-            pops = torch.minimum(h_u * _LOAD_MAX, pop_cap).to(torch.int32)
-        else:
-            pops = torch.clamp(h_u * _LOAD_MAX, max=n_rounds).to(torch.int32)
+        pops = torch.minimum(h_u * _LOAD_MAX, lc.pop_cap)
         load_mask, load_bytes, n_load = kops.fifo_grant(
             load_key, page_size, budget, pops, vmax=n_rounds)
 
@@ -760,17 +793,15 @@ def make_step(spec: SimSpec, dt: float, time_slice: float,
         leftover = credit - load_bytes
         starved_io = (wanted & ~load_mask).any(dim=1)
         io_credit2 = torch.minimum(
-            leftover, torch.where(starved_io, 4 * max_page, max_page))
+            leftover, torch.where(starved_io, cap4_f, cap1_f))
 
         # engine speed-estimate DIPS, sampled per (stream, step) with the
         # probability compounded over the fine steps of a macro-step
-        ud = _u01(s_mul, steps1, 3266489917)
         eff_rate = torch.clamp(state.consumed / t_pos, min=1.0)
         dip_p = torch.where(
-            one_step, dip_p0,
-            1.0 - torch.pow(torch.full_like(h_f, dip_q0), h_f))
+            one_step, dip_p0_f, 1.0 - torch.pow(dip_q0_f, h_f))
         speed_push = torch.where(
-            ud < dip_p.unsqueeze(1),
+            u3[:, 2] < dip_p.unsqueeze(1),
             torch.minimum(_DIP_DEPTH * eff_rate, speed2), speed2)
 
         # ================= policy hooks + batched eviction ================
@@ -811,7 +842,7 @@ def make_step(spec: SimSpec, dt: float, time_slice: float,
         if refresh:
             # query-end request drop, slice-quantised
             interested = (ctx.eta_estimate() < BIG_CUT) & page_valid
-            req_step2 = torch.where(interested, req_step2, _REQ_NONE)
+            req_step2 = torch.where(interested, req_step2, none_i)
             slices_done2 = state.slices_done + (
                 1 if slices_u is None else slices_u)
         else:
@@ -822,7 +853,7 @@ def make_step(spec: SimSpec, dt: float, time_slice: float,
             load_bytes > free,
             torch.minimum(torch.maximum(load_bytes, lc.batch) - free,
                           evictable_bytes),
-            0.0,
+            zero_f,
         )
         evict = kops.batched_evict(key, page_size, evictable, need_free,
                                    vmax=vmax)
@@ -835,7 +866,7 @@ def make_step(spec: SimSpec, dt: float, time_slice: float,
         fresh2 = load_mask | (state.fresh & not_crossed & resident2)
         churn2 = state.churn + (state.fresh & evict & not_crossed).sum(
             dim=1, dtype=torch.int32)
-        req_step3 = torch.where(load_mask, _REQ_NONE, req_step2)
+        req_step3 = torch.where(load_mask, none_i, req_step2)
         demand_hit = load_mask & (bonus == 31)
 
         new_state = SimState(
@@ -878,7 +909,7 @@ def make_step(spec: SimSpec, dt: float, time_slice: float,
         t_cpu = torch.where(
             runnable2,
             torch.minimum(adv_lim2, remaining2) / torch.clamp(rate2, min=1.0),
-            _INF,
+            inf_f,
         )
         # io-credit horizon: while requests are pending the server is the
         # clock.  Non-saturated lanes jump at most h_io fine steps;
@@ -891,17 +922,19 @@ def make_step(spec: SimSpec, dt: float, time_slice: float,
             # the queue key the NEXT step will serve: one step older
             stamp_age3 = torch.clamp(
                 (state.steps + 2).unsqueeze(1) - req_step3, 0, 32767)
-            wake_key = torch.where(wanted3, stamp_age3 * 32768 + tie15, -1)
+            wake_key = torch.where(wanted3, stamp_age3 * 32768 + tie15,
+                                   neg1_i)
             wake_step = kops.wake_solve(
                 wake_key, page_size, io_credit2, lc.inc_ref, lc.pops_wake,
                 h_cap=wake_cap_i)
             # a blocked stream wakes when EVERY absent page it sits on is
             # granted; the lane jumps to the EARLIEST such wake
             d0 = absent2 & (w_dist2[..., :W] <= 0.0)
-            kp = torch.where(d0, gather_w(wake_step, win2_flat).float(), 0.0)
+            kp = torch.where(
+                d0, gather_w(wake_step, win2_flat).float(), zero_f)
             k_stream = kp.amax(dim=(2, 3))
             blocked_s = active2 & ~runnable2 & d0.any(dim=3).any(dim=2)
-            k_wake = torch.where(blocked_s, k_stream, _INF).amin(dim=1)
+            k_wake = torch.where(blocked_s, k_stream, inf_f).amin(dim=1)
             # headroom guard: the solve's credit cadence is only real
             # while the pool can absorb it
             finite = torch.isfinite(k_wake)
@@ -909,18 +942,16 @@ def make_step(spec: SimSpec, dt: float, time_slice: float,
                 io_credit2 + k_wake * cfg.bandwidth * dt_ref <= headroom)
             t_wake = torch.where(
                 can_jump, (k_wake + 0.25) * dt_ref,
-                torch.where(finite, dt_ref, t_io_base))
-            t_io_pend = torch.where(sat, t_wake, t_io_base)
-            h_cap_lane = torch.where(sat, float(wake_cap_i), float(h_max_i))
+                torch.where(finite, dt_ref_f, t_io_base_f))
+            t_io_pend = torch.where(sat, t_wake, t_io_base_f)
         else:
-            t_io_pend = torch.where(sat, 0.0, t_io_base)
-            h_cap_lane = torch.full_like(dt, float(h_max_i))
-        t_io = torch.where(pend2, t_io_pend, _INF)
+            t_io_pend = torch.where(sat, zero_f, t_io_base_f)
+        t_io = torch.where(pend2, t_io_pend, inf_f)
         next_dt = torch.minimum(t_cpu.amin(dim=1), t_io)
         # quantise to whole fine steps (floor: undershooting a horizon only
         # costs an extra step).  Clamped in float: inf has no integer.
         next_h = torch.minimum(
-            torch.floor(next_dt / dt_ref).clamp(min=1.0), h_cap_lane,
+            torch.floor(next_dt / dt_ref).clamp(min=1.0), lc.h_cap,
         ).to(torch.int32)
         return new_state, view2, win2, adv_lim2, pend_bytes2, next_h
 
