@@ -427,7 +427,7 @@ def phase_tpch_probe(dev, recorder: Recorder, max_slices: int = 16) -> None:
     streams = tpch_streams(db, n_streams=8, seed=7)
     spec = compile_workload(db, streams)
     ws = tpch_accessed_bytes(db, streams)
-    lanes, cfgs = sweep_configs(spec, ws, FRACS, dev, bandwidth=600e6)
+    _, cfgs = sweep_configs(spec, ws, FRACS, dev, bandwidth=600e6)
     with recorder:
         results, wall, launches, steps, _ = run_sweep_counted(
             spec, cfgs, dev, time_slice=0.1, bandwidth_ref=600e6,

@@ -49,7 +49,7 @@ import torch
 from ...kernels import ops as kops
 from .. import policy_registry
 from .convert import resolve_device, spec_to_torch
-from .policies import BIG_CUT, ArrayPolicy, StepCtx
+from .policies import BIG_CUT, ArrayPolicy, HorizonView, StepCtx
 from .spec import SimSpec
 
 _REQ_NONE = 1 << 24   # FIFO stamp sentinel: page not currently requested
@@ -948,6 +948,18 @@ def make_step(spec: SimSpec, dt: float, time_slice: float,
             t_io_pend = torch.where(sat, zero_f, t_io_base_f)
         t_io = torch.where(pend2, t_io_pend, inf_f)
         next_dt = torch.minimum(t_cpu.amin(dim=1), t_io)
+        # per-policy horizon providers (ArrayPolicy.scan_horizon): none of
+        # the in-order policies has a clock of its own, so this is static
+        # and costs nothing unless a policy overrides the hook
+        hz = HorizonView(spec=spec, active=active2, start=start2, end=end2,
+                         rate=rate2, dt_ref=dt_ref)
+        t_tab = [p.scan_horizon(ps, hz) for p, ps in zip(policies, pstate2)]
+        if any(t is not None for t in t_tab):
+            t_tab = [torch.full_like(t_cpu, _INF) if t is None else t
+                     for t in t_tab]
+            t_pol = torch.stack(t_tab).gather(
+                0, lc.pol_local.view(1, L, 1).expand(1, L, S))[0]
+            next_dt = torch.minimum(next_dt, t_pol.amin(dim=1))
         # quantise to whole fine steps (floor: undershooting a horizon only
         # costs an extra step).  Clamped in float: inf has no integer.
         next_h = torch.minimum(

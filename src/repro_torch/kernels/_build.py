@@ -18,7 +18,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Dict
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 NVCC_FLAGS = (
@@ -49,13 +49,13 @@ def find_nvcc() -> str:
     )
 
 
-def load(name: str, extra_flags: Optional[tuple] = None) -> ctypes.CDLL:
+def load(name: str) -> ctypes.CDLL:
     """Return the loaded library of ``csrc/<name>.cu``, building it first
     if this process has not and no up-to-date build is on disk."""
     if name in _LIBS:
         return _LIBS[name]
     src = CSRC / f"{name}.cu"
-    flags = NVCC_FLAGS + tuple(extra_flags or ())
+    flags = NVCC_FLAGS
     digest = hashlib.sha1(src.read_bytes() + " ".join(flags).encode()).hexdigest()[:12]
     out_dir = build_dir()
     out_dir.mkdir(parents=True, exist_ok=True)

@@ -31,13 +31,13 @@ def library():
     global _LIB, _MAX_DYN
     if _LIB is None:
         lib = _build.load("pbm_timeline")
-        evict_args = [_P, _P, _I, _P, _P, _P, _I, _I, _I, _P]
+        evict_args = [_P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _P]
         lib.pbm_batched_evict_f32.argtypes = evict_args
         lib.pbm_batched_evict_i32.argtypes = evict_args
         lib.pbm_fifo_grant.argtypes = [_P, _P, _I, _P, _P, _P, _P, _P,
-                                       _I, _I, _I, _P]
+                                       _I, _I, _I, _I, _P]
         lib.pbm_wake_solve.argtypes = [_P, _P, _I, _P, _P, _P, _P,
-                                       _I, _I, _I, _P]
+                                       _I, _I, _I, _I, _P]
         lib.pbm_init.argtypes = [ctypes.POINTER(ctypes.c_int)]
         limits = (ctypes.c_int * 3)()
         _raise_on(lib.pbm_init(limits), "pbm_init")
@@ -72,13 +72,19 @@ def _sizes_stride(sizes: torch.Tensor, L: int, P: int) -> int:
     return P
 
 
-def _fits(P: int, per_page: int, which: int, name: str) -> None:
-    if P * per_page > _MAX_DYN[which]:
+def _sort_len(P: int, which: int, name: str) -> int:
+    """Length of the row a block sorts in shared memory: the power of two
+    at or above ``P`` (at least one warp), 8 bytes an entry.  Raises above
+    what one block can hold."""
+    n = max(32, 1 << (max(P, 1) - 1).bit_length())
+    most = min(_LIB.pbm_max_sort_len(), _MAX_DYN[which] // 8)
+    if n > most:
         raise ValueError(
-            f"{name}: P={P} pages need {P * per_page} bytes of shared memory "
-            f"per lane, above the {_MAX_DYN[which]} a block may take "
-            f"(largest P: {_MAX_DYN[which] // per_page})"
+            f"{name}: P={P} pages sort as {n} entries ({8 * n} bytes of "
+            f"shared memory per lane); one block holds at most {most} "
+            "(page-split candidate selection is not ported yet)"
         )
+    return n
 
 
 def _stream(t: torch.Tensor):
@@ -101,12 +107,12 @@ def batched_evict_kernel(key, sizes, evictable, need_free, *,
     stride = _sizes_stride(sizes, L, P)
     _check(evictable, "evictable", torch.bool, (L, P))
     _check(need_free, "need_free", torch.float32, (L,))
-    _fits(P, 9, 0, "batched_evict")
+    n = _sort_len(P, 0, "batched_evict")
     out = torch.empty((L, P), dtype=torch.bool, device=key.device)
     with torch.cuda.device(key.device):
         err = fn(key.data_ptr(), sizes.data_ptr(), stride,
                  evictable.data_ptr(), need_free.data_ptr(), out.data_ptr(),
-                 L, P, int(vmax), _stream(key))
+                 L, P, int(vmax), n, _stream(key))
     _raise_on(err, "batched_evict launch")
     batched_evict_kernel.launches += 1
     return out
@@ -121,7 +127,7 @@ def fifo_grant_kernel(key, sizes, budget, pops, *, vmax: int = 16,
     stride = _sizes_stride(sizes, L, P)
     _check(budget, "budget", torch.float32, (L,))
     _check(pops, "pops", torch.int32, (L,))
-    _fits(P, 20, 1, "fifo_grant")
+    n_sort = _sort_len(P, 1, "fifo_grant")
     mask = torch.empty((L, P), dtype=torch.bool, device=key.device)
     nbytes = torch.empty((L,), dtype=torch.float32, device=key.device)
     n = torch.empty((L,), dtype=torch.int32, device=key.device)
@@ -129,7 +135,7 @@ def fifo_grant_kernel(key, sizes, budget, pops, *, vmax: int = 16,
         err = lib.pbm_fifo_grant(
             key.data_ptr(), sizes.data_ptr(), stride, budget.data_ptr(),
             pops.data_ptr(), mask.data_ptr(), nbytes.data_ptr(),
-            n.data_ptr(), L, P, int(vmax), _stream(key))
+            n.data_ptr(), L, P, int(vmax), n_sort, _stream(key))
     _raise_on(err, "fifo_grant launch")
     fifo_grant_kernel.launches += 1
     return mask, nbytes, n
@@ -149,13 +155,13 @@ def wake_solve_kernel(key, sizes, credit0, inc, pops, *,
     if not 1 <= int(h_cap) <= lib.pbm_max_h_cap():
         raise ValueError(f"wake_solve: h_cap={h_cap} outside "
                          f"1..{lib.pbm_max_h_cap()}")
-    _fits(P, 12, 2, "wake_solve")
+    n = _sort_len(P, 2, "wake_solve")
     out = torch.empty((L, P), dtype=torch.int32, device=key.device)
     with torch.cuda.device(key.device):
         err = lib.pbm_wake_solve(
             key.data_ptr(), sizes.data_ptr(), stride, credit0.data_ptr(),
             inc.data_ptr(), pops.data_ptr(), out.data_ptr(),
-            L, P, int(h_cap), _stream(key))
+            L, P, int(h_cap), n, _stream(key))
     _raise_on(err, "wake_solve launch")
     wake_solve_kernel.launches += 1
     return out

@@ -125,7 +125,7 @@ def test_shared_size_row_equals_per_lane_sizes():
     """``sizes`` may be one ``(P,)`` row shared by every lane (the
     simulator's page sizes are)."""
     case = dict(GRANT[3])
-    L, P = case["key"].shape
+    L = case["key"].shape[0]
     row = case["sizes"][0]
     key, _, budget, pops = _torch_args(
         case, cases.TENSOR_FIELDS["fifo_grant"])

@@ -194,3 +194,24 @@ def test_run_sweep_and_run_workload_array_agree():
     # a one-policy runner has no stacked dispatch but is the same machine
     assert single.total_loads == batched[4].total_loads
     assert single.wall_s > 0.0
+
+
+def test_a_policy_with_its_own_clock_bounds_the_jump():
+    """``ArrayPolicy.scan_horizon`` is part of the step: a policy that
+    reports one fine step as its horizon pins every jump to one fine
+    step, so the run takes more macro-steps than with plain LRU."""
+    from repro_torch.core.array_sim import ArrayLRU
+
+    spec, ws = _workload()
+
+    class Ticking(ArrayLRU):
+        def scan_horizon(self, pstate, hz):
+            return torch.full_like(hz.rate, float(hz.dt_ref))
+
+    cfg = T.make_config(spec, int(0.8 * ws), 700e6, "lru", device="cpu")
+    steps = []
+    for pol in ("lru", Ticking()):
+        runner = T.make_runner(spec, time_slice=0.1 * SCALE, policies=(pol,),
+                               device="cpu")
+        steps.append(int(runner(cfg).steps[0]))
+    assert steps[1] > steps[0]
