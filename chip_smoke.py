@@ -36,10 +36,8 @@ the run with a non-zero exit code and no ``ok`` line; so does a machine
 without a GPU, or a directory that holds this script and nothing else of
 the repository.
 
-``--phases a,b`` runs a subset (no ``ok`` line then), ``--rehearse-cpu``
-walks the control flow on the CPU with the plain versions (no ``ok`` line,
-exit code 3): both are for development, the check is the run without
-arguments.
+``--phases a,b`` runs a subset (no ``ok`` line, exit code 3): that is for
+development, the check is the run without arguments.
 """
 
 from __future__ import annotations
@@ -120,7 +118,6 @@ def kernel_fns():
 
 
 def phase_kernels_fuzz(dev) -> None:
-    import torch
     from repro_torch.kernels import cases
     fns = kernel_fns()
     out = {"phase": "kernels_fuzz", "device": str(dev), "tolerance": 0}
@@ -131,8 +128,6 @@ def phase_kernels_fuzz(dev) -> None:
         for case in make():
             args = _to_dev(case, cases.TENSOR_FIELDS[name], dev)
             got = kernel(*args, **case["static"])
-            if dev.type == "cuda":
-                torch.cuda.synchronize()
             b, e = _compare(got, plain(*args, **case["static"]))
             if b:
                 emit({"phase": "kernels_fuzz", "kernel": name,
@@ -150,13 +145,16 @@ def phase_kernels_fuzz(dev) -> None:
 class Recorder:
     """Keeps a sample of the inputs the simulator hands to each kernel:
     wraps the three functions of ``repro_torch.kernels.ops`` (which the
-    step calls through the module) while a run is captured."""
+    step calls through the module) while a run is captured.  Every
+    ``STRIDE``-th call is cloned; ``seconds`` is the host time that took,
+    which the sweep's wall time includes."""
 
     STRIDE, CAP = 97, 12
 
     def __init__(self):
         self.samples = {}      # (kernel, P) -> [(args, static), ...]
         self._calls = {}
+        self.seconds = 0.0
 
     def __enter__(self):
         from repro_torch.kernels import ops
@@ -174,10 +172,12 @@ class Recorder:
         def wrapped(*args, **static):
             i = self._calls[name] = self._calls.get(name, 0) + 1
             if i % self.STRIDE == 0:
+                t0 = time.perf_counter()
                 got = self.samples.setdefault((name, args[0].shape[1]), [])
                 if len(got) >= self.CAP:    # keep the run covered: thin out
                     del got[::2]
                 got.append(([a.clone() for a in args], dict(static)))
+                self.seconds += time.perf_counter() - t0
             return fn(*args, **static)
         return wrapped
 
@@ -192,11 +192,6 @@ def _work(name, args) -> int:
 
 def _time_ms(fn, dev, n: int = 30, warm: int = 3) -> float:
     import torch
-    if dev.type != "cuda":
-        t0 = time.perf_counter()
-        for _ in range(n):
-            fn()
-        return (time.perf_counter() - t0) / n * 1e3
     for _ in range(warm):
         fn()
     torch.cuda.synchronize()
@@ -386,28 +381,31 @@ def phase_sim_small(dev) -> None:
 
 
 def phase_sim_micro(phase: str, scale: float, dev, recorder: Recorder,
-                    max_slices=None, streams=(8, 16)):
-    spec, ws = micro_workload(scale, *streams)
+                    max_slices=None):
+    spec, ws = micro_workload(scale, n_streams=8, queries=16)
     lanes, cfgs = sweep_configs(spec, ws, FRACS, dev)
     kw = dict(time_slice=0.1 * scale, bandwidth_ref=700e6)
     if max_slices is not None:
         kw["max_slices"] = max_slices
+    captured = recorder.seconds
     with recorder:
         results, wall, launches, steps, stats = run_sweep_counted(
             spec, cfgs, dev, **kw)
+    captured = recorder.seconds - captured
     rows = lane_rows(lanes, results)
     truncated = any(r["truncated"] for r in rows)
     out = {
         "phase": phase, "scale": scale, "P": spec.n_pages,
         "S": spec.n_streams, "Q": spec.n_queries, "C": spec.n_cols,
         "L": len(lanes), "lanes": rows, "wall_s": wall,
+        "capture_s": captured,      # part of wall_s: cloning kernel inputs
         "batched_steps": steps, **stats,
         "ms_per_macro_step": wall / max(1, steps) * 1e3,
         "launches": launches, "truncated": truncated,
         "max_slices": max_slices,
         "sim_seconds_covered": max(r.sim_time for r in results),
     }
-    out["ok"] = all(v > 0 for v in launches.values()) or dev.type != "cuda"
+    out["ok"] = all(v > 0 for v in launches.values())
     if max_slices is None:
         out["ok"] = out["ok"] and not truncated
     emit(out)
@@ -446,21 +444,16 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default="",
                     help="comma-separated subset of the phases (development)")
-    ap.add_argument("--rehearse-cpu", action="store_true",
-                    help="walk the control flow on the CPU (development)")
     ap.add_argument("--full-max-slices", type=int, default=None,
                     help="cut sim_full at this many slices")
     args = ap.parse_args()
 
     import torch
-    if args.rehearse_cpu:
-        dev = torch.device("cpu")
-    elif not torch.cuda.is_available():
+    if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this script "
               "needs one NVIDIA GPU", file=sys.stderr)
         return 2
-    else:
-        dev = torch.device("cuda")
+    dev = torch.device("cuda")
     from repro_torch.kernels import _build, pbm_timeline
 
     all_phases = ["env", "build", "kernels_fuzz", "sim_small",
@@ -469,22 +462,20 @@ def main() -> int:
     unknown = set(phases) - set(all_phases)
     if unknown:
         ap.error(f"unknown phases {sorted(unknown)}; known: {all_phases}")
-    on_card = dev.type == "cuda"
 
     if "env" in phases:
         env = {"phase": "env", "python": sys.version.split()[0],
                "torch": torch.__version__, "cuda_runtime": torch.version.cuda}
-        if on_card:
-            env["nvcc"] = subprocess.run(
-                [_build.find_nvcc(), "--version"], capture_output=True,
-                text=True, check=True).stdout.strip().splitlines()[-2:]
-            env["gpu"] = nvidia_smi_line()
-            env["device_name"] = torch.cuda.get_device_name(0)
+        env["nvcc"] = subprocess.run(
+            [_build.find_nvcc(), "--version"], capture_output=True,
+            text=True, check=True).stdout.strip().splitlines()[-2:]
+        env["gpu"] = nvidia_smi_line()
+        env["device_name"] = torch.cuda.get_device_name(0)
         emit(env)
 
-    if "build" in phases and on_card:
+    if "build" in phases:
         t0 = time.time()
-        pbm_timeline.library()
+        pbm_timeline.library(dev)
         out = {"phase": "build", "seconds": time.time() - t0,
                "nvcc_seconds": _build.build_seconds, "source": SOURCE,
                "flags": list(_build.NVCC_FLAGS)}
@@ -504,15 +495,11 @@ def main() -> int:
 
     recorder = Recorder()
     launches, main_p, calibrated = None, None, None
-    streams = (8, 16) if on_card else (3, 3)   # streams x queries per stream
     if "sim_calibrated" in phases:
-        calibrated = phase_sim_micro(
-            "sim_calibrated", 0.25 if on_card else 0.03, dev, recorder,
-            streams=streams)
+        calibrated = phase_sim_micro("sim_calibrated", 0.25, dev, recorder)
         launches, main_p = calibrated["launches"], calibrated["P"]
     if "sim_full" in phases:
         max_slices = args.full_max_slices
-        scale = 1.0 if on_card else 0.05
         if max_slices is None and calibrated is not None:
             # scale 1.0 takes roughly four times the macro-steps of scale
             # 0.25 at a similar cost per step: run it to its end only if
@@ -524,10 +511,10 @@ def main() -> int:
                              / max(1, calibrated["refresh_steps"]))
                 ms = calibrated["ms_per_macro_step"]
                 max_slices = max(8, int(budget * 1e3 / (ms * 4.0 * per_slice)))
-        full = phase_sim_micro("sim_full", scale, dev, recorder,
-                               max_slices=max_slices, streams=streams)
+        full = phase_sim_micro("sim_full", 1.0, dev, recorder,
+                               max_slices=max_slices)
         launches, main_p = full["launches"], full["P"]
-    if "tpch_probe" in phases and on_card:
+    if "tpch_probe" in phases:
         phase_tpch_probe(dev, recorder)
 
     kernels_line = None
@@ -540,7 +527,7 @@ def main() -> int:
           "time_limit_s": TIME_LIMIT_S})
     if kernels_line is not None:
         emit(kernels_line)
-    if args.rehearse_cpu or phases != all_phases:
+    if phases != all_phases:
         emit({"ok": False, "partial": True, "phases": phases,
               "device": str(dev)})
         return 3

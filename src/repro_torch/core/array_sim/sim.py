@@ -1035,7 +1035,6 @@ def make_runner(
     h_max: float = 8.0,
     h_io: float = 3.0,
     wake_exact: bool = True,
-    cond_every: int = 1,
     device="cuda",
 ):
     """``run(cfg) -> SimState``: steps every lane of a stacked config
@@ -1054,11 +1053,9 @@ def make_runner(
     ``max_slices`` guard), the inner loop while any live lane has
     macro-steps left in its slice; lanes whose own condition is false are
     frozen by a per-lane select, so a finished lane's state is bit-stable.
-    Each loop condition is one number read back from the device.  Because
-    frozen lanes make extra steps exact no-ops, the inner condition may be
-    read only every ``cond_every`` macro-steps (default: every step — the
-    eager step is bound by launch latency on the host, so the device queue
-    is short when the read happens).
+    Each loop condition is one number read back from the device, the
+    inner one every macro-step: the eager step is bound by launch latency
+    on the host, so the device queue is short when the read happens.
 
     ``policies`` is the set of registry policies the runner's lanes may
     select (default: every ported array policy); a lane whose id is not
@@ -1066,8 +1063,6 @@ def make_runner(
     """
     dev = resolve_device(device)
     pols = resolve_policies(policies)
-    if cond_every < 1:
-        raise ValueError(f"cond_every must be >= 1, got {cond_every}")
     dt = float(step_pages) * float(np.max(spec.page_size)) / float(bandwidth_ref)
     kw = dict(policies=pols, vmax=vmax, stepper=stepper, h_max=h_max,
               h_io=h_io, wake_exact=wake_exact, device=dev)
@@ -1114,13 +1109,10 @@ def make_runner(
             i = 0
             while True:
                 inner = live & inner_cond(carry)
-                every_lane = False
-                if i % cond_every == 0:
-                    n_in = int(inner.sum())       # one read per macro-step
-                    if n_in == 0:
-                        break
-                    every_lane = n_in == L
-                carry = cheap(carry, cfg, None if every_lane else inner, lc)
+                n_in = int(inner.sum())           # one read per macro-step
+                if n_in == 0:
+                    break
+                carry = cheap(carry, cfg, None if n_in == L else inner, lc)
                 i += 1
             carry = full(carry, cfg, None if n_live == L else live, lc)
             stats["cheap_steps"] += i

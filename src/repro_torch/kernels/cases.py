@@ -8,7 +8,8 @@ on the card), so both hold the same shapes: page counts that are not
 multiples of anything (1, 8, 100, 128, 200, 256, 600), a lane axis of 1
 and of 5 with different scalars per lane, a candidate window below the
 victim count, zero budget / zero need, nothing eligible, nothing
-grantable, heavy ties, integer keys around 2^24 and queue keys near 2^30.
+grantable, heavy ties, integer keys around 2^24, queue keys near 2^30 and
+evictable keys at the value that masks the non-evictable pages.
 
 Sizes are whole numbers in 1..8, so every byte prefix is exact in f32 as
 well as in f64 and any disagreement is a fault of the logic, not of
@@ -73,6 +74,18 @@ def evict_cases(seed: int = 0) -> List[Case]:
         (2**24 + rng.integers(0, 64, (L, P))).astype(np.int32),
         rng.integers(1, 4, (L, P)).astype(np.float32),
         rng.random((L, P)) < 0.8, np.full(L, 40.0), 32)
+    # an evictable key AT the value that masks non-evictable pages (-inf /
+    # the integer minimum) ties with them by page index and can fall
+    # outside the candidate window
+    at_mask = rng.random((L, P)) < 0.7
+    fkey = rng.integers(-50, 50, (L, P)).astype(np.float32)
+    add("f32_evictable_key_at_mask_value",
+        np.where(at_mask, -np.inf, fkey).astype(np.float32),
+        _sizes(rng, L, P), rng.random((L, P)) < 0.5, np.full(L, 1e6), 48)
+    ikey = rng.integers(-2**30, 2**30, (L, P))
+    add("i32_evictable_key_at_mask_value",
+        np.where(at_mask, -2**31, ikey).astype(np.int32),
+        _sizes(rng, L, P), rng.random((L, P)) < 0.5, np.full(L, 1e6), 48)
     return out
 
 

@@ -23,8 +23,8 @@
 //   is a prefix sum.  Each page becomes one 64-bit word
 //       [takes no part : 1][~order-preserving key : 32][page index : 31]
 //   so an ascending sort of the words is the service order, ties by index
-//   included, with the pages that take no part (not evictable / not wanted /
-//   padding up to the power of two) at the end.  Keys are compared as
+//   included, with the pages that take no part (not wanted / padding up to
+//   the power of two) at the end.  Keys are compared as
 //   integers built from their own bits: an integer key never passes through
 //   a float (queue keys use ~30 bits; [2^24, 2^24 + 1] must stay distinct),
 //   and a float key maps monotonically (-0.0 is read as +0.0 first, so equal
@@ -50,6 +50,14 @@ constexpr int kMaxHCap = 256;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr uint64_t kOutBit = 1ull << 63;
 constexpr uint32_t kIdxMask = 0x7fffffffu;
+
+template <typename K> __device__ __forceinline__ K lowest_key();
+template <> __device__ __forceinline__ int lowest_key<int>() {
+  return (int)0x80000000;
+}
+template <> __device__ __forceinline__ float lowest_key<float>() {
+  return __uint_as_float(0xff800000u);               // -inf
+}
 
 __device__ __forceinline__ uint32_t ord_key(int k) {
   return (uint32_t)k ^ 0x80000000u;
@@ -114,12 +122,15 @@ __device__ double block_exclusive(double total, double* s_wtot) {
 // batched_evict — replaces src/repro/kernels/pbm_timeline.py
 // batched_evict_kernel (body _kernel): per lane, the evict mask = evictable
 // pages taken in service order among the top `vmax` while the bytes freed
-// BEFORE the page are < need_free, and need_free > 0.
+// BEFORE the page are < need_free, and need_free > 0.  A page that is not
+// evictable sorts with the key type's minimum (-inf / INT_MIN), as in the
+// plain version: an evictable page whose key IS that minimum ties with those
+// pages by index and can fall outside the top `vmax`.
 //
 // Bound: bytes.  It must read L*P*(4 + 1) + 4*P and write L*P bytes, a
 // fraction of a microsecond at 3.35 TB/s, so in practice one launch.  Its own
 // time is the sort of the row; a lane with nothing to free skips it, and only
-// the first min(vmax, evictable) sorted pages are summed.
+// the first min(vmax, P) sorted pages are summed.
 // ---------------------------------------------------------------------------
 template <typename K>
 __global__ void __launch_bounds__(kMaxThreads)
@@ -130,7 +141,6 @@ batched_evict_kernel(const K* __restrict__ key, const float* __restrict__ sizes,
   extern __shared__ __align__(16) unsigned char smem[];
   uint64_t* s_word = reinterpret_cast<uint64_t*>(smem);
   __shared__ double s_wtot[32];
-  __shared__ int s_part;            // pages taking part (evictable)
 
   const int lane = blockIdx.x;
   const size_t row = (size_t)lane * P;
@@ -139,27 +149,24 @@ batched_evict_kernel(const K* __restrict__ key, const float* __restrict__ sizes,
     for (int p = threadIdx.x; p < P; p += blockDim.x) out[row + p] = 0;
     return;
   }
-  if (threadIdx.x == 0) s_part = 0;
-  __syncthreads();
-  int mine = 0;
   for (int i = threadIdx.x; i < n; i += blockDim.x) {
     const bool ev = i < P && evictable[row + i];
-    mine += ev;
-    s_word[i] = sort_word<K>(ev, ev ? key[row + i] : K(0), i);
+    s_word[i] = sort_word<K>(i < P, ev ? key[row + i] : lowest_key<K>(), i);
   }
-  if (mine) atomicAdd(&s_part, mine);
   __syncthreads();
   bitonic_sort(s_word, n);
 
   const float* sz_row = sizes + (size_t)lane * sizes_stride;
-  int cap = vmax < P ? vmax : P;
-  cap = cap < s_part ? cap : s_part;          // candidates: sorted [0, cap)
+  const int cap = vmax < P ? vmax : P;        // candidates: sorted [0, cap)
   const int run_len = n / blockDim.x;
   const int base = threadIdx.x * run_len;
   double total = 0.0;
   for (int c = 0; c < run_len; ++c) {
     const int i = base + c;
-    if (i < cap) total += (double)sz_row[s_word[i] & kIdxMask];
+    if (i < cap) {
+      const int idx = (int)(s_word[i] & kIdxMask);
+      if (evictable[row + idx]) total += (double)sz_row[idx];
+    }
   }
   double before = block_exclusive(total, s_wtot);
   const double need_d = (double)need;
@@ -167,9 +174,9 @@ batched_evict_kernel(const K* __restrict__ key, const float* __restrict__ sizes,
     const int i = base + c;
     const int idx = (int)(s_word[i] & kIdxMask);
     if (idx >= P) continue;                   // padding
-    const bool take = i < cap && before < need_d;
-    out[row + idx] = take ? 1 : 0;
-    if (i < cap) before += (double)sz_row[idx];
+    const bool ev = i < cap && evictable[row + idx];
+    out[row + idx] = (ev && before < need_d) ? 1 : 0;
+    if (ev) before += (double)sz_row[idx];
   }
 }
 

@@ -23,12 +23,14 @@ from . import _build
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _LIB = None
-_MAX_DYN = (0, 0, 0)     # dynamic shared-memory limit: evict, grant, wake
+_MAX_DYN = {}   # device index -> dynamic shared-memory limit: evict, grant, wake
 
 
-def library():
-    """The loaded kernel library (built at first use)."""
-    global _LIB, _MAX_DYN
+def library(device):
+    """``(library, shared-memory limits)`` for the CUDA ``device``: built
+    and loaded at first use, and the kernels' shared-memory limit raised
+    once on every device they are launched on."""
+    global _LIB
     if _LIB is None:
         lib = _build.load("pbm_timeline")
         evict_args = [_P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _P]
@@ -39,11 +41,18 @@ def library():
         lib.pbm_wake_solve.argtypes = [_P, _P, _I, _P, _P, _P, _P,
                                        _I, _I, _I, _I, _P]
         lib.pbm_init.argtypes = [ctypes.POINTER(ctypes.c_int)]
-        limits = (ctypes.c_int * 3)()
-        _raise_on(lib.pbm_init(limits), "pbm_init")
-        _MAX_DYN = tuple(limits)
         _LIB = lib
-    return _LIB
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError(f"expected a CUDA device, got {device}")
+    index = (torch.cuda.current_device() if device.index is None
+             else device.index)
+    if index not in _MAX_DYN:
+        limits = (ctypes.c_int * 3)()
+        with torch.cuda.device(index):
+            _raise_on(_LIB.pbm_init(limits), "pbm_init")
+        _MAX_DYN[index] = tuple(limits)
+    return _LIB, _MAX_DYN[index]
 
 
 def _raise_on(err: int, what: str) -> None:
@@ -72,12 +81,12 @@ def _sizes_stride(sizes: torch.Tensor, L: int, P: int) -> int:
     return P
 
 
-def _sort_len(P: int, which: int, name: str) -> int:
+def _sort_len(P: int, max_dyn: int, name: str) -> int:
     """Length of the row a block sorts in shared memory: the power of two
     at or above ``P`` (at least one warp), 8 bytes an entry.  Raises above
     what one block can hold."""
     n = max(32, 1 << (max(P, 1) - 1).bit_length())
-    most = min(_LIB.pbm_max_sort_len(), _MAX_DYN[which] // 8)
+    most = min(_LIB.pbm_max_sort_len(), max_dyn // 8)
     if n > most:
         raise ValueError(
             f"{name}: P={P} pages sort as {n} entries ({8 * n} bytes of "
@@ -95,19 +104,19 @@ def batched_evict_kernel(key, sizes, evictable, need_free, *,
                          vmax: int = 64) -> torch.Tensor:
     """Evict mask ``(L, P)`` bool; ``key`` is f32 or i32 (two
     instantiations, the integer one never touches a float)."""
-    lib = library()
     L, P = key.shape
+    _check(key, "key", key.dtype, (L, P))
+    lib, max_dyn = library(key.device)
     if key.dtype == torch.float32:
         fn = lib.pbm_batched_evict_f32
     elif key.dtype == torch.int32:
         fn = lib.pbm_batched_evict_i32
     else:
         raise TypeError(f"key: expected float32 or int32, got {key.dtype}")
-    _check(key, "key", key.dtype, (L, P))
     stride = _sizes_stride(sizes, L, P)
     _check(evictable, "evictable", torch.bool, (L, P))
     _check(need_free, "need_free", torch.float32, (L,))
-    n = _sort_len(P, 0, "batched_evict")
+    n = _sort_len(P, max_dyn[0], "batched_evict")
     out = torch.empty((L, P), dtype=torch.bool, device=key.device)
     with torch.cuda.device(key.device):
         err = fn(key.data_ptr(), sizes.data_ptr(), stride,
@@ -121,13 +130,13 @@ def batched_evict_kernel(key, sizes, evictable, need_free, *,
 def fifo_grant_kernel(key, sizes, budget, pops, *, vmax: int = 16,
                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``(mask (L, P) bool, granted_bytes (L,) f32, n_granted (L,) i32)``."""
-    lib = library()
     L, P = key.shape
     _check(key, "key", torch.int32, (L, P))
+    lib, max_dyn = library(key.device)
     stride = _sizes_stride(sizes, L, P)
     _check(budget, "budget", torch.float32, (L,))
     _check(pops, "pops", torch.int32, (L,))
-    n_sort = _sort_len(P, 1, "fifo_grant")
+    n_sort = _sort_len(P, max_dyn[1], "fifo_grant")
     mask = torch.empty((L, P), dtype=torch.bool, device=key.device)
     nbytes = torch.empty((L,), dtype=torch.float32, device=key.device)
     n = torch.empty((L,), dtype=torch.int32, device=key.device)
@@ -145,9 +154,9 @@ def wake_solve_kernel(key, sizes, credit0, inc, pops, *,
                       h_cap: int = 64) -> torch.Tensor:
     """Grant step per page, ``(L, P)`` i32 in ``1..h_cap``, sentinel
     ``h_cap + 1``."""
-    lib = library()
     L, P = key.shape
     _check(key, "key", torch.int32, (L, P))
+    lib, max_dyn = library(key.device)
     stride = _sizes_stride(sizes, L, P)
     _check(credit0, "credit0", torch.float32, (L,))
     _check(inc, "inc", torch.float32, (L,))
@@ -155,7 +164,7 @@ def wake_solve_kernel(key, sizes, credit0, inc, pops, *,
     if not 1 <= int(h_cap) <= lib.pbm_max_h_cap():
         raise ValueError(f"wake_solve: h_cap={h_cap} outside "
                          f"1..{lib.pbm_max_h_cap()}")
-    n = _sort_len(P, 2, "wake_solve")
+    n = _sort_len(P, max_dyn[2], "wake_solve")
     out = torch.empty((L, P), dtype=torch.int32, device=key.device)
     with torch.cuda.device(key.device):
         err = lib.pbm_wake_solve(

@@ -26,7 +26,14 @@ from repro.kernels.pbm_timeline import (  # noqa: E402
 )
 from repro_torch.kernels import cases, ops  # noqa: E402
 
-EVICT = cases.evict_cases()
+# an evictable key AT the value that masks non-evictable pages: the oracle
+# masks with -inf / the integer minimum, the Pallas body with finite
+# sentinels (-1e30, -2^31 + 1), so the two JAX functions differ there and
+# the port follows the oracle
+EVICT_AT_MASK = [c for c in cases.evict_cases()
+                 if c["name"].endswith("_at_mask_value")]
+EVICT = [c for c in cases.evict_cases()
+         if not c["name"].endswith("_at_mask_value")]
 GRANT = cases.grant_cases()
 WAKE = cases.wake_cases()
 
@@ -77,6 +84,22 @@ def test_batched_evict_equals_jax_oracle_and_interpret_kernel(case):
                          **case["static"]),
            _jax_per_lane(batched_evict_kernel, case, fields,
                          interpret=True, **case["static"]))
+
+
+@pytest.mark.parametrize("case", EVICT_AT_MASK,
+                         ids=[c["name"] for c in EVICT_AT_MASK])
+def test_batched_evict_key_at_the_mask_value_follows_the_oracle(case):
+    """Such a page ties with the non-evictable ones by page index, so it
+    can fall outside the top ``vmax``: fewer pages are taken than are
+    evictable although ``need_free`` is never reached."""
+    fields = cases.TENSOR_FIELDS["batched_evict"]
+    key, sizes, evictable, need = _torch_args(case, fields)
+    got = ops.batched_evict(key, sizes, evictable, need, **case["static"])
+    want, = _jax_per_lane(jref.batched_evict_ref, case, fields,
+                          **case["static"])
+    np.testing.assert_array_equal(got.numpy(), want)
+    vmax = case["static"]["vmax"]
+    assert bool((got.sum(1) < torch.clamp(evictable.sum(1), max=vmax)).all())
 
 
 def test_batched_evict_i32_pair_beyond_2pow24_evicts_index_1():

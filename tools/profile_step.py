@@ -4,8 +4,10 @@ one step launches, by operator, and what a step costs on the host clock.
     python3 tools/profile_step.py [--scale 0.25] [--steps 40]
 
 Prints one JSON object per line: the card, the step's wall time (host
-clock around steps that end in a synchronise), and the operators of one
-profiled window sorted by launch count with their host and device time.
+clock around steps that end in a synchronise), then for one profiled
+window the device launches per step, the device's busy time and idle share,
+the hand-written kernels' share of the device time, and the operators
+sorted by device time and by launch count.
 """
 
 from __future__ import annotations
@@ -66,24 +68,44 @@ def main() -> int:
             with torch.inference_mode():
                 slice_of_steps(carry, args.steps)
         torch.cuda.synchronize()
+        ms = (time.time() - t0) / args.steps * 1e3
+        if mode == "plain":
+            ms_plain = ms
         print(json.dumps({"mode": mode, "steps": args.steps,
-                          "ms_per_step": (time.time() - t0) / args.steps * 1e3}),
-              flush=True)
+                          "ms_per_step": ms}), flush=True)
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         carry = slice_of_steps(carry, args.steps)
         torch.cuda.synchronize()
+    from torch.autograd import DeviceType
     rows = []
-    dev_total = 0.0
+    dev_total = hand_total = 0.0
+    launches = hand_launches = 0
     for k in prof.key_averages():
         dev_us = getattr(k, "self_device_time_total", 0.0) or 0.0
-        dev_total += dev_us
+        if k.device_type == DeviceType.CUDA:
+            # an event of the device's own timeline: a kernel, a copy or a
+            # fill that the step put on the stream.  (An operator's row
+            # repeats the device time of the kernels it launched: only the
+            # device's own rows are summed.)
+            launches += k.count
+            dev_total += dev_us
+            if any(name in k.key for name in cs.REPLACES):
+                hand_launches += k.count
+                hand_total += dev_us
         rows.append({"op": k.key, "per_step": k.count / args.steps,
                      "host_us_per_step": k.self_cpu_time_total / args.steps,
                      "device_us_per_step": dev_us / args.steps})
     rows.sort(key=lambda r: -r["device_us_per_step"])
-    print(json.dumps({"device_busy_ms_per_step": dev_total / args.steps / 1e3}),
-          flush=True)
+    busy_ms = dev_total / args.steps / 1e3
+    print(json.dumps({
+        "device_launches_per_step": launches / args.steps,
+        "device_busy_ms_per_step": busy_ms,
+        "device_idle_share_of_plain_step": 1.0 - busy_ms / ms_plain,
+        "hand_kernel_launches_per_step": hand_launches / args.steps,
+        "hand_kernel_device_ms_per_step": hand_total / args.steps / 1e3,
+        "hand_kernel_share_of_device_time": hand_total / max(dev_total, 1e-9),
+    }), flush=True)
     for r in rows[:40]:
         print(json.dumps(r), flush=True)
     rows.sort(key=lambda r: -r["per_step"])
