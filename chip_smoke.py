@@ -3,32 +3,47 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path — the batched buffer-pool simulator (LRU /
-PBM / OPT lanes, event-horizon stepper) — end to end on the card, builds
-the hand-written CUDA kernels from the sources in this checkout, and
-holds each kernel equal to its plain PyTorch version on the card.  It
-imports nothing of JAX and nothing of the JAX package.
+Drives the port's two paths end to end on the card — the batched
+buffer-pool simulator (LRU / PBM / OPT lanes, event-horizon stepper) and
+the paged-KV serving path (page pool, policy driver, continuous-batching
+engine, ``PagedTinyLM`` decoding through paged attention) — builds the
+hand-written CUDA kernels from the sources in this checkout, and holds
+each kernel to its plain PyTorch version on the card.  It imports nothing
+of JAX and nothing of the JAX package.
 
 One JSON object per phase, one per line:
 
 1. ``env``            torch / CUDA / nvcc versions, the card and its power limit
-2. ``build``          compile the kernel library, seconds
-3. ``kernels_fuzz``   every kernel against its plain version on the fuzz
-                      shapes of the CPU tests (outputs must be EQUAL)
-4. ``sim_small``      a tiny sweep on ``cuda`` and, asked for explicitly, on
+2. ``build``          compile the kernel libraries (one ``nvcc`` per source,
+                      all at once), seconds
+3. ``kernels_fuzz``   every buffer-pool kernel against its plain version on
+                      the fuzz shapes of the CPU tests (outputs must be EQUAL)
+4. ``paged_fuzz``     paged attention against its plain version on its fuzz
+                      cases, f32 and bf16 (atol = rtol = 3e-5 / 3e-2)
+5. ``sim_small``      a tiny sweep on ``cuda`` and, asked for explicitly, on
                       ``cpu``: the two must agree
-5. ``sim_calibrated`` micro workload, scale 0.25, 18 lanes = {lru, pbm, opt} x
+6. ``serve_small``    ``TinyConfig()`` with the same weights on ``cuda`` and,
+                      asked for explicitly, on ``cpu``, at the serving
+                      benchmark's default point under all four policies:
+                      equal stats, token gaps and finish order, every
+                      forward's logits within 1e-4
+7. ``sim_calibrated`` micro workload, scale 0.25, 18 lanes = {lru, pbm, opt} x
                       buffer fractions {0.1 .. 1.0}, to completion
-6. ``sim_full``       the same sweep at scale 1.0 (the paper's size: 180 M
+8. ``serve_full``     ``PagedTinyLM`` at Qwen2-1.5B's attention widths and
+                      depth (28 layers, d 1536, 12 query / 2 KV heads of 128,
+                      vocabulary 151,936; random weights from a seed) at the
+                      default point under ``pbm``, to completion
+9. ``sim_full``       the same sweep at scale 1.0 (the paper's size: 180 M
                       tuples, P = 3072); to completion if the time limit
                       allows, else cut at a stated ``max_slices`` and
                       reported as truncated
-7. ``tpch_probe``     a few slices of the TPC-H workload (P = 8832), only to
+10. ``tpch_probe``    a few slices of the TPC-H workload (P = 8832), only to
                       give the kernels that shape with real keys and sizes
-8. ``kernels``        every kernel against its plain version on inputs
-                      captured from phases 5-7, and its time (CUDA events,
-                      median of 30 launches) beside the plain version's, one
-                      PyTorch sort + cumsum as yardstick, and its bound
+11. ``kernels``       every kernel against its plain version on inputs
+                      captured from phases 7-10, and its time (CUDA events,
+                      median of 30 launches) beside the plain version's, a
+                      PyTorch yardstick and its bound; paged attention also
+                      at a deployment's batch (B = 32, 1024-4096 tokens)
 
 then the card's name and power limit as ``nvidia-smi`` prints them, then
 ``{"ok": true, "device": {...}}`` as the last line.  Any failed phase ends
@@ -50,21 +65,48 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(HERE, "src"))
 
 TIME_LIMIT_S = 1200.0          # the whole script, kernel build included
-TARGET_S = 560.0               # aim to finish in about half of it
+#: what the whole script aims at: the serving phases take ~100 s before
+#: sim_full, so this is the first slice's 560 s plus that, to leave sim_full
+#: the budget it had before them
+TARGET_S = 680.0
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate
 FP32_OPS_PER_S = 67e12         # H100 SXM float32 rate outside the tensor cores
-SOURCE = "src/repro_torch/kernels/csrc/pbm_timeline.cu"
+SOURCE = {
+    "batched_evict": "src/repro_torch/kernels/csrc/pbm_timeline.cu",
+    "fifo_grant": "src/repro_torch/kernels/csrc/pbm_timeline.cu",
+    "wake_solve": "src/repro_torch/kernels/csrc/pbm_timeline.cu",
+    "paged_attention": "src/repro_torch/kernels/csrc/paged_attention.cu",
+}
 REPLACES = {
     "batched_evict": "src/repro/kernels/pbm_timeline.py:316",
     "fifo_grant": "src/repro/kernels/pbm_timeline.py:269",
     "wake_solve": "src/repro/kernels/pbm_timeline.py:367",
+    "paged_attention": "src/repro/kernels/paged_attention.py:94",
 }
+SIM_KERNELS = ("batched_evict", "fifo_grant", "wake_solve")
 POLICIES = ("lru", "pbm", "opt")
+SERVING_POLICIES = ("lru", "cscan", "pbm", "opt")
+#: benchmarks/serving_bench.py DEFAULT_POINT (copied: that module imports the
+#: JAX package): the pool holds ~60 % of peak demand, half the requests share
+#: a 64-token system prompt, one arrival per engine step
+SERVE_POINT = dict(
+    n_requests=32, pool_pages=28, page_size=16, prefix_len=64,
+    share_ratio=0.5, max_batch=8, arrival_interval=1,
+    gen_lo=16, gen_hi=160, seed=1,
+)
+#: PagedTinyLM's block at the attention widths and depth of
+#: src/repro/configs/qwen2_1_5b.py (not Qwen2-1.5B: GELU MLP of 4 d, no
+#: RoPE, norms or QKV bias)
+QWEN2_1_5B_WIDTHS = dict(
+    vocab=151936, d_model=1536, n_layers=28, n_heads=12, n_kv_heads=2,
+    head_dim=128, page_size=16, n_pages=28,
+)
 FRACS = (0.1, 0.2, 0.4, 0.6, 0.8, 1.0)
 T0 = time.time()
 
@@ -114,6 +156,7 @@ def kernel_fns():
         "batched_evict": (ops.batched_evict, ref.batched_evict_ref),
         "fifo_grant": (ops.fifo_grant, ref.fifo_grant_ref),
         "wake_solve": (ops.wake_solve, ref.wake_solve_ref),
+        "paged_attention": (ops.paged_attention, ref.paged_attention_ref),
     }
 
 
@@ -136,30 +179,33 @@ def phase_kernels_fuzz(dev) -> None:
             err = max(err, e)
             n_cases += 1
         out[name] = {"cases": n_cases, "mismatches": bad, "max_abs_err": err}
-    out["ok"] = all(out[k]["mismatches"] == 0 for k in fns)
+    out["ok"] = all(out[k]["mismatches"] == 0 for k in cases.CASES)
     emit(out)
     if not out["ok"]:
         fail("kernels_fuzz", "a kernel disagrees with its plain version")
 
 
 class Recorder:
-    """Keeps a sample of the inputs the simulator hands to each kernel:
-    wraps the three functions of ``repro_torch.kernels.ops`` (which the
-    step calls through the module) while a run is captured.  Every
-    ``STRIDE``-th call is cloned; ``seconds`` is the host time that took,
-    which the sweep's wall time includes."""
+    """Keeps a sample of the inputs a path hands to each of ``names``
+    (functions of ``repro_torch.kernels.ops``, which the simulator's step
+    and the serving model call through the module) while a run is
+    captured.  Every ``STRIDE``-th call is cloned, keyed by the kernel and
+    its second input dimension (the page count of a simulator kernel);
+    ``seconds`` is the host time that took, which the run's wall time
+    includes."""
 
     STRIDE, CAP = 97, 12
 
-    def __init__(self):
-        self.samples = {}      # (kernel, P) -> [(args, static), ...]
+    def __init__(self, names=SIM_KERNELS):
+        self.names = tuple(names)
+        self.samples = {}      # (kernel, dim) -> [(args, static), ...]
         self._calls = {}
         self.seconds = 0.0
 
     def __enter__(self):
         from repro_torch.kernels import ops
         self._ops = ops
-        self._orig = {n: getattr(ops, n) for n in REPLACES}
+        self._orig = {n: getattr(ops, n) for n in self.names}
         for name, fn in self._orig.items():
             setattr(ops, name, self._wrap(name, fn))
         return self
@@ -235,14 +281,16 @@ def _bound_ms(name, args, outs):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def phase_kernels(dev, recorder: Recorder, launches: dict, main_p: int) -> dict:
-    """Kernel against plain version on the captured simulator inputs, and
-    the timings.  ``main_p`` is the page count of the main path whose
-    numbers go into the top-level keys of each kernel's entry."""
+def sim_kernel_entries(dev, recorder: Recorder, launches: dict,
+                       main_p: int) -> list:
+    """Buffer-pool kernels against their plain versions on the captured
+    simulator inputs, and the timings.  ``main_p`` is the page count of the
+    main path whose numbers go into the top-level keys of each kernel's
+    entry."""
     import torch
     fns = kernel_fns()
     entries = []
-    for name in REPLACES:
+    for name in SIM_KERNELS:
         kernel, plain = fns[name]
         bad, err, n_inputs = 0, 0.0, 0
         by_p = {}
@@ -268,7 +316,7 @@ def phase_kernels(dev, recorder: Recorder, launches: dict, main_p: int) -> dict:
             fail("kernels", f"{name}: no input captured at P={main_p}")
         main = by_p[main_p]
         entry = {
-            "name": name, "route": "cuda", "source": SOURCE,
+            "name": name, "route": "cuda", "source": SOURCE[name],
             "replaces": REPLACES[name], "launches": launches[name],
             "max_abs_err": err, "mismatches": bad, "inputs_compared": n_inputs,
             "ms": main["ms"], "plain_ms": main["plain_ms"],
@@ -293,12 +341,493 @@ def phase_kernels(dev, recorder: Recorder, launches: dict, main_p: int) -> dict:
             bad += b
             entry["mismatches"] = bad
         entries.append(entry)
-    line = {"kernels": entries}
-    if any(e["mismatches"] for e in entries):
-        emit(line)
-        fail("kernels", "a kernel disagrees with its plain version on the "
-                        "simulator's inputs")
-    return line
+    return entries
+
+
+# ------------------------------------------------------- paged attention ----
+
+def _paged_compare(got, want, dtype: str):
+    """(elements outside atol = rtol = PAGED_TOL[dtype], max abs
+    difference): the criterion of ``numpy.allclose``; a non-finite element
+    counts as outside."""
+    from repro_torch.kernels import cases
+    tol = cases.PAGED_TOL[dtype]
+    g, w = got.float(), want.float()
+    diff = (g - w).abs()
+    bad = int((~(diff <= tol + tol * w.abs())).sum())
+    return bad, float(diff.max()) if diff.numel() else 0.0
+
+
+def _dtype_name(t) -> str:
+    return str(t.dtype).replace("torch.", "")
+
+
+def phase_paged_fuzz(dev) -> None:
+    from repro_torch.kernels import cases, ops, ref
+    import torch
+    out = {"phase": "paged_fuzz", "device": str(dev),
+           "tolerance": cases.PAGED_TOL}
+    for case in cases.paged_cases():
+        args = cases.paged_tensors(case, dev)
+        got = ops.paged_attention(*args)
+        torch.cuda.synchronize()
+        b, e = _paged_compare(got, ref.paged_attention_ref(*args),
+                              case["dtype"])
+        if b:
+            emit({"phase": "paged_fuzz", "case": case["name"],
+                  "mismatches": b, "max_abs_err": e})
+        row = out.setdefault(case["dtype"], {"cases": 0, "mismatches": 0,
+                                             "max_abs_err": 0.0})
+        row["cases"] += 1
+        row["mismatches"] += b
+        row["max_abs_err"] = max(row["max_abs_err"], e)
+    out["ok"] = all(out[d]["mismatches"] == 0 for d in cases.PAGED_TOL)
+    emit(out)
+    if not out["ok"]:
+        fail("paged_fuzz", "paged attention disagrees with its plain version")
+
+
+def _paged_work(args):
+    """(pages read, positions attended) of one paged-attention call: the
+    pages that hold a position below each sequence's length (the whole
+    table for a length of 0), and those positions."""
+    _q, _kp, _vp, pt, sl = args
+    ps, pps = args[1].shape[1], pt.shape[1]
+    sl = sl.long()
+    pages = ((sl + ps - 1) // ps).clamp(max=pps).masked_fill(sl <= 0, pps)
+    return int(pages.sum()), int(sl.clamp(min=0, max=pps * ps).sum())
+
+
+def _paged_bound_ms(args, out):
+    """Least time the card could take: q, the table, the lengths and the K
+    and V rows of the pages the call must read, each read once, and the
+    output written once, at the memory rate; against two f32 multiply-adds
+    per query head, head dimension and attended position (scores and
+    values) at the f32 rate outside the tensor cores."""
+    q, kp, _vp, pt, sl = args
+    pages, positions = _paged_work(args)
+    _, ps, hk, dh = kp.shape
+    nbytes = 2 * pages * ps * hk * dh * kp.element_size()
+    nbytes += sum(t.numel() * t.element_size() for t in (q, pt, sl, out))
+    n_ops = 4.0 * q.shape[1] * dh * positions
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / FP32_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def _paged_library_calls(args):
+    """The yardstick: an ``index_select`` gather of the table's pages and
+    one ``scaled_dot_product_attention`` call on them (GQA, boolean
+    length mask); and the same call on K/V gathered beforehand.  Never
+    called on the port's path."""
+    import torch
+    import torch.nn.functional as F
+    q, kp, vp, pt, sl = args
+    B, H, dh = q.shape
+    _, ps, hk, _ = kp.shape
+    S = pt.shape[1] * ps
+    idx = pt.reshape(-1).long()
+    mask = (torch.arange(S, device=q.device)[None, :]
+            < sl.long()[:, None]).view(B, 1, 1, S)
+    qq = q.view(B, H, 1, dh)
+
+    def gather():
+        k = kp.index_select(0, idx).view(B, S, hk, dh).transpose(1, 2)
+        v = vp.index_select(0, idx).view(B, S, hk, dh).transpose(1, 2)
+        return k, v
+
+    k0, v0 = gather()
+
+    def with_gather():
+        k, v = gather()
+        return F.scaled_dot_product_attention(qq, k, v, attn_mask=mask,
+                                              enable_gqa=True).view(B, H, dh)
+
+    def without_gather():
+        return F.scaled_dot_product_attention(qq, k0, v0, attn_mask=mask,
+                                              enable_gqa=True).view(B, H, dh)
+    return with_gather, without_gather
+
+
+def _paged_shape_row(label, args, dev):
+    from repro_torch.kernels import ops, ref
+    kernel = ops.paged_attention
+    out = kernel(*args)
+    want = ref.paged_attention_ref(*args)
+    dtype = _dtype_name(args[0])
+    bad, err = _paged_compare(out, want, dtype)
+    bound, bound_by = _paged_bound_ms(args, out)
+    with_gather, without_gather = _paged_library_calls(args)
+    _, lib_err = _paged_compare(with_gather(), want, dtype)
+    pages, positions = _paged_work(args)
+    q, kp, _vp, pt, sl = args
+    return {
+        "shape": label, "dtype": dtype, "B": int(q.shape[0]),
+        "H": int(q.shape[1]), "Hk": int(kp.shape[2]), "dh": int(q.shape[2]),
+        "page_size": int(kp.shape[1]), "pages_per_seq": int(pt.shape[1]),
+        "pool_pages": int(kp.shape[0]),
+        "seq_lens": [int(sl.min()), int(sl.max())],
+        "pages_read": pages, "positions": positions,
+        "mismatches": bad, "max_abs_err": err,
+        "ms": _time_ms(lambda: kernel(*args), dev),
+        "plain_ms": _time_ms(lambda: ref.paged_attention_ref(*args), dev),
+        "library_ms": _time_ms(with_gather, dev),
+        "library_no_gather_ms": _time_ms(without_gather, dev),
+        "library_max_abs_err": lib_err,
+        "bound_ms": bound, "bound_by": bound_by,
+    }
+
+
+def deployment_batch(dev, dtype):
+    """A decode batch a deployment runs at these widths: B = 32 sequences
+    of 1024-4096 tokens, H = 12, Hk = 2, dh = 128, pages of 16 tokens, a
+    pool of 8192 pages, each sequence's table a slice of one random
+    permutation of the pool.  Drawn on the card from a seed."""
+    import torch
+    B, H, hk, dh, ps, n_pages = 32, 12, 2, 128, 16, 8192
+    pps = 4096 // ps
+    g = torch.Generator(device=dev).manual_seed(5)
+    q = torch.randn((B, H, dh), generator=g, device=dev).to(dtype)
+    kp = (0.5 * torch.randn((n_pages, ps, hk, dh), generator=g,
+                            device=dev)).to(dtype)
+    vp = (0.5 * torch.randn((n_pages, ps, hk, dh), generator=g,
+                            device=dev)).to(dtype)
+    pt = torch.randperm(n_pages, generator=g, device=dev)[: B * pps]
+    pt = pt.view(B, pps).to(torch.int32)
+    sl = torch.randint(1024, 4097, (B,), generator=g, device=dev,
+                       dtype=torch.int32)
+    return [q, kp, vp, pt, sl]
+
+
+def paged_kernel_entry(dev, recorder: Recorder, serve_full: dict) -> dict:
+    """Paged attention against its plain version on every input captured
+    from ``serve_full`` and at a deployment's batch in f32 and bf16, with
+    the timings.  The top-level numbers are the heaviest captured input's
+    (the main path)."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    samples = [a for (name, _), got in sorted(recorder.samples.items())
+               for a, _ in got if name == "paged_attention"]
+    if not samples:
+        fail("kernels", "paged_attention: no input captured in serve_full")
+    bad, err = 0, 0.0
+    for args in samples:
+        b, e = _paged_compare(ops.paged_attention(*args),
+                              ref.paged_attention_ref(*args),
+                              _dtype_name(args[0]))
+        bad, err = bad + b, max(err, e)
+    heaviest = max(samples, key=lambda a: _paged_work(a)[0])
+    rows = [_paged_shape_row("serve_full captured", heaviest, dev)]
+    main = rows[0]
+    for dtype in (torch.float32, torch.bfloat16):
+        args = deployment_batch(dev, dtype)
+        rows.append(_paged_shape_row("deployment", args, dev))
+        del args
+    torch.cuda.empty_cache()
+    bad_all = bad + sum(r["mismatches"] for r in rows[1:])
+    launches = serve_full["launches"]["paged_attention"]
+    return {
+        "name": "paged_attention", "route": "cuda",
+        "source": SOURCE["paged_attention"],
+        "replaces": REPLACES["paged_attention"], "launches": launches,
+        "max_abs_err": max([err] + [r["max_abs_err"] for r in rows[1:]]),
+        "mismatches": bad_all, "inputs_compared": len(samples),
+        "tolerance": {"float32": 3e-5, "bfloat16": 3e-2},
+        "ms": main["ms"], "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+        "library_ms": main["library_ms"],
+        "library_no_gather_ms": main["library_no_gather_ms"],
+        "share_of_forward": serve_full["profile"][
+            "paged_attention_share_of_forward"],
+        "share_of_forward_window": "serve_full profile: 40 decode forwards "
+                                   "at position 200 over 13 pages",
+        "shapes": rows,
+    }
+
+
+# --------------------------------------------------------------- serving ----
+
+def serve_plan(vocab: int, *, n_requests, page_size, prefix_len, share_ratio,
+               gen_lo, gen_hi, seed, **_):
+    """The serving benchmark's requests (``run_policy``'s draw), request
+    ids 0..n-1.  Token ids are taken modulo the model's vocabulary: the
+    unshared prefixes use ids 1000 + i, outside ``TinyConfig()``'s 512;
+    which prompts share a prefix does not change."""
+    import numpy as np
+    from repro_torch.serving import Request
+    rng = np.random.default_rng(seed)
+    common = list(range(prefix_len))
+    lengths = rng.integers(gen_lo, gen_hi, n_requests)
+    shared = rng.random(n_requests) < share_ratio
+    plan = []
+    for i in range(n_requests):
+        prefix = common if shared[i] else [1000 + i] * prefix_len
+        prompt = prefix + [int(t) for t in rng.integers(0, 100, 16)]
+        plan.append(Request(prompt=[t % vocab for t in prompt],
+                            max_new_tokens=int(lengths[i]), rid=i))
+    return plan
+
+
+def serve_point(policy: str, lm, on_logits=None):
+    """Run the point to completion under ``policy`` through the engine of
+    ``repro_torch.launch.serve`` with ``lm``'s ``step_fn``, one arrival
+    every ``arrival_interval`` steps.  ``on_logits`` sees every forward's
+    logits.  Returns ``(engine, wall seconds, token-forwards)``."""
+    import torch
+    from repro_torch.launch import serve
+    forward = lm._forward_token
+    count = [0]
+
+    def counted(*a, **k):
+        out = forward(*a, **k)
+        count[0] += 1
+        if on_logits is not None:
+            on_logits(out)
+        return out
+
+    point, cfg = SERVE_POINT, lm.cfg
+    lm._forward_token = counted
+    try:
+        eng = serve.make_engine(policy, point["pool_pages"],
+                                point["page_size"], point["max_batch"],
+                                lm.step_fn, cfg)
+        plan = serve_plan(cfg.vocab, **point)
+        t0 = time.time()
+        due = 0
+        while len(eng.finished) < len(plan) and eng.stats.steps < 50_000:
+            while due < len(plan) and \
+                    eng.stats.steps >= due * point["arrival_interval"]:
+                eng.submit(plan[due])
+                due += 1
+            eng.step()
+        if lm.device.type == "cuda":
+            torch.cuda.synchronize()
+        wall = time.time() - t0
+    finally:
+        lm._forward_token = forward
+    return eng, wall, count[0]
+
+
+def _max_abs_diff(a, b) -> float:
+    """Largest absolute difference; infinity when either side holds a
+    value that is not finite (``max`` would drop a NaN)."""
+    import math
+    d = float((a.float() - b.float()).abs().max()) if a.numel() else 0.0
+    return d if math.isfinite(d) else float("inf")
+
+
+def _engine_summary(eng) -> dict:
+    import dataclasses
+    return {"stats": dataclasses.asdict(eng.stats),
+            "token_gaps": list(eng.token_gaps),
+            "finished": [r.rid for r in eng.finished]}
+
+
+def phase_serve_small(dev) -> None:
+    """``TinyConfig()`` with the same weights on the card and on the CPU,
+    under every serving policy: scheduling does not depend on token values,
+    so stats, gaps and finish order must be equal, and every forward's
+    logits within 1e-4 (f32, sums in another order).  Equal tokens are
+    reported, not relied on: at these widths the argmax is nearly always
+    the input token, whatever attention computes."""
+    import torch
+    from repro_torch.serving.model import PagedTinyLM, TinyConfig
+    cfg = TinyConfig()
+    tol = 1e-4
+    rows, ok = [], True
+    for policy in SERVING_POLICIES:
+        runs = []
+        for device in (dev, torch.device("cpu")):
+            lm = PagedTinyLM(cfg, seed=0, device=device)
+            logits = []
+            threads = torch.get_num_threads()
+            if device.type == "cpu":       # tiny ops: threads only contend
+                torch.set_num_threads(1)
+            try:
+                eng, wall, forwards = serve_point(
+                    policy, lm, on_logits=lambda t: logits.append(
+                        t.detach().to("cpu", copy=True)))
+            finally:
+                torch.set_num_threads(threads)
+            runs.append((eng, wall, forwards, logits))
+        (ge, gwall, gfwd, glog), (ce, cwall, cfwd, clog) = runs
+        same_sched = _engine_summary(ge) == _engine_summary(ce)
+        err = max((_max_abs_diff(a, b) for a, b in zip(glog, clog)),
+                  default=float("inf"))
+        row = {
+            "policy": policy, "schedule_equal": same_sched,
+            "forwards": [gfwd, cfwd], "logits_max_abs_err": err,
+            "logits_tolerance": tol,
+            "tokens_equal": ([r.generated for r in ge.finished]
+                             == [r.generated for r in ce.finished]),
+            "completed": len(ge.finished), "steps": ge.stats.steps,
+            "preemptions": ge.stats.preemptions, "resumes": ge.stats.resumes,
+            "wall_s": {str(dev): gwall, "cpu": cwall},
+        }
+        row["ok"] = (same_sched and gfwd == cfwd == len(glog) == len(clog)
+                     and err <= tol
+                     and len(ge.finished) == SERVE_POINT["n_requests"])
+        if policy == "lru":
+            row["ok"] = row["ok"] and ge.stats.preemptions > 0
+        ok &= row["ok"]
+        rows.append(row)
+    emit({"phase": "serve_small", "config": vars(cfg), "point": SERVE_POINT,
+          "policies": rows, "ok": ok})
+    if not ok:
+        fail("serve_small", "the card and the CPU disagree, or lru did not "
+                            "preempt")
+
+
+def phase_serve_full(dev, recorder: Recorder) -> dict:
+    """PagedTinyLM at Qwen2-1.5B's attention widths and depth, the default
+    point under pbm, through ``repro_torch.launch.serve``'s objects, with
+    the kernel's launch count set to 0 just before and read just after.
+    Every forward's logits must be finite; afterwards a few forwards
+    through the kernel are held to the same forwards through the plain
+    version on the card."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch import serve
+    from repro_torch.serving.model import PagedTinyLM, TinyConfig
+    cfg = TinyConfig(**QWEN2_1_5B_WIDTHS)
+    t0 = time.time()
+    lm = PagedTinyLM(cfg, seed=0, device=dev)
+    # PagedTinyLM's draw, N(0, 0.05) for every matrix, has no norm to hold
+    # it at these widths: each layer multiplies the residual by ~20, the
+    # attention scores overflow f32 and the logits are NaN.  Each layer
+    # matrix is rescaled to N(0, 1 / fan_in), and the two that write the
+    # residual (wo, w2) by a further 1 / sqrt(2 n_layers), as GPT-2
+    # initialises them; the embedding stays as drawn.
+    with torch.no_grad():
+        for layer in lm.layers:
+            for name, w in layer.named_parameters():
+                scale = 1.0 / (0.05 * w.shape[0] ** 0.5)
+                if name in ("wo", "w2"):
+                    scale /= (2 * cfg.n_layers) ** 0.5
+                w.mul_(scale)
+    torch.cuda.synchronize()
+    build_s = time.time() - t0
+    finite = torch.ones((), dtype=torch.bool, device=dev)
+
+    def check(logits):
+        finite.logical_and_(torch.isfinite(logits).all())
+
+    captured = recorder.seconds
+    ops.reset_launch_counts()
+    with recorder:
+        eng, wall, forwards = serve_point("pbm", lm, on_logits=check)
+    launches = {k: v for k, v in ops.launch_counts().items()
+                if k == "paged_attention"}
+    captured = recorder.seconds - captured
+    st = eng.stats
+
+    # the same forward through the kernel and through the plain version, on
+    # stale pool contents (write=False leaves the pool as it is)
+    replay_err = 0.0
+    for n_pages, pos in ((1, 0), (10, 150), (cfg.n_pages, 447)):
+        pages = list(range(n_pages))
+        got = lm._forward_token(7, pages, pos, write=False)
+        orig = ops.paged_attention
+        ops.paged_attention = ref.paged_attention_ref
+        try:
+            want = lm._forward_token(7, pages, pos, write=False)
+        finally:
+            ops.paged_attention = orig
+        replay_err = max(replay_err, _max_abs_diff(got, want))
+    replay_tol = 1e-3
+    profile = profile_forwards(lm)
+    weights = sum(p.numel() * p.element_size() for p in lm.parameters())
+    kv_page = 2 * cfg.n_layers * cfg.page_size * cfg.n_kv_heads \
+        * cfg.head_dim * 4
+    page_bytes = serve.page_bytes(cfg.page_size, cfg)
+    out = {
+        "phase": "serve_full", "config": vars(cfg),
+        "is": "PagedTinyLM's block (GELU MLP of 4 d, no RoPE, norms or QKV "
+              "bias) at Qwen2-1.5B's attention widths and depth, random "
+              "weights (seed 0; layer matrices rescaled to N(0, 1/fan_in), "
+              "wo and w2 by 1/sqrt(2 n_layers) more): not Qwen2-1.5B",
+        "point": SERVE_POINT, "policy": "pbm",
+        "weights_bytes": weights, "kv_bytes_per_page_all_layers": kv_page,
+        "model_build_s": build_s, "wall_s": wall,
+        "capture_s": captured,      # part of wall_s: cloning kernel inputs
+        "token_forwards": forwards,
+        "ms_per_token_forward": wall / max(1, forwards) * 1e3,
+        "engine_steps": st.steps,
+        "ms_per_engine_step": wall / max(1, st.steps) * 1e3,
+        "tokens_generated": st.tokens_generated,
+        "completed": len(eng.finished), "launches": launches,
+        "preemptions": st.preemptions, "resumes": st.resumes,
+        "prefetched_resumes": st.prefetched_resumes,
+        "page_bytes": page_bytes,
+        "swap_out_bytes": st.swap_out_bytes,
+        "swap_in_bytes": st.swap_in_bytes,
+        "swap_bytes_all_layers_f32": (
+            (st.swap_out_bytes + st.swap_in_bytes) // page_bytes * kv_page),
+        "logits_finite": bool(finite),
+        "replay_max_abs_err": replay_err, "replay_tolerance": replay_tol,
+        "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+        "profile": profile,
+    }
+    out["ok"] = (out["logits_finite"] and replay_err <= replay_tol
+                 and len(eng.finished) == SERVE_POINT["n_requests"]
+                 and launches["paged_attention"] > 0)
+    emit(out)
+    del lm, eng
+    torch.cuda.empty_cache()
+    if not out["ok"]:
+        fail("serve_full", "non-finite logits, a kernel/plain disagreement, "
+                           "an unfinished request or no kernel launch")
+    return out
+
+
+def profile_forwards(lm):
+    """Where a decode token-forward's time goes: 40 forwards at position
+    200 over 13 pages (a mid-length request of the default point), each
+    ending in the decode step's argmax read, first on the host clock, then
+    under ``torch.profiler``: device launches, device busy time and the
+    paged-attention kernel's share, per forward."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    n, pages, pos = 40, 13, 200
+    kv = list(range(pages))
+
+    def window():
+        for i in range(n):
+            int(torch.argmax(lm._forward_token(7 + i, kv, pos, write=False)))
+
+    window()                                     # warm
+    torch.cuda.synchronize()
+    t0 = time.time()
+    window()
+    host_ms = (time.time() - t0) / n * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        window()
+        torch.cuda.synchronize()
+    busy = b4 = 0.0
+    launches = b4_launches = 0
+    for k in prof.key_averages():
+        if k.device_type != DeviceType.CUDA:
+            continue        # operators' rows repeat their kernels' time
+        dev_us = getattr(k, "self_device_time_total", 0.0) or 0.0
+        busy += dev_us
+        launches += k.count
+        if "paged_attention" in k.key:
+            b4 += dev_us
+            b4_launches += k.count
+    busy_ms = busy / n / 1e3
+    return {
+        "forwards": n, "pages": pages, "pos": pos,
+        "host_ms_per_forward": host_ms,
+        "device_launches_per_forward": launches / n,
+        "device_busy_ms_per_forward": busy_ms,
+        "device_idle_share": 1.0 - busy_ms / host_ms,
+        "paged_attention_launches_per_forward": b4_launches / n,
+        "paged_attention_ms_per_forward": b4 / n / 1e3,
+        "paged_attention_share_of_device": b4 / max(busy, 1e-9),
+        "paged_attention_share_of_forward": b4 / n / 1e3 / host_ms,
+    }
 
 
 # ------------------------------------------------------------- simulator ----
@@ -343,7 +872,8 @@ def run_sweep_counted(spec, cfgs, dev, **runner_kw):
     t0 = time.time()
     results = run_sweep(spec, cfgs, runner=runner, device=dev)
     wall = time.time() - t0
-    launches = ops.launch_counts()
+    launches = {k: v for k, v in ops.launch_counts().items()
+                if k in SIM_KERNELS}
     steps = runner.stats["cheap_steps"] + runner.stats["refresh_steps"]
     return results, wall, launches, steps, dict(runner.stats)
 
@@ -454,10 +984,14 @@ def main() -> int:
               "needs one NVIDIA GPU", file=sys.stderr)
         return 2
     dev = torch.device("cuda")
-    from repro_torch.kernels import _build, pbm_timeline
+    # full-f32 matrix products on the serving path (PyTorch's default,
+    # stated): TF32 would not meet the f32 tolerances
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from repro_torch.kernels import _build, paged_attention, pbm_timeline
 
-    all_phases = ["env", "build", "kernels_fuzz", "sim_small",
-                  "sim_calibrated", "sim_full", "tpch_probe", "kernels"]
+    all_phases = ["env", "build", "kernels_fuzz", "paged_fuzz", "sim_small",
+                  "serve_small", "sim_calibrated", "serve_full", "sim_full",
+                  "tpch_probe", "kernels"]
     phases = [p for p in args.phases.split(",") if p] or all_phases
     unknown = set(phases) - set(all_phases)
     if unknown:
@@ -465,7 +999,8 @@ def main() -> int:
 
     if "env" in phases:
         env = {"phase": "env", "python": sys.version.split()[0],
-               "torch": torch.__version__, "cuda_runtime": torch.version.cuda}
+               "torch": torch.__version__, "cuda_runtime": torch.version.cuda,
+               "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32}
         env["nvcc"] = subprocess.run(
             [_build.find_nvcc(), "--version"], capture_output=True,
             text=True, check=True).stdout.strip().splitlines()[-2:]
@@ -475,29 +1010,44 @@ def main() -> int:
 
     if "build" in phases:
         t0 = time.time()
+        libraries = sorted({os.path.basename(s)[:-3]
+                            for s in SOURCE.values()})     # csrc/<name>.cu
+        with ThreadPoolExecutor(len(libraries)) as pool:   # one nvcc each,
+            list(pool.map(_build.load, libraries))         # all at once
         pbm_timeline.library(dev)
+        paged_attention.library(dev)
         out = {"phase": "build", "seconds": time.time() - t0,
-               "nvcc_seconds": _build.build_seconds, "source": SOURCE,
+               "nvcc_seconds": _build.build_seconds,
+               "sources": sorted(set(SOURCE.values())),
                "flags": list(_build.NVCC_FLAGS)}
         cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
         if os.path.exists(cuobjdump):
-            lib = next(_build.build_dir().glob("libpbm_timeline_*.so"))
-            res = subprocess.run([cuobjdump, "-res-usage", str(lib)],
-                                 capture_output=True, text=True).stdout
-            out["resource_usage"] = [
-                ln.strip() for ln in res.splitlines() if "REG:" in ln]
+            out["resource_usage"] = []
+            for name in libraries:
+                res = subprocess.run(
+                    [cuobjdump, "-res-usage", str(_build.library_path(name))],
+                    capture_output=True, text=True).stdout
+                out["resource_usage"] += [
+                    ln.strip() for ln in res.splitlines() if "REG:" in ln]
         emit(out)
 
     if "kernels_fuzz" in phases:
         phase_kernels_fuzz(dev)
+    if "paged_fuzz" in phases:
+        phase_paged_fuzz(dev)
     if "sim_small" in phases:
         phase_sim_small(dev)
+    if "serve_small" in phases:
+        phase_serve_small(dev)
 
-    recorder = Recorder()
-    launches, main_p, calibrated = None, None, None
+    recorder = Recorder(SIM_KERNELS)
+    serve_recorder = Recorder(("paged_attention",))
+    launches, main_p, calibrated, serve_full = None, None, None, None
     if "sim_calibrated" in phases:
         calibrated = phase_sim_micro("sim_calibrated", 0.25, dev, recorder)
         launches, main_p = calibrated["launches"], calibrated["P"]
+    if "serve_full" in phases:
+        serve_full = phase_serve_full(dev, serve_recorder)
     if "sim_full" in phases:
         max_slices = args.full_max_slices
         if max_slices is None and calibrated is not None:
@@ -519,9 +1069,19 @@ def main() -> int:
 
     kernels_line = None
     if "kernels" in phases:
-        if launches is None:
-            fail("kernels", "needs sim_calibrated or sim_full in the same run")
-        kernels_line = phase_kernels(dev, recorder, launches, main_p)
+        if launches is None and serve_full is None:
+            fail("kernels", "needs a simulator phase or serve_full in the "
+                            "same run")
+        entries = []
+        if launches is not None:
+            entries += sim_kernel_entries(dev, recorder, launches, main_p)
+        if serve_full is not None:
+            entries.append(paged_kernel_entry(dev, serve_recorder, serve_full))
+        kernels_line = {"kernels": entries}
+        if any(e["mismatches"] for e in entries):
+            emit(kernels_line)
+            fail("kernels", "a kernel disagrees with its plain version on "
+                            "the inputs of its path")
 
     emit({"phase": "total", "seconds": time.time() - T0,
           "time_limit_s": TIME_LIMIT_S})
@@ -531,6 +1091,8 @@ def main() -> int:
         emit({"ok": False, "partial": True, "phases": phases,
               "device": str(dev)})
         return 3
+    if {e["name"] for e in kernels_line["kernels"]} != set(REPLACES):
+        fail("kernels", "the kernels line does not list every kernel")
     if any(e["launches"] <= 0 for e in kernels_line["kernels"]):
         fail("kernels", "a kernel of the main path was never launched")
     print(nvidia_smi_line(), flush=True)

@@ -1,16 +1,19 @@
-"""Policy registry of the port: the array side of the one name table.
+"""Policy registry of the port: the array and serving sides of the one
+name table.
 
 The JAX package resolves every buffer policy — event engine, array
 backend, serving path — through ``repro.core.policy_registry``.  The
-port keeps its own copy of the array side with the **same names and the
-same stable integer ids** (result rows and stacked configs carry them):
-``lru`` = 0, ``pbm`` = 1, ``cscan`` = 2, ``opt`` = 3.
+port keeps its own copy of the array and serving sides with the **same
+names, the same registration order and the same stable integer ids**
+(result rows and stacked configs carry them): ``lru`` = 0, ``pbm`` = 1,
+``cscan`` = 2, ``opt`` = 3.  ``names(backend="serving")`` is
+``["lru", "cscan", "pbm", "opt"]`` as in the JAX package.
 
-``cscan`` is registered with its id but its substrate
-(``array_sim.coop``) is not ported yet: resolving it raises
+``cscan`` is registered with its id but its array substrate
+(``array_sim.coop``) is not ported yet: resolving its array policy raises
 ``NotImplementedError`` so a lane labelled ``cscan`` can never run as
-another policy.  Event-engine and serving factories arrive with those
-slices.
+another policy.  Its serving realisation (``ServingCScan``) needs no
+substrate and resolves.  Event-engine factories arrive with that slice.
 """
 
 from __future__ import annotations
@@ -20,14 +23,16 @@ from typing import Callable, Dict, List, Optional
 
 __all__ = [
     "PolicyEntry", "register", "get", "names", "array_policy",
-    "array_ids", "array_name",
+    "array_ids", "array_name", "serving_policy",
 ]
 
 
 @dataclass(frozen=True)
 class PolicyEntry:
     """One policy.  ``array_factory() -> ArrayPolicy`` builds the array
-    policy; ``array_id`` is the stable integer a config carries."""
+    policy; ``array_id`` is the stable integer a config carries.
+    ``serving_factory() -> ServingPolicy`` builds the paged-KV-cache
+    policy the serving engine's driver consults."""
 
     name: str
     summary: str
@@ -35,10 +40,17 @@ class PolicyEntry:
     cooperative: bool = False
     array_factory: Optional[Callable[[], object]] = None
     array_id: Optional[int] = None
+    serving_factory: Optional[Callable[[], object]] = None
 
     @property
     def backends(self) -> tuple:
-        return ("array",) if self.array_factory is not None else ()
+        """Which backends can run this policy ("array", "serving")."""
+        out = []
+        if self.array_factory is not None:
+            out.append("array")
+        if self.serving_factory is not None:
+            out.append("serving")
+        return tuple(out)
 
 
 _REGISTRY: Dict[str, PolicyEntry] = {}
@@ -77,7 +89,10 @@ def get(name: str) -> PolicyEntry:
 
 def names(backend: Optional[str] = None, paper_only: bool = False,
           ) -> List[str]:
-    """Registered policy names, in registration order."""
+    """Registered policy names, in registration order.
+
+    ``backend="array"|"serving"`` restricts to policies that backend can
+    run; ``paper_only`` restricts to the paper's four-way comparison."""
     out = []
     for e in _REGISTRY.values():
         if backend is not None and backend not in e.backends:
@@ -91,6 +106,18 @@ def names(backend: Optional[str] = None, paper_only: bool = False,
 def array_policy(name: str):
     """Resolve ``name`` to a fresh ``ArrayPolicy`` instance."""
     return get(name).array_factory()
+
+
+def serving_policy(name: str):
+    """Resolve ``name`` to a fresh ``ServingPolicy`` instance for the
+    paged-KV serving engine (imports ``repro_torch.serving`` lazily)."""
+    e = get(name)
+    if e.serving_factory is None:
+        raise KeyError(
+            f"policy {name!r} has no serving realisation; serving-capable "
+            f"policies: {names(backend='serving')}"
+        )
+    return e.serving_factory()
 
 
 def array_ids() -> Dict[str, int]:
@@ -125,24 +152,48 @@ def _array_opt():
     return ArrayOPT()
 
 
+def _serving_lru():
+    from ..serving.policy_driver import ServingLRU
+    return ServingLRU()
+
+
+def _serving_pbm():
+    from ..serving.policy_driver import ServingPBM
+    return ServingPBM()
+
+
+def _serving_cscan():
+    from ..serving.policy_driver import ServingCScan
+    return ServingCScan()
+
+
+def _serving_opt():
+    from ..serving.policy_driver import ServingOPT
+    return ServingOPT()
+
+
 # Registration order and ids mirror the JAX package's registry.
 register(PolicyEntry(
     name="lru", summary="least-recently-used eviction (paper baseline)",
     paper=True, array_factory=_array_lru, array_id=0,
+    serving_factory=_serving_lru,
 ))
 register(PolicyEntry(
     name="cscan",
     summary="Cooperative Scans: ABM chunk scheduling (paper §2)",
     paper=True, cooperative=True, array_factory=_array_cscan, array_id=2,
+    serving_factory=_serving_cscan,
 ))
 register(PolicyEntry(
     name="pbm",
     summary="Predictive Buffer Manager: bucketed consumption timeline "
             "(paper §3)",
     paper=True, array_factory=_array_pbm, array_id=1,
+    serving_factory=_serving_pbm,
 ))
 register(PolicyEntry(
     name="opt",
     summary="Belady bound on exact next-consumption distances (paper §4)",
     paper=True, array_factory=_array_opt, array_id=3,
+    serving_factory=_serving_opt,
 ))

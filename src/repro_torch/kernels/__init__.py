@@ -1,9 +1,12 @@
 """Hand-written Hopper kernels of the port, their plain PyTorch versions
 (``ref``) and the device dispatch (``ops``).
 
-  batched_evict — eviction-victim selection over a policy score array
-  fifo_grant    — budgeted head-of-line pop of the I/O request queue
-  wake_solve    — grant step of every queued page (wake-exact jumps)
+  batched_evict   — eviction-victim selection over a policy score array
+  fifo_grant      — budgeted head-of-line pop of the I/O request queue
+  wake_solve      — grant step of every queued page (wake-exact jumps)
+  paged_attention — decode attention through a page table (PBM-managed KV);
+                    call it as ``ops.paged_attention``: the package's
+                    ``paged_attention`` is the wrapper's module
 """
 
 from . import ops, ref

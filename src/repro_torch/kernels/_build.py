@@ -1,12 +1,13 @@
 """Build and load the CUDA kernels: ``nvcc`` by hand into one shared
 library per source with a plain C interface, loaded with ``ctypes``.
 
-The library is built at first use from the sources under ``csrc/`` and
+A library is built at first use from the sources under ``csrc/`` and
 nothing else, into ``_build/`` beside this file (override with the
-``REPRO_TORCH_BUILD_DIR`` environment variable).  Its file name carries a
-hash of the source, so an edited source is rebuilt and a stale library is
-never loaded.  A failed build raises with the compiler's output: there is
-no fallback.
+``REPRO_TORCH_BUILD_DIR`` environment variable).  A library's file name
+carries a hash of its source, so an edited source is rebuilt and a stale
+library is never loaded.  A failed build raises with the compiler's
+output: there is no fallback.  The argument checks the wrappers share are
+here too.
 """
 
 from __future__ import annotations
@@ -49,22 +50,27 @@ def find_nvcc() -> str:
     )
 
 
+def library_path(name: str) -> Path:
+    """Where the library of ``csrc/<name>.cu`` is, or will be, built."""
+    src = CSRC / f"{name}.cu"
+    digest = hashlib.sha1(
+        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    return build_dir() / f"lib{name}_{digest}.so"
+
+
 def load(name: str) -> ctypes.CDLL:
     """Return the loaded library of ``csrc/<name>.cu``, building it first
     if this process has not and no up-to-date build is on disk."""
     if name in _LIBS:
         return _LIBS[name]
     src = CSRC / f"{name}.cu"
-    flags = NVCC_FLAGS
-    digest = hashlib.sha1(src.read_bytes() + " ".join(flags).encode()).hexdigest()[:12]
-    out_dir = build_dir()
-    out_dir.mkdir(parents=True, exist_ok=True)
-    lib_path = out_dir / f"lib{name}_{digest}.so"
+    lib_path = library_path(name)
     if lib_path.exists():
         build_seconds[name] = 0.0
     else:
-        tmp = out_dir / f".{lib_path.name}.{os.getpid()}.tmp"
-        cmd = [find_nvcc(), *flags, "-o", str(tmp), str(src)]
+        lib_path.parent.mkdir(parents=True, exist_ok=True)
+        tmp = lib_path.with_name(f".{lib_path.name}.{os.getpid()}.tmp")
+        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
         t0 = time.time()
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
@@ -76,3 +82,32 @@ def load(name: str) -> ctypes.CDLL:
         build_seconds[name] = time.time() - t0
     _LIBS[name] = ctypes.CDLL(str(lib_path))
     return _LIBS[name]
+
+
+# ------------------------------------------------- shared by the wrappers ----
+
+def raise_on(err: int, what: str) -> None:
+    """Raise if a C entry point returned a CUDA error."""
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA error {err} (cudaError_t)")
+
+
+def check_tensor(t, name: str, dtype, shape) -> None:
+    """A kernel argument must be a contiguous CUDA tensor of this dtype
+    and shape."""
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, "
+                         f"got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous tensor")
+
+
+def stream_of(t):
+    """PyTorch's current stream on ``t``'s device, as the C entry points
+    take it."""
+    import torch
+    return torch.cuda.current_stream(t.device).cuda_stream

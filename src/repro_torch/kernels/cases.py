@@ -1,5 +1,7 @@
-"""Fuzz inputs for the three buffer-pool kernels, made with numpy from a
-seed.
+"""Fuzz inputs for the port's kernels, made with numpy from a seed.
+
+The buffer-pool kernels first; the paged-attention cases are at the end
+(:func:`paged_cases`).
 
 One list of cases per kernel, shared by the CPU parity tests (plain
 PyTorch version against the JAX package's oracle and interpret-mode
@@ -170,10 +172,102 @@ def wake_cases(seed: int = 11) -> List[Case]:
     return out
 
 
+def paged_cases(seed: int = 21) -> List[Case]:
+    """Paged decode attention.  ``q``, ``k_pages``, ``v_pages`` are f32
+    numpy arrays and ``dtype`` says which type the kernel gets them in
+    (``"float32"`` or ``"bfloat16"``; both frameworks round f32 to bf16
+    the same way); ``page_table`` and ``seq_lens`` are i32.  Every shape
+    comes in both types:
+
+    * the four shapes of the JAX package's kernel sweep — MQA, GQA 4:1,
+      MHA at dh = 256, GQA 3:1 at page_size = 32 — drawn as it draws them
+      (q ~ N(0, 1), pages ~ N(0, 0.5), a permuted table, seq_lens in
+      1..table);
+    * ragged seq_lens: 1, a page's end, one past it, the full table and
+      beyond it (every position of the table valid);
+    * a table that repeats a page id, within a sequence and across them;
+    * seq_len = 0 (the oracle's mean of the table's V rows);
+    * the Qwen2-1.5B attention geometry, H = 12, Hk = 2, dh = 128,
+      page_size = 16;
+    * the kernel's limits: G = 16, dh = 256, page_size = 64.
+    """
+    rng = np.random.default_rng(seed)
+    out: List[Case] = []
+
+    def draw(B, H, Hk, dh, page_size, pps, n_pages=None):
+        n_pages = B * pps + 4 if n_pages is None else n_pages
+        q = rng.normal(0, 1.0, (B, H, dh)).astype(np.float32)
+        kp = rng.normal(0, 0.5, (n_pages, page_size, Hk, dh)).astype(np.float32)
+        vp = rng.normal(0, 0.5, (n_pages, page_size, Hk, dh)).astype(np.float32)
+        return q, kp, vp
+
+    def add(name, q, kp, vp, pt, sl):
+        for dtype in ("float32", "bfloat16"):
+            out.append(dict(
+                name=f"{name}_{'f32' if dtype == 'float32' else 'bf16'}",
+                dtype=dtype, q=q, k_pages=kp, v_pages=vp,
+                page_table=np.asarray(pt, np.int32),
+                seq_lens=np.asarray(sl, np.int32)))
+
+    for name, (B, H, Hk, dh, ps, pps) in (
+            ("mqa", (2, 4, 1, 128, 16, 2)),
+            ("gqa4", (4, 8, 2, 128, 16, 4)),
+            ("mha_dh256", (1, 2, 2, 256, 8, 3)),
+            ("gqa3_page32", (3, 6, 2, 128, 32, 2))):
+        q, kp, vp = draw(B, H, Hk, dh, ps, pps)
+        n_pages = kp.shape[0]
+        pt = rng.permutation(n_pages)[: B * pps].reshape(B, pps)
+        add(name, q, kp, vp, pt, rng.integers(1, pps * ps + 1, B))
+
+    B, H, Hk, dh, ps, pps = 5, 8, 2, 128, 16, 4
+    q, kp, vp = draw(B, H, Hk, dh, ps, pps)
+    pt = rng.permutation(kp.shape[0])[: B * pps].reshape(B, pps)
+    add("ragged_seq_lens", q, kp, vp, pt,
+        [1, ps, ps + 1, pps * ps, pps * ps + 7])
+
+    B, H, Hk, dh, ps, pps = 3, 4, 2, 128, 8, 3
+    q, kp, vp = draw(B, H, Hk, dh, ps, pps, n_pages=6)
+    add("repeated_page_ids", q, kp, vp, [[3, 3, 5], [5, 3, 3], [0, 0, 0]],
+        [pps * ps, 2 * ps - 3, pps * ps])
+
+    B, H, Hk, dh, ps, pps = 3, 4, 1, 128, 16, 2
+    q, kp, vp = draw(B, H, Hk, dh, ps, pps)
+    pt = rng.permutation(kp.shape[0])[: B * pps].reshape(B, pps)
+    add("seq_len_zero", q, kp, vp, pt, [0, 9, 0])
+
+    B, H, Hk, dh, ps, pps = 4, 12, 2, 128, 16, 8
+    q, kp, vp = draw(B, H, Hk, dh, ps, pps)
+    pt = rng.permutation(kp.shape[0])[: B * pps].reshape(B, pps)
+    add("qwen2_1_5b_geometry", q, kp, vp, pt,
+        rng.integers(1, pps * ps + 1, B))
+
+    B, H, Hk, dh, ps, pps = 2, 16, 1, 256, 64, 2
+    q, kp, vp = draw(B, H, Hk, dh, ps, pps)
+    pt = rng.permutation(kp.shape[0])[: B * pps].reshape(B, pps)
+    add("kernel_limits_g16_dh256_page64", q, kp, vp, pt, [pps * ps, 70])
+    return out
+
+
+#: atol = rtol of a paged-attention comparison, by dtype: the JAX
+#: package's own tolerances for this kernel (tests/test_kernels.py)
+PAGED_TOL = {"float32": 3e-5, "bfloat16": 3e-2}
+
+
+def paged_tensors(case: Case, device) -> list:
+    """A paged-attention case as the five tensor arguments on ``device``,
+    q and the pages in the case's dtype."""
+    import torch
+    dtype = getattr(torch, case["dtype"])
+    return [torch.from_numpy(np.ascontiguousarray(case[f]))
+            .to(dtype if case[f].dtype == np.float32 else torch.int32)
+            .to(device)
+            for f in TENSOR_FIELDS["paged_attention"]]
+
 TENSOR_FIELDS = {
     "batched_evict": ("key", "sizes", "evictable", "need_free"),
     "fifo_grant": ("key", "sizes", "budget", "pops"),
     "wake_solve": ("key", "sizes", "credit0", "inc", "pops"),
+    "paged_attention": ("q", "k_pages", "v_pages", "page_table", "seq_lens"),
 }
 CASES = {
     "batched_evict": evict_cases,

@@ -1,22 +1,36 @@
-"""Dispatch of the buffer-pool kernels, by the tensor's device alone.
+"""Dispatch of the port's kernels, by the tensor's device alone.
 
 A CPU tensor takes the plain PyTorch version (:mod:`.ref`); a CUDA tensor
-launches the hand-written kernel (:mod:`.pbm_timeline`) or raises.  There
-is no process-global backend switch and no fallback around a build or a
-launch: what runs is decided by where the caller put the data.
+launches the hand-written kernel (:mod:`.pbm_timeline`,
+:mod:`.paged_attention`) or raises.  There is no process-global backend
+switch and no fallback around a build or a launch: what runs is decided by
+where the caller put the data.
 
-Signatures are the JAX package's (``repro.kernels.ops``) plus the leading
-lane axis: ``key`` is ``(L, P)``, scalars are ``(L,)``, ``sizes`` is
-``(L, P)`` or one shared ``(P,)`` row.
+Signatures are the JAX package's (``repro.kernels.ops``).  The buffer-pool
+kernels add the leading lane axis: ``key`` is ``(L, P)``, scalars are
+``(L,)``, ``sizes`` is ``(L, P)`` or one shared ``(P,)`` row.
 """
 
 from __future__ import annotations
 
 from . import pbm_timeline, ref
-from .pbm_timeline import launch_counts, reset_launch_counts
+from .paged_attention import paged_attention_kernel
 
-__all__ = ["batched_evict", "fifo_grant", "wake_solve", "launch_counts",
-           "reset_launch_counts"]
+__all__ = ["batched_evict", "fifo_grant", "wake_solve", "paged_attention",
+           "launch_counts", "reset_launch_counts", "KERNELS"]
+
+#: every kernel wrapper by name; each counts its own launches
+KERNELS = {**pbm_timeline.KERNELS, "paged_attention": paged_attention_kernel}
+
+
+def launch_counts() -> dict:
+    """Launches of each kernel since the last :func:`reset_launch_counts`."""
+    return {name: fn.launches for name, fn in KERNELS.items()}
+
+
+def reset_launch_counts() -> None:
+    for fn in KERNELS.values():
+        fn.launches = 0
 
 
 def batched_evict(key, sizes, evictable, need_free, *, vmax: int = 64):
@@ -45,3 +59,14 @@ def wake_solve(key, sizes, credit0, inc, pops, *, h_cap: int = 64):
                                   h_cap=h_cap)
     return pbm_timeline.wake_solve_kernel(key, sizes, credit0, inc, pops,
                                           h_cap=h_cap)
+
+
+def paged_attention(q, k_pages, v_pages, page_table, seq_lens):
+    """One decode step of GQA attention through a page table: ``q``
+    ``(B, H, dh)``, K/V pages ``(n_pages, page_size, Hk, dh)``,
+    ``page_table`` ``(B, pages_per_seq)`` i32, ``seq_lens`` ``(B,)`` i32
+    -> ``(B, H, dh)`` in ``q.dtype``."""
+    if q.device.type == "cpu":
+        return ref.paged_attention_ref(q, k_pages, v_pages, page_table,
+                                       seq_lens)
+    return paged_attention_kernel(q, k_pages, v_pages, page_table, seq_lens)

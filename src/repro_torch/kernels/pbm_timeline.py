@@ -20,6 +20,8 @@ from typing import Tuple
 import torch
 
 from . import _build
+from ._build import check_tensor as _check, raise_on as _raise_on
+from ._build import stream_of as _stream
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _LIB = None
@@ -55,23 +57,6 @@ def library(device):
     return _LIB, _MAX_DYN[index]
 
 
-def _raise_on(err: int, what: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{what}: CUDA error {err} (cudaError_t)")
-
-
-def _check(t: torch.Tensor, name: str, dtype, shape) -> None:
-    if t.device.type != "cuda":
-        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name}: expected shape {tuple(shape)}, "
-                         f"got {tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: expected a contiguous tensor")
-
-
 def _sizes_stride(sizes: torch.Tensor, L: int, P: int) -> int:
     """Lane stride of ``sizes``: one shared ``(P,)`` row or ``(L, P)``."""
     if sizes.dim() == 1:
@@ -94,10 +79,6 @@ def _sort_len(P: int, max_dyn: int, name: str) -> int:
             "(page-split candidate selection is not ported yet)"
         )
     return n
-
-
-def _stream(t: torch.Tensor):
-    return torch.cuda.current_stream(t.device).cuda_stream
 
 
 def batched_evict_kernel(key, sizes, evictable, need_free, *,
@@ -185,13 +166,3 @@ KERNELS = {
     "fifo_grant": fifo_grant_kernel,
     "wake_solve": wake_solve_kernel,
 }
-
-
-def launch_counts() -> dict:
-    """Launches of each kernel since the last :func:`reset_launch_counts`."""
-    return {name: fn.launches for name, fn in KERNELS.items()}
-
-
-def reset_launch_counts() -> None:
-    for fn in KERNELS.values():
-        fn.launches = 0

@@ -1,9 +1,12 @@
-"""Plain PyTorch versions of the three buffer-pool kernels.
+"""Plain PyTorch versions of the port's kernels.
 
-Each function defines the semantics of one kernel in
-``csrc/pbm_timeline.cu`` over a leading lane axis ``L`` (one lane = one
-point of a sweep).  They are what runs for CPU tensors, and what the
-CUDA kernels are held equal to on the card.
+Each function defines the semantics of one kernel: the three buffer-pool
+kernels of ``csrc/pbm_timeline.cu`` over a leading lane axis ``L`` (one
+lane = one point of a sweep), and paged decode attention
+(``csrc/paged_attention.cu``, :func:`paged_attention_ref`).  They are what
+runs for CPU tensors, and what the CUDA kernels are held to on the card.
+
+The rest of this note is about the three buffer-pool kernels.
 
 Order is always **(key descending, page index ascending)**, taken from a
 stable descending sort (``torch.topk`` promises no tie order).  Integer
@@ -141,3 +144,40 @@ def wake_solve_ref(
     step = torch.where(w_ord, step, h_cap + 1).to(torch.int32)
     return torch.zeros(L, P, dtype=torch.int32, device=dev).scatter_(
         1, order, step)
+
+
+NEG_INF = -1e30
+
+
+def paged_attention_ref(
+    q: torch.Tensor,            # (B, H, dh) f32 or bf16
+    k_pages: torch.Tensor,      # (n_pages, page_size, Hk, dh), q's dtype
+    v_pages: torch.Tensor,      # (n_pages, page_size, Hk, dh), q's dtype
+    page_table: torch.Tensor,   # (B, pages_per_seq) i32 pool page ids
+    seq_lens: torch.Tensor,     # (B,) i32
+) -> torch.Tensor:
+    """One decode step of GQA attention through a page table: the plain
+    version of ``repro.kernels.ref.paged_attention_ref``.
+
+    Gathers every page of the table, f32 einsum, scale ``dh**-0.5`` after
+    the dot, positions ``>= seq_len`` masked to ``-1e30``, softmax, output
+    cast to ``q.dtype``.  Query head ``h`` reads KV head ``h // G`` with
+    ``G = H // Hk``.  A sequence of length 0 has every score at ``-1e30``,
+    so its softmax is uniform and the output is the mean of the table's V
+    rows (the oracle's answer; the Pallas body returns 0 there)."""
+    b, h, dh = q.shape
+    _, page_size, hk, _ = k_pages.shape
+    g = h // hk
+    pages = page_table.shape[1]
+    idx = page_table.long()
+    k_seq = k_pages[idx].reshape(b, pages * page_size, hk, dh)
+    v_seq = v_pages[idx].reshape(b, pages * page_size, hk, dh)
+    qf = q.reshape(b, hk, g, dh).float()
+    scores = torch.einsum("bkgd,bskd->bkgs", qf, k_seq.float()) * (dh ** -0.5)
+    pos = torch.arange(pages * page_size, device=q.device)
+    valid = pos.unsqueeze(0) < seq_lens.unsqueeze(1)
+    scores = torch.where(valid[:, None, None, :], scores,
+                         torch.full_like(scores, NEG_INF))
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgs,bskd->bkgd", probs, v_seq.float())
+    return out.reshape(b, h, dh).to(q.dtype)

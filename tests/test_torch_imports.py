@@ -18,6 +18,8 @@ from repro_torch.core.array_sim import (
     resolve_policies, run_sweep, spec_to_torch,
 )
 from repro_torch.core.workload import make_lineitem_db, micro_streams
+from repro_torch.launch import serve
+from repro_torch.serving.model import PagedTinyLM, TinyConfig
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MODULES = sorted(
@@ -36,7 +38,12 @@ def test_every_submodule_is_listed():
                  "repro_torch.core.policy_registry",
                  "repro_torch.kernels.ops", "repro_torch.kernels.ref",
                  "repro_torch.kernels.pbm_timeline",
-                 "repro_torch.kernels._build", "repro_torch.kernels.cases"):
+                 "repro_torch.kernels._build", "repro_torch.kernels.cases",
+                 "repro_torch.kernels.paged_attention",
+                 "repro_torch.serving", "repro_torch.serving.kv_cache",
+                 "repro_torch.serving.policy_driver",
+                 "repro_torch.serving.engine", "repro_torch.serving.model",
+                 "repro_torch.launch", "repro_torch.launch.serve"):
         assert want in MODULES
 
 
@@ -85,8 +92,10 @@ def _no_gpu():
     lambda spec: spec_to_torch(spec),
     lambda spec: resolve_device(),
     lambda spec: run_sweep(spec, make_config(spec, 1e6, device="cpu")),
+    lambda spec: PagedTinyLM(TinyConfig()),
+    lambda spec: serve.main([]),
 ], ids=["make_runner", "init_state", "make_config", "spec_to_torch",
-        "resolve_device", "run_sweep"])
+        "resolve_device", "run_sweep", "PagedTinyLM", "launch.serve"])
 def test_entry_points_default_to_cuda_and_raise_without_a_gpu(call):
     if not _no_gpu():
         pytest.skip("a GPU is present: the default device works here")
