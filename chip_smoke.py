@@ -3,10 +3,12 @@
 
     python3 chip_smoke.py
 
-Drives the port's two paths end to end on the card — the batched
-buffer-pool simulator (LRU / PBM / OPT lanes, event-horizon stepper) and
-the paged-KV serving path (page pool, policy driver, continuous-batching
-engine, ``PagedTinyLM`` decoding through paged attention) — builds the
+Drives the port's three paths end to end on the card — the batched
+buffer-pool simulator (LRU / PBM / OPT lanes, event-horizon stepper), the
+paged-KV serving path (page pool, policy driver, continuous-batching
+engine, ``PagedTinyLM`` decoding through paged attention) and the model
+stack's serving path (dense LM, Mamba2 hybrid and xLSTM at full width
+through flash attention, the Mamba2 scan and the mLSTM) — builds the
 hand-written CUDA kernels from the sources in this checkout, and holds
 each kernel to its plain PyTorch version on the card.  It imports nothing
 of JAX and nothing of the JAX package.
@@ -20,29 +22,36 @@ One JSON object per phase, one per line:
                       the fuzz shapes of the CPU tests (outputs must be EQUAL)
 4. ``paged_fuzz``     paged attention against its plain version on its fuzz
                       cases, f32 and bf16 (atol = rtol = 3e-5 / 3e-2)
-5. ``sim_small``      a tiny sweep on ``cuda`` and, asked for explicitly, on
+5. ``model_fuzz``     flash attention, the Mamba2 scan and the mLSTM against
+                      their plain versions on their fuzz cases, f32 and bf16
+6. ``sim_small``      a tiny sweep on ``cuda`` and, asked for explicitly, on
                       ``cpu``: the two must agree
-6. ``serve_small``    ``TinyConfig()`` with the same weights on ``cuda`` and,
+7. ``serve_small``    ``TinyConfig()`` with the same weights on ``cuda`` and,
                       asked for explicitly, on ``cpu``, at the serving
                       benchmark's default point under all four policies:
                       equal stats, token gaps and finish order, every
                       forward's logits within 1e-4
-7. ``sim_calibrated`` micro workload, scale 0.25, 18 lanes = {lru, pbm, opt} x
+8. ``model_serve``    the model stack's serving path at the full widths of
+                      qwen2_1_5b, zamba2_2_7b and xlstm_350m in bf16 (random
+                      weights from seed 0): prefill of 4 x 4,096 tokens (and
+                      1 x 32,768 for the attention families), 32 decode steps
+                      at B = 8; then decode-vs-prefill in f32 on 16 tokens
+9. ``sim_calibrated`` micro workload, scale 0.25, 18 lanes = {lru, pbm, opt} x
                       buffer fractions {0.1 .. 1.0}, to completion
-8. ``serve_full``     ``PagedTinyLM`` at Qwen2-1.5B's attention widths and
+10. ``serve_full``    ``PagedTinyLM`` at Qwen2-1.5B's attention widths and
                       depth (28 layers, d 1536, 12 query / 2 KV heads of 128,
                       vocabulary 151,936; random weights from a seed) at the
                       default point under ``pbm``, to completion
-9. ``sim_full``       the same sweep at scale 1.0 (the paper's size: 180 M
+11. ``sim_full``      the same sweep at scale 1.0 (the paper's size: 180 M
                       tuples, P = 3072); to completion if the time limit
                       allows, else cut at a stated ``max_slices`` and
                       reported as truncated
-10. ``tpch_probe``    a few slices of the TPC-H workload (P = 8832), only to
+12. ``tpch_probe``    a few slices of the TPC-H workload (P = 8832), only to
                       give the kernels that shape with real keys and sizes
-11. ``kernels``       every kernel against its plain version on inputs
-                      captured from phases 7-10, and its time (CUDA events,
-                      median of 30 launches) beside the plain version's, a
-                      PyTorch yardstick and its bound; paged attention also
+13. ``kernels``       every kernel against its plain version on inputs
+                      captured from phases 8-12, and its time (CUDA events,
+                      median of up to 30 launches) beside the plain version's,
+                      a PyTorch yardstick and its bound; paged attention also
                       at a deployment's batch (B = 32, 1024-4096 tokens)
 
 then the card's name and power limit as ``nvidia-smi`` prints them, then
@@ -75,6 +84,13 @@ TIME_LIMIT_S = 1200.0          # the whole script, kernel build included
 #: sim_full, so this is the first slice's 560 s plus that, to leave sim_full
 #: the budget it had before them
 TARGET_S = 680.0
+#: kept for the phases after sim_full (tpch_probe, kernels), and for the
+#: kernels phase's timing of the model-stack kernels
+TAIL_S, MODEL_KERNELS_S = 60.0, 40.0
+#: a scale-1.0 macro-step (P = 3072) over a scale-0.25 one (P = 768): 7.40
+#: against 4.94 ms on an H100 80GB HBM3 at 700 W (sim_full and
+#: sim_calibrated of one run of this script); sim_full's budget reads it
+FULL_STEP_COST = 1.5
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate
 FP32_OPS_PER_S = 67e12         # H100 SXM float32 rate outside the tensor cores
 SOURCE = {
@@ -82,13 +98,32 @@ SOURCE = {
     "fifo_grant": "src/repro_torch/kernels/csrc/pbm_timeline.cu",
     "wake_solve": "src/repro_torch/kernels/csrc/pbm_timeline.cu",
     "paged_attention": "src/repro_torch/kernels/csrc/paged_attention.cu",
+    "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
+    "mamba2_scan": "src/repro_torch/kernels/csrc/mamba2_scan.cu",
+    "mlstm_chunked": "src/repro_torch/kernels/csrc/mlstm.cu",
 }
 REPLACES = {
     "batched_evict": "src/repro/kernels/pbm_timeline.py:316",
     "fifo_grant": "src/repro/kernels/pbm_timeline.py:269",
     "wake_solve": "src/repro/kernels/pbm_timeline.py:367",
     "paged_attention": "src/repro/kernels/paged_attention.py:94",
+    "flash_attention": "src/repro/kernels/flash_attention.py:99",
+    "mamba2_scan": "src/repro/kernels/mamba2_scan.py:80",
+    "mlstm_chunked": "src/repro/kernels/mlstm.py:84",
 }
+MODEL_KERNELS = ("flash_attention", "mamba2_scan", "mlstm_chunked")
+#: the model stack's serving path: three families at their full published
+#: widths (src/repro_torch/configs), bf16, weights drawn on the card
+MODEL_ARCHS = ("qwen2_1_5b", "zamba2_2_7b", "xlstm_350m")
+#: prefill: B = 4 prompts of 4,096 tokens; the attention families also take
+#: one sequence of prefill_32k's 32,768 tokens (one chip's share of it)
+MODEL_PREFILL = ((4, 4096), (1, 32_768))
+LONG_PREFILL_ARCHS = ("qwen2_1_5b", "zamba2_2_7b")
+#: decode: 32 tokens at B = 8 from an empty cache of 4,096 positions
+MODEL_DECODE = dict(batch=8, steps=32, cache=4096)
+#: decode-vs-prefill in f32 at full width: the JAX model test's bar
+DECODE_PREFILL_TOKENS, DECODE_PREFILL_TOL = 16, 2e-2
+BF16_OPS_PER_S = 989e12        # H100 SXM dense bf16 tensor-core rate
 SIM_KERNELS = ("batched_evict", "fifo_grant", "wake_solve")
 POLICIES = ("lru", "pbm", "opt")
 SERVING_POLICIES = ("lru", "cscan", "pbm", "opt")
@@ -112,6 +147,8 @@ T0 = time.time()
 
 
 def emit(obj) -> None:
+    if "phase" in obj:
+        obj = {**obj, "at_s": time.time() - T0}   # seconds since the start
     print(json.dumps(obj), flush=True)
 
 
@@ -346,16 +383,19 @@ def sim_kernel_entries(dev, recorder: Recorder, launches: dict,
 
 # ------------------------------------------------------- paged attention ----
 
-def _paged_compare(got, want, dtype: str):
-    """(elements outside atol = rtol = PAGED_TOL[dtype], max abs
-    difference): the criterion of ``numpy.allclose``; a non-finite element
-    counts as outside."""
-    from repro_torch.kernels import cases
-    tol = cases.PAGED_TOL[dtype]
+def _outside(got, want, tol: float):
+    """(elements outside atol = rtol = ``tol``, max abs difference): the
+    criterion of ``numpy.allclose``; a non-finite element counts as
+    outside."""
     g, w = got.float(), want.float()
     diff = (g - w).abs()
     bad = int((~(diff <= tol + tol * w.abs())).sum())
     return bad, float(diff.max()) if diff.numel() else 0.0
+
+
+def _paged_compare(got, want, dtype: str):
+    from repro_torch.kernels import cases
+    return _outside(got, want, cases.PAGED_TOL[dtype])
 
 
 def _dtype_name(t) -> str:
@@ -543,6 +583,380 @@ def paged_kernel_entry(dev, recorder: Recorder, serve_full: dict) -> dict:
                                    "at position 200 over 13 pages",
         "shapes": rows,
     }
+
+
+# ----------------------------------------------------------- model stack ----
+
+def _model_compare(kernel, got, want, dtype: str):
+    from repro_torch.kernels import cases
+    return _outside(got, want, cases.MODEL_TOL[kernel][dtype])
+
+
+def model_fns():
+    from repro_torch.kernels import ops, ref
+    return {"flash_attention": (ops.flash_attention, ref.flash_attention_ref),
+            "mamba2_scan": (ops.mamba2_scan, ref.mamba2_scan_ref),
+            "mlstm_chunked": (ops.mlstm_chunked, ref.mlstm_chunked_ref)}
+
+
+def phase_model_fuzz(dev) -> None:
+    import torch
+    from repro_torch.kernels import cases
+    fns = model_fns()
+    out = {"phase": "model_fuzz", "device": str(dev),
+           "tolerance": cases.MODEL_TOL}
+    for case in cases.model_cases():
+        kernel, plain = fns[case["kernel"]]
+        args = cases.model_tensors(case, dev)
+        got = kernel(*args, **case["static"])
+        torch.cuda.synchronize()
+        b, e = _model_compare(case["kernel"], got,
+                              plain(*args, **case["static"]), case["dtype"])
+        if b:
+            emit({"phase": "model_fuzz", "kernel": case["kernel"],
+                  "case": case["name"], "mismatches": b, "max_abs_err": e})
+        row = out.setdefault(case["kernel"], {}).setdefault(
+            case["dtype"], {"cases": 0, "mismatches": 0, "max_abs_err": 0.0})
+        row["cases"] += 1
+        row["mismatches"] += b
+        row["max_abs_err"] = max(row["max_abs_err"], e)
+    out["ok"] = all(r["mismatches"] == 0 for k in MODEL_KERNELS
+                    for r in out[k].values())
+    emit(out)
+    if not out["ok"]:
+        fail("model_fuzz", "a model-stack kernel disagrees with its plain "
+                           "version")
+
+
+class FirstCalls(Recorder):
+    """A :class:`Recorder` of the model-stack kernels that keeps the
+    arguments of the first call at each input shape, labelled with the
+    configuration that made it: ``samples`` is kernel -> [(label, args,
+    static), ...]."""
+
+    def __init__(self):
+        super().__init__(MODEL_KERNELS)
+        self.label = ""
+
+    def _wrap(self, name, fn):
+        def wrapped(*args, **static):
+            got = self.samples.setdefault(name, [])
+            shape = tuple(a.shape for a in args)
+            if all(tuple(x.shape for x in s[1]) != shape for s in got):
+                t0 = time.perf_counter()
+                got.append((self.label, [a.clone() for a in args],
+                            dict(static)))
+                self.seconds += time.perf_counter() - t0
+            return fn(*args, **static)
+        return wrapped
+
+
+def _sync_time(fn):
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.time()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.time() - t0
+
+
+def _zero_cache(specs, dev, dtype=None):
+    import torch
+    return {k: torch.zeros(s.shape, dtype=dtype or s.dtype, device=dev)
+            for k, s in specs.items()}
+
+
+def _decode(model, params, cache, first, steps: int):
+    """``steps`` tokens through ``serve_step`` from position 0, each
+    step's token the argmax of the last logits; all logits finite."""
+    import torch
+    tok, finite = first, torch.ones((), dtype=torch.bool, device=first.device)
+    for pos in range(steps):
+        logits, cache = model.serve_step(params, cache,
+                                         {"token": tok, "pos": pos})
+        finite &= torch.isfinite(logits).all()
+        tok = logits[:, -1:].argmax(-1).to(torch.int32)
+    return bool(finite)
+
+
+def decode_matches_prefill(model, params, dev, seed: int = 3):
+    """The last logits of one prompt of DECODE_PREFILL_TOKENS tokens, in
+    f32, by prefill and decoded token by token from a zero f32 cache
+    (xLSTM's with its sLSTM stabiliser ``sm`` at -1e9, where
+    ``slstm_block`` starts it; a zero cache is a fault of the reference,
+    ROADMAP §C): ``(max |difference|, largest excess over atol = rtol =
+    DECODE_PREFILL_TOL (0 when all within), max |prefill logit|)``."""
+    import torch
+    cfg = model.cfg
+    g = torch.Generator(device=dev).manual_seed(seed)
+    toks = torch.randint(0, cfg.vocab_size, (1, DECODE_PREFILL_TOKENS),
+                         generator=g, device=dev, dtype=torch.int32)
+    pre = model.prefill_logits(params, {"tokens": toks})[0, -1].float()
+    cache = _zero_cache(model.cache_specs(1, DECODE_PREFILL_TOKENS), dev,
+                        torch.float32)
+    if "sm" in cache:
+        cache["sm"].fill_(-1e9)
+    logits = None
+    for pos in range(DECODE_PREFILL_TOKENS):
+        logits, cache = model.serve_step(
+            params, cache, {"token": toks[:, pos:pos + 1], "pos": pos})
+    diff = (logits[0, -1].float() - pre).abs()
+    excess = diff - DECODE_PREFILL_TOL * (1.0 + pre.abs())
+    return float(diff.max()), float(excess.max().clamp(min=0.0)), \
+        float(pre.abs().max())
+
+
+def phase_model_serve(dev, calls: FirstCalls) -> dict:
+    """The model stack's serving path at three families' full widths in
+    bf16: ``build_model`` -> ``init_params`` (seed 0, on the card, stacked
+    matrices rescaled by ``fan_in_rescale``) ->
+    ``prefill_logits`` (B = 4 x 4,096 tokens; one 32,768-token sequence for
+    the attention families) -> ``serve_step`` (32 tokens at B = 8 from an
+    empty 4,096-position cache).  Launch counts are set to 0 just before
+    and read just after; then each model's f32 decode-vs-prefill check."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models.layers import tree_paths, unflatten
+    rows, kept = [], {}
+    ops.reset_launch_counts()
+    t_path = time.time()
+    with calls:
+        for arch in MODEL_ARCHS:
+            rows.append(_serve_arch(arch, dev, calls, kept))
+    launches = {k: v for k, v in ops.launch_counts().items()
+                if k in MODEL_KERNELS}
+    path_s = time.time() - t_path
+    ok = all(r["logits_finite"] and r["launches"] for r in rows)
+    # the f32 decode-vs-prefill check, after the counts were read
+    for row in rows:
+        model, params = kept.pop(row["arch"])
+        params32 = unflatten({k: t.float()
+                              for k, t in tree_paths(params).items()})
+        del params
+        torch.cuda.empty_cache()
+        diff, excess, scale = decode_matches_prefill(model, params32, dev)
+        row["decode_vs_prefill_f32"] = {
+            "tokens": DECODE_PREFILL_TOKENS, "max_abs_diff": diff,
+            "logit_scale": scale, "tolerance": DECODE_PREFILL_TOL,
+            "excess_over_tolerance": excess}
+        ok &= excess == 0.0
+        del params32
+        torch.cuda.empty_cache()
+    out = {"phase": "model_serve", "archs": rows, "launches": launches,
+           "path_s": path_s, "capture_s": calls.seconds}
+    out["ok"] = ok and all(launches[k] > 0 for k in MODEL_KERNELS)
+    emit(out)
+    if not out["ok"]:
+        fail("model_serve", "non-finite logits, a kernel never launched or "
+                            "decode disagreeing with prefill")
+    return out
+
+
+def _serve_arch(arch, dev, calls: FirstCalls, kept: dict) -> dict:
+    """One family of ``phase_model_serve``'s main path; keeps the model
+    and its weights in ``kept`` for the f32 check."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model, init_params, tree_paths
+    from repro_torch.models.layers import fan_in_rescale
+    cfg = get_config(arch)
+    model = build_model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    # the reference's draw is too ill-conditioned at full width for the f32
+    # decode-vs-prefill check (ROADMAP §C): each stacked matrix is rescaled
+    # to its own fan-in; with that draw Zamba2's and xLSTM's f32 decode left
+    # prefill by a third of the logits' scale, with this one by ~1e-5
+    params, init_s = _sync_time(lambda: fan_in_rescale(
+        model.param_specs, init_params(
+            model.param_specs, torch.Generator(device=dev).manual_seed(0),
+            getattr(torch, cfg.dtype), dev)))
+    n_params = sum(t.numel() for t in tree_paths(params).values())
+    g = torch.Generator(device=dev).manual_seed(1)
+    row = {"arch": arch, "dtype": cfg.dtype, "params": n_params,
+           "init_s": init_s, "prefill": [], "launches": {}}
+    before = ops.launch_counts()
+    finite = True
+    for B, T in MODEL_PREFILL:
+        if T > 4096 and arch not in LONG_PREFILL_ARCHS:
+            continue
+        toks = torch.randint(0, cfg.vocab_size, (B, T), generator=g,
+                             device=dev, dtype=torch.int32)
+        calls.label = f"{arch} prefill B={B} T={T}"
+        logits, secs = _sync_time(lambda: model.prefill_logits(
+            params, {"tokens": toks}))
+        fin = bool(torch.isfinite(logits).all())
+        finite &= fin and tuple(logits.shape) == (B, 1, cfg.padded_vocab)
+        row["prefill"].append({"B": B, "T": T, "seconds": secs,
+                               "tokens_per_s": B * T / secs,
+                               "logits_finite": fin})
+        del logits, toks
+    D = MODEL_DECODE
+    cache = _zero_cache(model.cache_specs(D["batch"], D["cache"]), dev)
+    first = torch.randint(0, cfg.vocab_size, (D["batch"], 1), generator=g,
+                          device=dev, dtype=torch.int32)
+    dec_finite, secs = _sync_time(lambda: _decode(
+        model, params, cache, first, D["steps"]))
+    finite &= dec_finite
+    del cache
+    row["decode"] = {**D, "seconds": secs,
+                     "tokens_per_s": D["batch"] * D["steps"] / secs,
+                     "ms_per_step": secs / D["steps"] * 1e3,
+                     "logits_finite": dec_finite}
+    after = ops.launch_counts()
+    row["launches"] = {k: after[k] - before[k] for k in MODEL_KERNELS
+                       if after[k] != before[k]}
+    n_prefills = sum(1 for _, T in MODEL_PREFILL
+                     if T <= 4096 or arch in LONG_PREFILL_ARCHS)
+    row["launches_per_forward"] = {k: v // n_prefills
+                                   for k, v in row["launches"].items()}
+    row["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    row["logits_finite"] = finite
+    kept[arch] = (model, params)
+    return row
+
+
+def _model_work(kernel, args, static):
+    """(operations, bytes) the least a call must do: every input read and
+    the output written once; flash attention 4 B H dh flops per attended
+    (query, key) pair (the causal half, the window), the scans 4 flops per
+    (step, head, state element) of their recurrences (one multiply-add to
+    update the element, one to read it out)."""
+    import torch
+    nbytes = sum(t.numel() * t.element_size() for t in args)
+    if kernel == "flash_attention":
+        q, k, _v = args
+        B, T, H, dh = q.shape
+        S = k.shape[1]
+        off = S - T if static.get("offset") is None else static["offset"]
+        t = torch.arange(T, dtype=torch.int64)
+        hi = (t + off + 1).clamp(0, S) if static.get("causal", True) \
+            else torch.full_like(t, S)
+        lo = torch.zeros_like(t)
+        if static.get("window") is not None:
+            lo = (t + off - static["window"] + 1).clamp(0, S)
+        pairs = int((hi - lo).clamp(min=0).sum())
+        ops = 4.0 * B * H * dh * pairs
+        nbytes += q.numel() * q.element_size()
+    elif kernel == "mamba2_scan":
+        xh, _a, b, _c = args
+        B, T, H, P = xh.shape
+        ops = 4.0 * B * T * H * P * b.shape[-1]
+        nbytes += xh.numel() * xh.element_size()
+    else:
+        q, _k, v, _a, _i = args
+        B, T, H, K = q.shape
+        ops = 4.0 * B * T * H * K * (v.shape[-1] + 1)
+        nbytes += v.numel() * v.element_size()
+    return ops, nbytes
+
+
+def _model_bound_ms(kernel, args, static):
+    import torch
+    ops, nbytes = _model_work(kernel, args, static)
+    rate = BF16_OPS_PER_S if args[0].dtype == torch.bfloat16 \
+        else FP32_OPS_PER_S
+    t_ops = ops / rate * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                 else "bytes")
+
+
+def _time_budget_ms(fn, dev, budget_s: float = 1.5) -> float:
+    """``_time_ms`` with as many launches as fit ``budget_s`` (3 to 30)."""
+    import torch
+    _, once = _sync_time(fn)
+    n = int(min(30, max(3, budget_s / max(once, 1e-6))))
+    return _time_ms(fn, dev, n=n, warm=1)
+
+
+def _sdpa_call(q, k, v, static):
+    """One ``scaled_dot_product_attention`` on the same q/k/v with KV
+    expanded to H heads beforehand, causal from the top-left corner (T = S
+    on the model path): the yardstick; the port never calls it."""
+    import torch.nn.functional as F
+    g = q.shape[2] // k.shape[2]
+    qt = q.transpose(1, 2)
+    kt = k.repeat_interleave(g, dim=2).transpose(1, 2)
+    vt = v.repeat_interleave(g, dim=2).transpose(1, 2)
+    causal = static.get("causal", True)
+
+    def call():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
+    return call
+
+
+def _held_to_plain(name, args, static, dtype: str) -> dict:
+    """The kernel and its plain version on ``args``, held at
+    ``MODEL_TOL[name][dtype]``: elements outside, the largest difference
+    and the root mean square of the plain output (the scale the tolerance
+    is read against)."""
+    kernel, plain = model_fns()[name]
+    got = kernel(*args, **static)
+    want = plain(*args, **static)
+    b, e = _model_compare(name, got, want, dtype)
+    rms = float(want.float().square().mean().sqrt())
+    return {"mismatches": b, "max_abs_err": e, "rms_want": rms}
+
+
+def model_kernel_entries(dev, calls: FirstCalls, serve: dict) -> list:
+    """B5-B7 against their plain versions on every input captured from
+    ``model_serve``, twice: as captured (bf16) and cast to f32, where the
+    tolerance is far below a typical output (``rms_want``), each with 0
+    elements outside; and the timings of each captured shape in bf16.  The
+    top-level numbers are the B = 4 x 4,096 prefill's of the kernel's first
+    family."""
+    import torch
+    from repro_torch.kernels import cases
+    fns = model_fns()
+    entries = []
+    for name in MODEL_KERNELS:
+        kernel, plain = fns[name]
+        samples = calls.samples.get(name, [])
+        if not samples:
+            fail("kernels", f"{name}: no input captured in model_serve")
+        rows, bad, err, err32 = [], 0, 0.0, 0.0
+        for label, args, static in samples:
+            held = _held_to_plain(name, args, static, _dtype_name(args[0]))
+            args32 = [a.float() if a.is_floating_point() else a
+                      for a in args]
+            held32 = _held_to_plain(name, args32, static, "float32")
+            del args32
+            torch.cuda.empty_cache()
+            bad += held["mismatches"] + held32["mismatches"]
+            err = max(err, held["max_abs_err"])
+            err32 = max(err32, held32["max_abs_err"])
+            bound, bound_by = _model_bound_ms(name, args, static)
+            row = {"shape": label, "dtype": _dtype_name(args[0]),
+                   "inputs": [list(a.shape) for a in args],
+                   **held, "float32": held32,
+                   "ms": _time_budget_ms(lambda: kernel(*args, **static), dev),
+                   "plain_ms": _time_budget_ms(
+                       lambda: plain(*args, **static), dev),
+                   "library_ms": None,
+                   "bound_ms": bound, "bound_by": bound_by}
+            if name == "flash_attention":
+                row["library_ms"] = _time_budget_ms(
+                    _sdpa_call(*args, static), dev)
+            rows.append(row)
+            torch.cuda.empty_cache()
+        main = rows[0]
+        entries.append({
+            "name": name, "route": "cuda", "source": SOURCE[name],
+            "replaces": REPLACES[name],
+            "launches": serve["launches"][name],
+            "launches_per_forward": {
+                r["arch"]: r["launches_per_forward"][name]
+                for r in serve["archs"] if name in r["launches_per_forward"]},
+            "max_abs_err": err, "max_abs_err_f32": err32, "mismatches": bad,
+            "inputs_compared": len(samples),
+            "tolerance": {dt: cases.MODEL_TOL[name][dt]
+                          for dt in ("bfloat16", "float32")},
+            "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "library_ms": main["library_ms"], "shapes": rows,
+        })
+    return entries
 
 
 # --------------------------------------------------------------- serving ----
@@ -987,11 +1401,13 @@ def main() -> int:
     # full-f32 matrix products on the serving path (PyTorch's default,
     # stated): TF32 would not meet the f32 tolerances
     torch.backends.cuda.matmul.allow_tf32 = False
-    from repro_torch.kernels import _build, paged_attention, pbm_timeline
+    from repro_torch.kernels import (
+        _build, flash_attention, mamba2_scan, mlstm, paged_attention,
+        pbm_timeline)
 
-    all_phases = ["env", "build", "kernels_fuzz", "paged_fuzz", "sim_small",
-                  "serve_small", "sim_calibrated", "serve_full", "sim_full",
-                  "tpch_probe", "kernels"]
+    all_phases = ["env", "build", "kernels_fuzz", "paged_fuzz", "model_fuzz",
+                  "sim_small", "serve_small", "model_serve", "sim_calibrated",
+                  "serve_full", "sim_full", "tpch_probe", "kernels"]
     phases = [p for p in args.phases.split(",") if p] or all_phases
     unknown = set(phases) - set(all_phases)
     if unknown:
@@ -1014,8 +1430,9 @@ def main() -> int:
                             for s in SOURCE.values()})     # csrc/<name>.cu
         with ThreadPoolExecutor(len(libraries)) as pool:   # one nvcc each,
             list(pool.map(_build.load, libraries))         # all at once
-        pbm_timeline.library(dev)
-        paged_attention.library(dev)
+        for module in (pbm_timeline, paged_attention, flash_attention,
+                       mamba2_scan, mlstm):
+            module.library(dev)
         out = {"phase": "build", "seconds": time.time() - t0,
                "nvcc_seconds": _build.build_seconds,
                "sources": sorted(set(SOURCE.values())),
@@ -1035,10 +1452,15 @@ def main() -> int:
         phase_kernels_fuzz(dev)
     if "paged_fuzz" in phases:
         phase_paged_fuzz(dev)
+    if "model_fuzz" in phases:
+        phase_model_fuzz(dev)
     if "sim_small" in phases:
         phase_sim_small(dev)
     if "serve_small" in phases:
         phase_serve_small(dev)
+    model_calls, model_serve = FirstCalls(), None
+    if "model_serve" in phases:
+        model_serve = phase_model_serve(dev, model_calls)
 
     recorder = Recorder(SIM_KERNELS)
     serve_recorder = Recorder(("paged_attention",))
@@ -1052,14 +1474,15 @@ def main() -> int:
         max_slices = args.full_max_slices
         if max_slices is None and calibrated is not None:
             # scale 1.0 takes roughly four times the macro-steps of scale
-            # 0.25 at a similar cost per step: run it to its end only if
-            # that fits what is left of the target
-            budget = TARGET_S - (time.time() - T0) - 60.0
-            predicted = 4.5 * calibrated["wall_s"]
+            # 0.25 per slice, each FULL_STEP_COST times as dear: run it to
+            # its end only if that fits what is left of the target
+            budget = TARGET_S - (time.time() - T0) - TAIL_S \
+                - (MODEL_KERNELS_S if model_serve is not None else 0.0)
+            predicted = 4.5 * FULL_STEP_COST * calibrated["wall_s"]
             if predicted > budget:
                 per_slice = (calibrated["batched_steps"]
                              / max(1, calibrated["refresh_steps"]))
-                ms = calibrated["ms_per_macro_step"]
+                ms = FULL_STEP_COST * calibrated["ms_per_macro_step"]
                 max_slices = max(8, int(budget * 1e3 / (ms * 4.0 * per_slice)))
         full = phase_sim_micro("sim_full", 1.0, dev, recorder,
                                max_slices=max_slices)
@@ -1069,14 +1492,16 @@ def main() -> int:
 
     kernels_line = None
     if "kernels" in phases:
-        if launches is None and serve_full is None:
-            fail("kernels", "needs a simulator phase or serve_full in the "
-                            "same run")
+        if launches is None and serve_full is None and model_serve is None:
+            fail("kernels", "needs a simulator phase, serve_full or "
+                            "model_serve in the same run")
         entries = []
         if launches is not None:
             entries += sim_kernel_entries(dev, recorder, launches, main_p)
         if serve_full is not None:
             entries.append(paged_kernel_entry(dev, serve_recorder, serve_full))
+        if model_serve is not None:
+            entries += model_kernel_entries(dev, model_calls, model_serve)
         kernels_line = {"kernels": entries}
         if any(e["mismatches"] for e in entries):
             emit(kernels_line)

@@ -7,6 +7,11 @@
   paged_attention — decode attention through a page table (PBM-managed KV);
                     call it as ``ops.paged_attention``: the package's
                     ``paged_attention`` is the wrapper's module
+  flash_attention — prefill attention (causal / window / full, GQA)
+  mamba2_scan     — chunked SSD scan of the Mamba2 blocks
+  mlstm_chunked   — chunkwise mLSTM (gated linear attention) of xLSTM
+
+Call the model-stack kernels as ``ops.flash_attention`` etc. too.
 """
 
 from . import ops, ref

@@ -4,8 +4,9 @@ library per source with a plain C interface, loaded with ``ctypes``.
 A library is built at first use from the sources under ``csrc/`` and
 nothing else, into ``_build/`` beside this file (override with the
 ``REPRO_TORCH_BUILD_DIR`` environment variable).  A library's file name
-carries a hash of its source, so an edited source is rebuilt and a stale
-library is never loaded.  A failed build raises with the compiler's
+carries a hash of its source and of the shared headers under ``csrc/``,
+so an edited source or header is rebuilt and a stale library is never
+loaded.  A failed build raises with the compiler's
 output: there is no fallback.  The argument checks the wrappers share are
 here too.
 """
@@ -51,10 +52,13 @@ def find_nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where the library of ``csrc/<name>.cu`` is, or will be, built."""
+    """Where the library of ``csrc/<name>.cu`` is, or will be, built: the
+    name hashes the source, every header under ``csrc/`` and the flags."""
     src = CSRC / f"{name}.cu"
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha1(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+        src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()
+    ).hexdigest()[:12]
     return build_dir() / f"lib{name}_{digest}.so"
 
 
@@ -111,3 +115,45 @@ def stream_of(t):
     take it."""
     import torch
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+_MAX_DYN: Dict[tuple, int] = {}
+
+
+def bind(name: str, entries, argtypes, device):
+    """``(library, dynamic shared-memory limit)`` of ``csrc/<name>.cu`` on
+    the CUDA ``device``: built and loaded at first use, each of ``entries``
+    given ``argtypes`` and an ``int`` (cudaError_t) result, and the
+    library's ``<name>_init`` run once on every device it is used on (it
+    raises the kernels' shared-memory limit there and reports what a
+    block's dynamic part may take)."""
+    import torch
+    lib = load(name)
+    init = getattr(lib, f"{name}_init")
+    if init.argtypes is None:           # first use in this process
+        for entry in entries:
+            getattr(lib, entry).argtypes = argtypes
+            getattr(lib, entry).restype = ctypes.c_int
+        init.restype = ctypes.c_int
+        init.argtypes = [ctypes.POINTER(ctypes.c_int)]
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError(f"expected a CUDA device, got {device}")
+    index = (torch.cuda.current_device() if device.index is None
+             else device.index)
+    if (name, index) not in _MAX_DYN:
+        max_dyn = ctypes.c_int(0)
+        with torch.cuda.device(index):
+            raise_on(init(ctypes.byref(max_dyn)), f"{name}_init")
+        _MAX_DYN[(name, index)] = max_dyn.value
+    return lib, _MAX_DYN[(name, index)]
+
+
+def check_same_device(*tensors) -> None:
+    if len({t.device for t in tensors}) != 1:
+        raise ValueError("all arguments must lie on one device")
+
+
+def check_aligned(t, name: str) -> None:
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name}: expected a 16-byte aligned tensor")

@@ -1,7 +1,8 @@
 """Fuzz inputs for the port's kernels, made with numpy from a seed.
 
-The buffer-pool kernels first; the paged-attention cases are at the end
-(:func:`paged_cases`).
+The buffer-pool kernels first; the paged-attention cases
+(:func:`paged_cases`) and the model-stack cases (:func:`model_cases`:
+flash attention, the Mamba2 scan, the mLSTM) are at the end.
 
 One list of cases per kernel, shared by the CPU parity tests (plain
 PyTorch version against the JAX package's oracle and interpret-mode
@@ -263,11 +264,117 @@ def paged_tensors(case: Case, device) -> list:
             .to(device)
             for f in TENSOR_FIELDS["paged_attention"]]
 
+def model_cases(seed: int = 31) -> List[Case]:
+    """Flash attention, the chunked Mamba2 scan and the chunked mLSTM.
+    Each case has ``kernel``, ``name``, ``dtype`` (``"float32"`` or
+    ``"bfloat16"``: the type the kernel gets the float inputs in, except
+    the f32 decay and gates), f32 numpy inputs under
+    ``TENSOR_FIELDS[kernel]`` and keyword arguments in ``static``.  Every
+    shape comes in both types.  Drawn as the JAX package's kernel tests
+    draw them, plus:
+
+    * flash attention: GQA 2:1 and 6:1, windows, ``causal=False``, ragged
+      T, dh of 8 (the smoke configs), 32, 64, 128, 160 (Zamba2's shared
+      block) and 256, T < S (the oracle's offset S - T) and T > S under a
+      causal mask (rows with every key masked: the oracle's mean of V),
+      the Qwen2-1.5B geometry;
+    * Mamba2 scan: ragged T, P = N = 16 (the smoke config) and 64 (Zamba2),
+      decays down to 1e-12 (a large dt), several chunks;
+    * mLSTM: ragged T, P split over blocks with a ragged last slice, K not
+      a multiple of the contraction tile, xLSTM-350M's K = P = 512, input
+      gates over the model's whole range exp([-10, 10]).
+    """
+    rng = np.random.default_rng(seed)
+    out: List[Case] = []
+
+    def nrm(shape, sd):
+        return rng.normal(0, sd, shape).astype(np.float32)
+
+    def add(kernel, name, static=None, **arrays):
+        for dtype in ("float32", "bfloat16"):
+            out.append(dict(kernel=kernel, dtype=dtype, static=static or {},
+                            name=f"{name}_{'f32' if dtype == 'float32' else 'bf16'}",
+                            **arrays))
+
+    for name, (B, T, S, H, Hk, dh, causal, window) in (
+            ("causal_mha_dh128", (2, 128, 128, 4, 4, 128, True, None)),
+            ("window64_gqa2_dh64", (2, 192, 192, 4, 2, 64, True, 64)),
+            ("full_ragged_mqa_dh32", (1, 96, 96, 2, 1, 32, False, None)),
+            ("ragged_window32_gqa2", (2, 130, 130, 4, 2, 128, True, 32)),
+            ("zamba2_dh160", (1, 100, 100, 2, 2, 160, True, None)),
+            ("t_below_s", (1, 50, 130, 4, 2, 64, True, None)),
+            ("t_above_s_masked_rows", (1, 130, 70, 2, 1, 32, True, None)),
+            ("smoke_dh8_gqa3", (2, 37, 37, 6, 2, 8, True, None)),
+            ("full_window16_dh256", (1, 80, 80, 2, 2, 256, False, 16)),
+            ("qwen2_geometry", (1, 200, 200, 12, 2, 128, True, None))):
+        add("flash_attention", name, dict(causal=causal, window=window),
+            q=nrm((B, T, H, dh), 0.5), k=nrm((B, S, Hk, dh), 0.5),
+            v=nrm((B, S, Hk, dh), 0.5))
+
+    for name, (B, T, H, P, N, a_lo) in (
+            ("jax_sweep", (2, 128, 2, 64, 64, 0.6)),
+            ("ragged", (2, 100, 2, 64, 64, 0.6)),
+            ("zamba2_geometry", (1, 200, 4, 64, 64, 0.6)),
+            ("smoke_p16_n16", (2, 70, 3, 16, 16, 0.6)),
+            ("strong_decay", (1, 150, 2, 32, 16, 1e-12)),
+            ("five_chunks", (1, 300, 2, 64, 64, 0.9))):
+        add("mamba2_scan", name, xh=nrm((B, T, H, P), 0.5),
+            a=rng.uniform(a_lo, 1.0, (B, T, H)).astype(np.float32),
+            b=nrm((B, T, N), 0.3), c=nrm((B, T, N), 0.3))
+
+    def gates(B, T, H, wide):
+        if wide:    # the model's gates: sigmoid forget, exp(clip) input
+            a = 1.0 / (1.0 + np.exp(-rng.normal(0, 2.0, (B, T, H))))
+            i = np.exp(rng.uniform(-10.0, 10.0, (B, T, H)))
+        else:
+            a = rng.uniform(0.7, 1.0, (B, T, H))
+            i = rng.uniform(0.1, 1.0, (B, T, H))
+        return a.astype(np.float32), i.astype(np.float32)
+
+    for name, (B, T, H, K, P, wide) in (
+            ("jax_sweep", (2, 128, 2, 64, 64, False)),
+            ("ragged", (2, 96, 2, 64, 64, False)),
+            ("p_split_ragged_k72_p80", (1, 100, 2, 72, 80, False)),
+            ("xlstm_geometry_k512", (1, 130, 1, 512, 512, False)),
+            ("model_gate_range", (1, 100, 2, 32, 32, True)),
+            ("smoke_k32", (2, 45, 4, 32, 32, False))):
+        a, i = gates(B, T, H, wide)
+        add("mlstm_chunked", name, q=nrm((B, T, H, K), 1.0),
+            k=nrm((B, T, H, K), 0.3), v=nrm((B, T, H, P), 1.0), a=a, i=i)
+    return out
+
+
+#: atol = rtol of a model-stack kernel against its plain version, by dtype:
+#: the JAX package's bars (tests/test_kernels.py: 3e-5 for flash attention,
+#: 2e-3 for the scans in f32; 3e-2 for flash attention in bf16, kept for the
+#: scans, whose inputs and outputs round to bf16 on both sides)
+MODEL_TOL = {
+    "flash_attention": {"float32": 3e-5, "bfloat16": 3e-2},
+    "mamba2_scan": {"float32": 2e-3, "bfloat16": 3e-2},
+    "mlstm_chunked": {"float32": 2e-3, "bfloat16": 3e-2},
+}
+#: inputs that stay f32 whatever the case's dtype (the decay and the gates)
+F32_FIELDS = ("a", "i")
+
+
+def model_tensors(case: Case, device) -> list:
+    """A model-stack case's tensor arguments on ``device``: the decay and
+    the gates in f32, everything else in the case's dtype."""
+    import torch
+    dtype = getattr(torch, case["dtype"])
+    return [torch.from_numpy(np.ascontiguousarray(case[f]))
+            .to(torch.float32 if f in F32_FIELDS else dtype).to(device)
+            for f in TENSOR_FIELDS[case["kernel"]]]
+
+
 TENSOR_FIELDS = {
     "batched_evict": ("key", "sizes", "evictable", "need_free"),
     "fifo_grant": ("key", "sizes", "budget", "pops"),
     "wake_solve": ("key", "sizes", "credit0", "inc", "pops"),
     "paged_attention": ("q", "k_pages", "v_pages", "page_table", "seq_lens"),
+    "flash_attention": ("q", "k", "v"),
+    "mamba2_scan": ("xh", "a", "b", "c"),
+    "mlstm_chunked": ("q", "k", "v", "a", "i"),
 }
 CASES = {
     "batched_evict": evict_cases,

@@ -264,7 +264,7 @@ void pa_limits(int* out) {
 
 // Once per device, after the library is loaded: raise both instantiations'
 // dynamic shared memory limit and write the smaller of the two to max_dyn.
-int pa_init(int* max_dyn) {
+int paged_attention_init(int* max_dyn) {
   int other = 0;
   cudaError_t e = allow_large_smem(paged_attention_kernel<float>, max_dyn);
   if (e != cudaSuccess) return (int)e;

@@ -2,7 +2,8 @@
 
 A CPU tensor takes the plain PyTorch version (:mod:`.ref`); a CUDA tensor
 launches the hand-written kernel (:mod:`.pbm_timeline`,
-:mod:`.paged_attention`) or raises.  There is no process-global backend
+:mod:`.paged_attention`, :mod:`.flash_attention`, :mod:`.mamba2_scan`,
+:mod:`.mlstm`) or raises.  There is no process-global backend
 switch and no fallback around a build or a launch: what runs is decided by
 where the caller put the data.
 
@@ -13,14 +14,23 @@ kernels add the leading lane axis: ``key`` is ``(L, P)``, scalars are
 
 from __future__ import annotations
 
+from typing import Optional
+
 from . import pbm_timeline, ref
+from .flash_attention import flash_attention_kernel
+from .mamba2_scan import mamba2_scan_kernel
+from .mlstm import mlstm_chunked_kernel
 from .paged_attention import paged_attention_kernel
 
 __all__ = ["batched_evict", "fifo_grant", "wake_solve", "paged_attention",
+           "flash_attention", "mamba2_scan", "mlstm_chunked",
            "launch_counts", "reset_launch_counts", "KERNELS"]
 
 #: every kernel wrapper by name; each counts its own launches
-KERNELS = {**pbm_timeline.KERNELS, "paged_attention": paged_attention_kernel}
+KERNELS = {**pbm_timeline.KERNELS, "paged_attention": paged_attention_kernel,
+           "flash_attention": flash_attention_kernel,
+           "mamba2_scan": mamba2_scan_kernel,
+           "mlstm_chunked": mlstm_chunked_kernel}
 
 
 def launch_counts() -> dict:
@@ -70,3 +80,35 @@ def paged_attention(q, k_pages, v_pages, page_table, seq_lens):
         return ref.paged_attention_ref(q, k_pages, v_pages, page_table,
                                        seq_lens)
     return paged_attention_kernel(q, k_pages, v_pages, page_table, seq_lens)
+
+
+def flash_attention(q, k, v, causal: bool = True,
+                    window: Optional[int] = None,
+                    offset: Optional[int] = None):
+    """Prefill attention: ``q`` ``(B, T, H, dh)``, GQA ``k``/``v``
+    ``(B, S, Hk, dh)`` -> ``(B, T, H, dh)`` in ``q.dtype``; query ``t`` and
+    key ``s`` are ``t - s + offset`` apart (default ``S - T``, the JAX
+    oracle's alignment)."""
+    if q.device.type == "cpu":
+        return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                       offset=offset)
+    return flash_attention_kernel(q, k, v, causal=causal, window=window,
+                                  offset=offset)
+
+
+def mamba2_scan(xh, a, b, c):
+    """Chunked SSD scan output: ``xh`` ``(B, T, H, P)``, ``a`` ``(B, T, H)``
+    f32, ``b``/``c`` ``(B, T, N)`` -> ``y`` ``(B, T, H, P)`` in
+    ``xh.dtype``."""
+    if xh.device.type == "cpu":
+        return ref.mamba2_scan_ref(xh, a, b, c)
+    return mamba2_scan_kernel(xh, a, b, c)
+
+
+def mlstm_chunked(q, k, v, a, i):
+    """Chunkwise mLSTM output: ``q``/``k`` ``(B, T, H, K)``, ``v``
+    ``(B, T, H, P)``, ``a``/``i`` ``(B, T, H)`` f32 -> ``y`` ``(B, T, H, P)``
+    in ``v.dtype``."""
+    if v.device.type == "cpu":
+        return ref.mlstm_chunked_ref(q, k, v, a, i)
+    return mlstm_chunked_kernel(q, k, v, a, i)

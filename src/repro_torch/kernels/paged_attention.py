@@ -24,46 +24,30 @@ import ctypes
 import torch
 
 from . import _build
-from ._build import check_tensor, raise_on, stream_of
+from ._build import (
+    check_aligned, check_same_device, check_tensor, raise_on, stream_of,
+)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_LIB = None
-_LIMITS = None       # max group, max head dim, max page size, vector width
-_MAX_DYN = {}        # device index -> dynamic shared-memory limit
 _ENTRY = {torch.float32: "pa_paged_attention_f32",
           torch.bfloat16: "pa_paged_attention_bf16"}
+_ARGS = [_P] * 6 + [_I] * 6 + [ctypes.c_float, _I, _P]
+_LIMITS = []         # max group, max head dim, max page size, vector width
 
 
 def library(device):
     """``(library, limits, shared-memory limit)`` for the CUDA ``device``:
     built and loaded at first use, the kernel's shared-memory limit
     raised once on every device it is launched on."""
-    global _LIB, _LIMITS
-    if _LIB is None:
-        lib = _build.load("paged_attention")
-        args = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                ctypes.c_float, _I, _P]
-        for entry in _ENTRY.values():
-            getattr(lib, entry).argtypes = args
-            getattr(lib, entry).restype = ctypes.c_int
-        lib.pa_init.argtypes = [ctypes.POINTER(ctypes.c_int)]
-        lib.pa_init.restype = ctypes.c_int
+    lib, max_dyn = _build.bind("paged_attention", _ENTRY.values(), _ARGS,
+                               device)
+    if not _LIMITS:
         lib.pa_limits.argtypes = [ctypes.POINTER(ctypes.c_int)]
         lib.pa_limits.restype = None
         limits = (ctypes.c_int * 4)()
         lib.pa_limits(limits)
-        _LIB, _LIMITS = lib, tuple(limits)
-    device = torch.device(device)
-    if device.type != "cuda":
-        raise ValueError(f"expected a CUDA device, got {device}")
-    index = (torch.cuda.current_device() if device.index is None
-             else device.index)
-    if index not in _MAX_DYN:
-        max_dyn = ctypes.c_int(0)
-        with torch.cuda.device(index):
-            raise_on(_LIB.pa_init(ctypes.byref(max_dyn)), "pa_init")
-        _MAX_DYN[index] = max_dyn.value
-    return _LIB, _LIMITS, _MAX_DYN[index]
+        _LIMITS.extend(limits)
+    return lib, tuple(_LIMITS), max_dyn
 
 
 def smem_bytes(group: int, head_dim: int, page_size: int) -> int:
@@ -93,9 +77,7 @@ def paged_attention_kernel(q, k_pages, v_pages, page_table, seq_lens,
     pages_per_seq = page_table.shape[1]
     check_tensor(page_table, "page_table", torch.int32, (B, pages_per_seq))
     check_tensor(seq_lens, "seq_lens", torch.int32, (B,))
-    if len({t.device for t in (q, k_pages, v_pages, page_table,
-                               seq_lens)}) != 1:
-        raise ValueError("all arguments must lie on one device")
+    check_same_device(q, k_pages, v_pages, page_table, seq_lens)
     if min(B, H, Hk, dh, page_size, n_pages, pages_per_seq) < 1:
         raise ValueError("every dimension must be at least 1")
     if H % Hk:
@@ -108,8 +90,7 @@ def paged_attention_kernel(q, k_pages, v_pages, page_table, seq_lens,
             f"the kernel takes G <= {max_g}, dh <= {max_dh} and a multiple "
             f"of {vec}, page_size <= {max_ps}")
     for t, name in ((k_pages, "k_pages"), (v_pages, "v_pages")):
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name}: expected a 16-byte aligned tensor")
+        check_aligned(t, name)
     smem = smem_bytes(group, dh, page_size)
     if smem > max_dyn:
         raise ValueError(f"paged_attention: {smem} bytes of shared memory "

@@ -2,9 +2,16 @@
 
 Each function defines the semantics of one kernel: the three buffer-pool
 kernels of ``csrc/pbm_timeline.cu`` over a leading lane axis ``L`` (one
-lane = one point of a sweep), and paged decode attention
-(``csrc/paged_attention.cu``, :func:`paged_attention_ref`).  They are what
-runs for CPU tensors, and what the CUDA kernels are held to on the card.
+lane = one point of a sweep), paged decode attention
+(``csrc/paged_attention.cu``, :func:`paged_attention_ref`), and the three
+kernels of the model stack's prefill: flash attention
+(:func:`flash_attention_ref`), the chunked Mamba2 scan
+(:func:`mamba2_scan_ref`) and the chunked mLSTM (:func:`mlstm_chunked_ref`).
+They are what runs for CPU tensors, and what the CUDA kernels are held to
+on the card.  The model-stack versions follow the JAX models' own chunked
+formulations (``blocked_attention``, ``ssd_chunked``, ``gla_chunked``), so
+the port's CPU model equals the JAX model to f32 rounding and their memory
+stays bounded at long sequences.
 
 The rest of this note is about the three buffer-pool kernels.
 
@@ -22,9 +29,10 @@ with an f32 prefix sum wherever that one is itself exact.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 
 def _service_order(key: torch.Tensor):
@@ -181,3 +189,178 @@ def paged_attention_ref(
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgs,bskd->bkgd", probs, v_seq.float())
     return out.reshape(b, h, dh).to(q.dtype)
+
+
+# ------------------------------------------------- model-stack prefill ----
+
+def flash_attention_ref(
+    q: torch.Tensor,            # (B, T, H, dh) f32 or bf16
+    k: torch.Tensor,            # (B, S, Hk, dh), q's dtype; GQA, not expanded
+    v: torch.Tensor,            # (B, S, Hk, dh)
+    causal: bool = True,
+    window: Optional[int] = None,
+    offset: Optional[int] = None,
+    block: int = 512,
+) -> torch.Tensor:
+    """Causal / sliding-window / full attention, the plain version of
+    ``repro.kernels.ref.flash_attention_ref`` in the formulation of the JAX
+    model's ``blocked_attention``: query blocks of ``block`` rows, each
+    against the whole K, f32 scores scaled by ``dh**-0.5`` after the dot,
+    masked positions at ``-1e30``, softmax, f32 values, output in
+    ``q.dtype``.
+
+    Query ``t`` and key ``s`` are ``rel = t - s + offset`` apart; causal
+    keeps ``rel >= 0`` and a window ``rel < window``.  ``offset`` defaults
+    to ``S - T`` (the oracle's alignment of the last query with the last
+    key); ``blocked_attention`` passes its ``q_offset``.  A row with every
+    position masked gets a uniform softmax over the S keys, the mean of V
+    (the oracle's answer; the Pallas body returns 0 there).  Head ``h``
+    reads KV head ``h // (H // Hk)``, as ``jnp.repeat`` expands it."""
+    b, t, h, dh = q.shape
+    s, hk = k.shape[1], k.shape[2]
+    g = h // hk
+    off = s - t if offset is None else offset
+    kf = k.float().permute(0, 2, 3, 1)               # (B, Hk, dh, S)
+    vf = v.float().permute(0, 2, 1, 3)               # (B, Hk, S, dh)
+    kpos = torch.arange(s, device=q.device)
+    out = torch.empty_like(q)
+    for t0 in range(0, t, block):
+        n = min(block, t - t0)
+        qi = q[:, t0:t0 + n].float().reshape(b, n, hk, g, dh)
+        qi = qi.permute(0, 2, 3, 1, 4).reshape(b, hk, g * n, dh)
+        scores = (qi @ kf).view(b, hk, g, n, s) * (dh ** -0.5)
+        rel = (torch.arange(t0, t0 + n, device=q.device)[:, None]
+               - kpos[None, :] + off)
+        mask = torch.ones_like(rel, dtype=torch.bool)
+        if causal:
+            mask &= rel >= 0
+        if window is not None:
+            mask &= rel < window
+        scores = scores.masked_fill(~mask, NEG_INF)
+        probs = torch.softmax(scores, dim=-1).view(b, hk, g * n, s)
+        o = (probs @ vf).view(b, hk, g, n, dh).permute(0, 3, 1, 2, 4)
+        out[:, t0:t0 + n] = o.reshape(b, n, h, dh).to(q.dtype)
+    return out
+
+
+def _chunks(x: torch.Tensor, chunk: int, value: float = 0.0) -> torch.Tensor:
+    """``(B, T, ...)`` -> ``(B, nc, chunk, ...)`` in f32, T padded at the
+    end with ``value``."""
+    B, T = x.shape[:2]
+    nc = max(1, -(-T // chunk))
+    pad = nc * chunk - T
+    if pad:
+        x = F.pad(x, (0, 0) * (x.dim() - 2) + (0, pad), value=value)
+    return x.reshape(B, nc, chunk, *x.shape[2:]).float()
+
+
+def _decays(a_: torch.Tensor):
+    """Per chunk, from the decays ``a_`` ``(B, nc, Q, H)``: the cumulative
+    log decay, ``L[q, s] = exp(cum_q - cum_s)`` for ``q >= s`` and 0 above
+    the diagonal (masked before the ``exp``, where the exponent is
+    positive), and the chunk's total log decay ``(B, nc, 1, H)``."""
+    Q = a_.shape[2]
+    cum = torch.cumsum(torch.log(torch.clamp(a_, min=1e-20)), dim=2)
+    li = cum[:, :, :, None, :] - cum[:, :, None, :, :]     # (B,nc,Q,S,H)
+    below = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=a_.device))
+    L = torch.exp(li.masked_fill(~below[None, None, :, :, None],
+                                 float("-inf")))
+    return cum, L, cum[:, :, -1:, :]
+
+
+def ssd_chunked(
+    xh: torch.Tensor,   # (B, T, H, P)  inputs per head
+    a: torch.Tensor,    # (B, T, H)     per-step decay in (0, 1]
+    b: torch.Tensor,    # (B, T, N)     input projection (shared groups)
+    c: torch.Tensor,    # (B, T, N)     output projection
+    chunk: int = 256,
+    h0: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Chunked SSD: ``y_t = C_t . h_t``, ``h_t = a_t h_{t-1} + B_t x_t^T``
+    (``repro.models.ssm.ssd_chunked``).  Returns ``(y, h_final)``, y
+    ``(B, T, H, P)`` in ``xh.dtype``, h ``(B, H, P, N)`` f32.  A ragged T
+    is padded with ``a = 1`` and zeros."""
+    B, T, H, P = xh.shape
+    N = b.shape[-1]
+    xh_, a_ = _chunks(xh, chunk), _chunks(a, chunk, 1.0)
+    b_, c_ = _chunks(b, chunk), _chunks(c, chunk)
+    nc = xh_.shape[1]
+    cum, L, total = _decays(a_)
+    cb = c_ @ b_.transpose(-1, -2)                           # (B,nc,Q,S)
+    y = torch.einsum("bnqsh,bnshp->bnqhp", cb[..., None] * L, xh_)
+    dte = torch.exp(total - cum)                             # (B,nc,Q,H)
+    chunk_state = torch.einsum("bnshp,bnsk->bnhpk", xh_ * dte[..., None], b_)
+    chunk_decay = torch.exp(total[:, :, 0, :])               # (B,nc,H)
+    h = (torch.zeros((B, H, P, N), dtype=torch.float32, device=xh.device)
+         if h0 is None else h0.float())
+    h_prev = []
+    for n in range(nc):
+        h_prev.append(h)
+        h = h * chunk_decay[:, n, :, None, None] + chunk_state[:, n]
+    h_prev = torch.stack(h_prev, dim=1)                      # (B,nc,H,P,N)
+    y = y + torch.einsum("bnqk,bnhpk->bnqhp", c_, h_prev) \
+        * torch.exp(cum)[..., None]
+    return y.reshape(B, nc * chunk, H, P)[:, :T].to(xh.dtype), h
+
+
+def mamba2_scan_ref(xh, a, b, c) -> torch.Tensor:
+    """The chunked SSD scan's output ``y`` (``repro.kernels.ref.
+    mamba2_scan_ref``'s, computed as the model computes it)."""
+    return ssd_chunked(xh, a, b, c)[0]
+
+
+def gla_chunked(
+    q: torch.Tensor,    # (B, T, H, K)
+    k: torch.Tensor,    # (B, T, H, K)
+    v: torch.Tensor,    # (B, T, H, P)
+    a: torch.Tensor,    # (B, T, H) per-step decay in (0, 1]
+    i: torch.Tensor,    # (B, T, H) input-gate scale
+    chunk: int = 256,
+    c0: Optional[torch.Tensor] = None,
+    n0: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Chunked mLSTM / gated linear attention,
+    ``y_t = (q_t . C_t) / max(|q_t . n_t|, 1)``, ``C_t = a_t C + i_t k_t
+    v_t^T``, ``n_t = a_t n + i_t k_t``, q scaled by ``K**-0.5``
+    (``repro.models.xlstm.gla_chunked``).  Returns ``(y, C_final
+    (B, H, K, P), n_final (B, H, K))``; a ragged T is padded with ``a = 1``,
+    ``i = 0`` and zeros."""
+    B, T, H, K = q.shape
+    P = v.shape[-1]
+    qc = _chunks(q, chunk) * (K ** -0.5)
+    kc, vc = _chunks(k, chunk), _chunks(v, chunk)
+    ac, ic = _chunks(a, chunk, 1.0), _chunks(i, chunk)
+    nc = qc.shape[1]
+    cum, L, total = _decays(ac)
+    qk = torch.einsum("bnchk,bnshk->bncsh", qc, kc)
+    w = qk * L * ic[:, :, None, :, :]                        # gated scores
+    y = torch.einsum("bncsh,bnshp->bnchp", w, vc)
+    nrm = w.sum(dim=3)                                       # (B,nc,Q,H)
+    dte = torch.exp(total - cum) * ic                        # (B,nc,Q,H)
+    kw = kc * dte[..., None]
+    chunk_state = torch.einsum("bnshk,bnshp->bnhkp", kw, vc)
+    chunk_norm = kw.sum(dim=2)                               # (B,nc,H,K)
+    chunk_decay = torch.exp(total[:, :, 0, :])               # (B,nc,H)
+    C = (torch.zeros((B, H, K, P), dtype=torch.float32, device=q.device)
+         if c0 is None else c0.float())
+    nv = (torch.zeros((B, H, K), dtype=torch.float32, device=q.device)
+          if n0 is None else n0.float())
+    C_prev, n_prev = [], []
+    for n in range(nc):
+        C_prev.append(C)
+        n_prev.append(nv)
+        C = C * chunk_decay[:, n, :, None, None] + chunk_state[:, n]
+        nv = nv * chunk_decay[:, n, :, None] + chunk_norm[:, n]
+    dstart = torch.exp(cum)                                  # (B,nc,Q,H)
+    y = y + torch.einsum("bnchk,bnhkp->bnchp", qc,
+                         torch.stack(C_prev, dim=1)) * dstart[..., None]
+    nrm = nrm + torch.einsum("bnchk,bnhk->bnch", qc,
+                             torch.stack(n_prev, dim=1)) * dstart
+    y = y / torch.clamp(nrm.abs(), min=1.0)[..., None]
+    return y.reshape(B, nc * chunk, H, P)[:, :T].to(v.dtype), C, nv
+
+
+def mlstm_chunked_ref(q, k, v, a, i) -> torch.Tensor:
+    """The chunked mLSTM's output ``y`` (the oracle is
+    ``repro.kernels.ref.gla_ref``; computed as the model computes it)."""
+    return gla_chunked(q, k, v, a, i)[0]

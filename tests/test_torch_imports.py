@@ -8,6 +8,7 @@ import pkgutil
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -18,7 +19,9 @@ from repro_torch.core.array_sim import (
     resolve_policies, run_sweep, spec_to_torch,
 )
 from repro_torch.core.workload import make_lineitem_db, micro_streams
+from repro_torch.configs import get_config
 from repro_torch.launch import serve
+from repro_torch.models import build_model, init_params, load_jax_params
 from repro_torch.serving.model import PagedTinyLM, TinyConfig
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -43,7 +46,17 @@ def test_every_submodule_is_listed():
                  "repro_torch.serving", "repro_torch.serving.kv_cache",
                  "repro_torch.serving.policy_driver",
                  "repro_torch.serving.engine", "repro_torch.serving.model",
-                 "repro_torch.launch", "repro_torch.launch.serve"):
+                 "repro_torch.launch", "repro_torch.launch.serve",
+                 "repro_torch.configs", "repro_torch.configs.base",
+                 "repro_torch.configs.qwen2_1_5b",
+                 "repro_torch.configs.zamba2_2_7b",
+                 "repro_torch.configs.xlstm_350m",
+                 "repro_torch.models", "repro_torch.models.layers",
+                 "repro_torch.models.attention", "repro_torch.models.ssm",
+                 "repro_torch.models.xlstm", "repro_torch.models.transformer",
+                 "repro_torch.kernels.flash_attention",
+                 "repro_torch.kernels.mamba2_scan",
+                 "repro_torch.kernels.mlstm"):
         assert want in MODULES
 
 
@@ -94,8 +107,13 @@ def _no_gpu():
     lambda spec: run_sweep(spec, make_config(spec, 1e6, device="cpu")),
     lambda spec: PagedTinyLM(TinyConfig()),
     lambda spec: serve.main([]),
+    lambda spec: init_params(
+        build_model(get_config("qwen2_1_5b", smoke=True)).param_specs, 0,
+        torch.float32),
+    lambda spec: load_jax_params({"w": np.zeros((2, 2), np.float32)}),
 ], ids=["make_runner", "init_state", "make_config", "spec_to_torch",
-        "resolve_device", "run_sweep", "PagedTinyLM", "launch.serve"])
+        "resolve_device", "run_sweep", "PagedTinyLM", "launch.serve",
+        "models.init_params", "models.load_jax_params"])
 def test_entry_points_default_to_cuda_and_raise_without_a_gpu(call):
     if not _no_gpu():
         pytest.skip("a GPU is present: the default device works here")

@@ -1,0 +1,238 @@
+"""The model stack's kernels: flash attention (B5), the chunked Mamba2 scan
+(B6) and the chunked mLSTM (B7).
+
+On the fuzz cases of ``repro_torch.kernels.cases.model_cases`` the port's
+plain versions (``ref.flash_attention_ref``, ``ref.mamba2_scan_ref``,
+``ref.mlstm_chunked_ref``, which follow the JAX models' chunked
+formulations) are held, on the same numpy inputs, to
+
+* the JAX package's oracles (``flash_attention_ref`` with KV expanded,
+  ``mamba2_scan_ref``, ``gla_ref``), on every case in f32 and bf16;
+* its interpret-mode Pallas kernels, as ``tests/test_kernels.py`` runs
+  them, on a few cases (flash attention only at T = S: the Pallas body and
+  the oracle place the queries differently when T != S, ROADMAP §C);
+* the JAX models' chunked paths (``blocked_attention``, ``ssd_chunked``,
+  ``gla_chunked``) in f32,
+
+at ``cases.MODEL_TOL`` (the JAX package's bars).  The CUDA kernels are
+held to the plain versions on the card by ``chip_smoke.py`` (phase
+``model_fuzz``) and by the ``gpu`` test below, which skips on a machine
+without one and needs no JAX:
+
+    PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_model_kernels.py
+"""
+
+import functools
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import cases, ops, ref
+
+try:    # the machine with the card has no JAX: only the gpu test runs there
+    import jax
+    import jax.numpy as jnp
+    from repro.kernels import ref as jref
+    from repro.kernels.flash_attention import flash_attention_kernel
+    from repro.kernels.mamba2_scan import mamba2_scan_kernel
+    from repro.kernels.mlstm import mlstm_chunked_kernel
+    from repro.models.attention import blocked_attention
+    from repro.models.ssm import ssd_chunked
+    from repro.models.xlstm import gla_chunked
+except ImportError:
+    jax = None
+needs_jax = pytest.mark.skipif(jax is None, reason="needs the JAX package")
+
+CASES = cases.model_cases()
+IDS = [f"{c['kernel']}-{c['name']}" for c in CASES]
+BY_ID = dict(zip(IDS, CASES))
+#: small cases for the interpret-mode Pallas kernels (slow on the CPU)
+INTERPRET_IDS = [
+    f"{k}-{n}_{t}" for k, n in (
+        ("flash_attention", "causal_mha_dh128"),
+        ("flash_attention", "ragged_window32_gqa2"),
+        ("flash_attention", "full_ragged_mqa_dh32"),
+        ("mamba2_scan", "ragged"), ("mamba2_scan", "strong_decay"),
+        ("mlstm_chunked", "ragged"), ("mlstm_chunked", "p_split_ragged_k72_p80"))
+    for t in ("f32", "bf16")]
+F32_IDS = [i for i in IDS if i.endswith("_f32")]
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_cpu_thread():
+    # the suite runs one file per worker, several workers at once: intra-op
+    # threads would only contend for the CPU
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+PORT = {"flash_attention": ref.flash_attention_ref,
+        "mamba2_scan": ref.mamba2_scan_ref,
+        "mlstm_chunked": ref.mlstm_chunked_ref}
+
+
+def _jax_args(case):
+    dtype = jnp.dtype(case["dtype"])
+    return [jnp.asarray(case[f], jnp.float32 if f in cases.F32_FIELDS
+                        else dtype)
+            for f in cases.TENSOR_FIELDS[case["kernel"]]]
+
+
+def _expand(case, args):
+    """Flash attention's K/V expanded to H heads, as the JAX oracle and
+    Pallas kernel take them."""
+    if case["kernel"] != "flash_attention":
+        return args
+    q, k, v = args
+    g = q.shape[2] // k.shape[2]
+    return [q, jnp.repeat(k, g, axis=2), jnp.repeat(v, g, axis=2)]
+
+
+def _close(got, want, case):
+    tol = cases.MODEL_TOL[case["kernel"]][case["dtype"]]
+    np.testing.assert_allclose(np.asarray(got, np.float32),
+                               np.asarray(want, np.float32),
+                               atol=tol, rtol=tol)
+
+
+def _port(case):
+    out = PORT[case["kernel"]](*cases.model_tensors(case, "cpu"),
+                               **case["static"])
+    assert out.dtype == getattr(torch, case["dtype"])
+    return out.float().numpy()
+
+
+@functools.lru_cache(maxsize=None)
+def _jitted(kernel, what, static):
+    kw = dict(static)
+    if what == "oracle":
+        fn = {"flash_attention": jref.flash_attention_ref,
+              "mamba2_scan": lambda *a: jref.mamba2_scan_ref(*a)[0],
+              "mlstm_chunked": jref.gla_ref}[kernel]
+    else:       # the Pallas kernel in interpret mode, small tiles
+        fn = {"flash_attention": functools.partial(
+                  flash_attention_kernel, block_q=64, block_kv=64),
+              "mamba2_scan": functools.partial(mamba2_scan_kernel, chunk=64),
+              "mlstm_chunked": functools.partial(mlstm_chunked_kernel,
+                                                 chunk=64)}[kernel]
+        fn = functools.partial(fn, interpret=True)
+    return jax.jit(functools.partial(fn, **kw))
+
+
+@needs_jax
+@pytest.mark.parametrize("cid", IDS)
+def test_plain_version_equals_jax_oracle(cid):
+    case = BY_ID[cid]
+    want = _jitted(case["kernel"], "oracle",
+                   tuple(sorted(case["static"].items())))(
+        *_expand(case, _jax_args(case)))
+    _close(_port(case), want, case)
+
+
+@needs_jax
+@pytest.mark.parametrize("cid", INTERPRET_IDS)
+def test_plain_version_equals_interpret_mode_pallas_kernel(cid):
+    case = BY_ID[cid]
+    args = _expand(case, _jax_args(case))
+    if case["kernel"] == "flash_attention":
+        assert args[0].shape[1] == args[1].shape[1]     # T = S only
+    want = _jitted(case["kernel"], "interpret",
+                   tuple(sorted(case["static"].items())))(*args)
+    _close(_port(case), want, case)
+
+
+@needs_jax
+@pytest.mark.parametrize("cid", F32_IDS)
+def test_plain_version_equals_the_jax_models_chunked_path(cid):
+    """``blocked_attention`` places query t at t + q_offset (0 here), so
+    the port's ``blocked_attention`` (offset 0) is compared with it; the
+    scans return the chunked paths' ``y``."""
+    case = BY_ID[cid]
+    args = _jax_args(case)
+    targs = cases.model_tensors(case, "cpu")
+    kernel = case["kernel"]
+    if kernel == "flash_attention":
+        from repro_torch.models.attention import blocked_attention as port_ba
+        want = blocked_attention(*args, block=64, **case["static"])
+        got = port_ba(*targs, block=64, **case["static"])
+    elif kernel == "mamba2_scan":
+        want = ssd_chunked(*args, chunk=64)[0]
+        got = ops.mamba2_scan(*targs)
+    else:
+        want = gla_chunked(*args, chunk=64)[0]
+        got = ops.mlstm_chunked(*targs)
+    _close(got, want, case)
+
+
+def test_fully_masked_rows_are_the_mean_of_v():
+    """T > S under a causal mask: the first T - S queries see no key; the
+    oracle's softmax over all -1e30 scores is uniform (the Pallas body
+    returns 0 there)."""
+    case = BY_ID["flash_attention-t_above_s_masked_rows_f32"]
+    q, k, v = cases.model_tensors(case, "cpu")
+    out = ops.flash_attention(q, k, v, causal=True)
+    n_masked = q.shape[1] - k.shape[1]
+    g = q.shape[2] // k.shape[2]
+    want = v.mean(dim=1).repeat_interleave(g, dim=1)       # (B, H, dh)
+    for t in (0, n_masked - 1):
+        torch.testing.assert_close(out[:, t], want, atol=3e-5, rtol=3e-5)
+    assert not torch.allclose(out[:, n_masked], want, atol=1e-3)
+
+
+def test_ragged_tail_is_padding_free():
+    """The output's first T0 steps do not depend on what follows them."""
+    case = BY_ID["mlstm_chunked-ragged_f32"]
+    args = cases.model_tensors(case, "cpu")
+    full = ops.mlstm_chunked(*args)
+    cut = ops.mlstm_chunked(*[a[:, :50].contiguous() for a in args])
+    torch.testing.assert_close(full[:, :50], cut, atol=2e-5, rtol=2e-5)
+    case = BY_ID["mamba2_scan-ragged_f32"]
+    args = cases.model_tensors(case, "cpu")
+    full = ops.mamba2_scan(*args)
+    cut = ops.mamba2_scan(*[a[:, :50].contiguous() for a in args])
+    torch.testing.assert_close(full[:, :50], cut, atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("kernel", sorted(PORT))
+def test_cpu_tensors_take_the_plain_version(kernel):
+    case = next(c for c in CASES if c["kernel"] == kernel
+                and c["dtype"] == "float32")
+    args = cases.model_tensors(case, "cpu")
+    ops.reset_launch_counts()
+    got = getattr(ops, kernel)(*args, **case["static"])
+    assert torch.equal(got, PORT[kernel](*args, **case["static"]))
+    assert ops.launch_counts()[kernel] == 0
+
+
+@pytest.mark.parametrize("kernel", sorted(PORT))
+def test_a_cuda_tensor_never_takes_the_plain_version(kernel):
+    """A ``meta`` tensor stands in for a CUDA one where there is no card:
+    the wrapper refuses it instead of computing on the CPU."""
+    case = next(c for c in CASES if c["kernel"] == kernel
+                and c["dtype"] == "float32")
+    args = [t.to("meta") for t in cases.model_tensors(case, "cpu")]
+    before = ops.launch_counts()[kernel]
+    with pytest.raises((RuntimeError, ValueError, OSError)):
+        getattr(ops, kernel)(*args, **case["static"])
+    assert ops.launch_counts()[kernel] == before
+
+
+@pytest.mark.gpu
+def test_cuda_kernels_equal_plain_versions_on_every_case():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc (run on the card: "
+                    "python3 chip_smoke.py --phases env,build,model_fuzz)")
+    ops.reset_launch_counts()
+    for case in CASES:
+        args = cases.model_tensors(case, "cuda")
+        got = getattr(ops, case["kernel"])(*args, **case["static"])
+        torch.cuda.synchronize()
+        want = PORT[case["kernel"]](*args, **case["static"])
+        tol = cases.MODEL_TOL[case["kernel"]][case["dtype"]]
+        torch.testing.assert_close(got.float(), want.float(), atol=tol,
+                                   rtol=tol, msg=case["name"])
+    for kernel in PORT:
+        assert ops.launch_counts()[kernel] == sum(
+            c["kernel"] == kernel for c in CASES)

@@ -1,0 +1,335 @@
+"""The port's model stack (``repro_torch.models``) against the JAX package's.
+
+With the JAX model's weights carried across by ``load_jax_params``, on the
+CPU in f32 (the port's prefill then runs the plain versions of B5-B7):
+
+* each block (``mha_train``, ``mamba2_block``, ``mlstm_block``,
+  ``slstm_block``) equals the JAX one on the same numpy input;
+* each family's ``prefill_logits`` and 8 ``serve_step`` s from the same zero
+  cache equal the JAX model's, atol = rtol = 1e-4 of the output's largest
+  magnitude (f32; sums in another order; the tied embeddings give logits
+  of 10-100, whose rounding follows that scale).  The caches are f32, as in the JAX package's own
+  ``test_decode_matches_prefill``: a bf16 cache rounds K/V, and one value
+  that lands on the other side of a bf16 rounding boundary moves a logit
+  by more than 1e-4;
+* the port's decode reproduces its own prefill for all three families
+  (the JAX package checks dense archs only).  xLSTM needs its sLSTM
+  stabiliser ``sm`` at -1e9 in the cache, as ``slstm_block`` starts it: a
+  zero cache is a known fault of the reference (ROADMAP §C), asserted
+  here as a difference;
+* one case per family at the full ``CONFIG``'s widths (``n_layers`` cut to
+  one pattern period, vocabulary 512, T = 64, weights at their true
+  fan-in), which catches layout faults at Zamba2's shared-attention head
+  of 160 and xLSTM's K = 512;
+* the families outside this slice raise ``NotImplementedError``.
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+
+jax = pytest.importorskip("jax")
+import jax.numpy as jnp  # noqa: E402
+import torch  # noqa: E402
+
+from repro.configs import get_config as jget_config  # noqa: E402
+from repro.models import attention as JA  # noqa: E402
+from repro.models import build_model as jbuild_model  # noqa: E402
+from repro.models import init_params as jinit_params  # noqa: E402
+from repro.models import ssm as JS  # noqa: E402
+from repro.models import xlstm as JX  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.models import (  # noqa: E402
+    build_model, init_params, load_jax_params, tree_paths,
+)
+from repro_torch.models import attention as A  # noqa: E402
+from repro_torch.models.layers import fan_in_rescale  # noqa: E402
+from repro_torch.models import ssm as S  # noqa: E402
+from repro_torch.models import xlstm as X  # noqa: E402
+
+FAMILIES = ("qwen2_1_5b", "zamba2_2_7b", "xlstm_350m")
+TOL = 1e-4
+#: one pattern period of each family: the dense block, Zamba2's six Mamba2
+#: layers with the shared block after the sixth, xLSTM's 7 mLSTM + 1 sLSTM
+PERIOD = {"qwen2_1_5b": 1, "zamba2_2_7b": 6, "xlstm_350m": 8}
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_cpu_thread():
+    # the suite runs one file per worker, several workers at once: intra-op
+    # threads would only contend for the CPU
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _close(got, want, tol=TOL):
+    np.testing.assert_allclose(np.asarray(got, np.float32),
+                               np.asarray(want, np.float32),
+                               atol=tol, rtol=tol)
+
+
+def _close_to_scale(got, want, tol=TOL):
+    """atol = rtol = ``tol`` times the largest magnitude of ``want``, for
+    outputs whose f32 rounding follows a large intermediate rather than
+    each element's own size."""
+    _close(got, want, tol * max(1.0, float(np.abs(np.asarray(want)).max())))
+
+
+def _pair(cfg_j, cfg_t, seed=0):
+    """The JAX model with weights from ``seed`` and the port's with the
+    same weights carried across."""
+    jm = jbuild_model(cfg_j)
+    jp = jinit_params(jm.param_specs, jax.random.PRNGKey(seed), jnp.float32)
+    tm = build_model(cfg_t)
+    tp = load_jax_params(jax.tree.map(np.asarray, jp), "cpu")
+    return jm, jp, tm, tp
+
+
+_SMOKE = {}
+
+
+def smoke_pair(arch):
+    if arch not in _SMOKE:
+        _SMOKE[arch] = _pair(jget_config(arch, smoke=True),
+                             get_config(arch, smoke=True))
+    return _SMOKE[arch]
+
+
+def _zero_cache(specs, dtype=torch.float32):
+    return {k: torch.zeros(s.shape, dtype=dtype) for k, s in specs.items()}
+
+
+def _jzero_cache(specs):
+    return jax.tree.map(lambda s: jnp.zeros(s.shape, jnp.float32), specs)
+
+
+def _tokens(cfg, B, T, seed=1):
+    return np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (B, T)).astype(np.int32)
+
+
+# ------------------------------------------------------------ the specs ----
+
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_param_trees_have_the_jax_paths_shapes_and_inits(arch):
+    jm, _, tm, _ = smoke_pair(arch)
+    jflat = {p: (s.shape, s.logical, s.init, s.scale)
+             for p, s in tree_paths(jm.param_specs).items()}
+    tflat = {p: (s.shape, s.logical, s.init, s.scale)
+             for p, s in tree_paths(tm.param_specs).items()}
+    assert jflat == tflat
+
+
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_cache_specs_have_the_jax_shapes_and_dtypes(arch):
+    jm, _, tm, _ = smoke_pair(arch)
+    js, ts = jm.cache_specs(3, 40), tm.cache_specs(3, 40)
+    assert set(js) == set(ts)
+    for k in js:
+        assert tuple(js[k].shape) == ts[k].shape, k
+        assert str(js[k].dtype) == str(ts[k].dtype).replace("torch.", ""), k
+
+
+def test_init_params_draws_the_specs_on_the_asked_device():
+    tm = build_model(get_config("zamba2_2_7b", smoke=True))
+    a = init_params(tm.param_specs, 0, torch.float32, device="cpu")
+    b = init_params(tm.param_specs, 0, torch.float32, device="cpu")
+    for (p, s), (_, t), (_, u) in zip(sorted(tree_paths(tm.param_specs).items()),
+                                      sorted(tree_paths(a).items()),
+                                      sorted(tree_paths(b).items())):
+        assert t.shape == s.shape and t.device.type == "cpu", p
+        assert torch.equal(t, u), p
+        if s.init == "ones":
+            assert bool((t == 1).all()), p
+        elif s.init == "zeros":
+            assert not bool(t.any()), p
+        else:   # N(0, 1) times the spec's scale
+            assert abs(float(t.std()) / s.fan_in_scale() - 1.0) < 0.25, p
+
+
+# --------------------------------------------------------------- blocks ----
+
+def test_mha_train_block_matches_jax():
+    _, jp, _, tp = smoke_pair("qwen2_1_5b")
+    cfg_j, cfg_t = jget_config("qwen2_1_5b", True), get_config("qwen2_1_5b", True)
+    x = np.random.default_rng(2).normal(0, 1, (2, 37, cfg_j.d_model)).astype(np.float32)
+    lj = jax.tree.map(lambda a: a[0], jp["layers"]["attn"])
+    lt = {k: v[0] for k, v in tp["layers"]["attn"].items()}
+    _close(A.mha_train(lt, torch.from_numpy(x), cfg_t),
+           JA.mha_train(lj, jnp.asarray(x), cfg_j))
+
+
+def test_mamba2_block_matches_jax():
+    _, jp, _, tp = smoke_pair("zamba2_2_7b")
+    cfg_j, cfg_t = jget_config("zamba2_2_7b", True), get_config("zamba2_2_7b", True)
+    x = np.random.default_rng(3).normal(0, 1, (2, 300, cfg_j.d_model)).astype(np.float32)
+    lj = jax.tree.map(lambda a: a[1], jp["mamba"])
+    lt = {k: v[1] for k, v in tp["mamba"].items()}
+    # over 300 steps with decays near 1 the scan's state grows to ~1.5e4 and
+    # the block's outputs to ~26: f32 rounding is then ~1e-5 of the output's
+    # scale, not of each element (the JAX package's own chunked and
+    # sequential scans give blocks 2.9e-4 apart on this input)
+    _close_to_scale(S.mamba2_block(lt, torch.from_numpy(x), cfg_t),
+                    JS.mamba2_block(lj, jnp.asarray(x), cfg_j))
+
+
+@pytest.mark.parametrize("block", ["mlstm", "slstm"])
+def test_xlstm_blocks_match_jax(block):
+    _, jp, _, tp = smoke_pair("xlstm_350m")
+    cfg_j, cfg_t = jget_config("xlstm_350m", True), get_config("xlstm_350m", True)
+    x = np.random.default_rng(4).normal(0, 1, (2, 270, cfg_j.d_model)).astype(np.float32)
+    if block == "mlstm":
+        lj = jax.tree.map(lambda a: a[0, 0], jp["mlstm"]["m"])
+        lt = {k: v[0, 0] for k, v in tp["mlstm"]["m"].items()}
+        got = X.mlstm_block(lt, torch.from_numpy(x), cfg_t)
+        want = JX.mlstm_block(lj, jnp.asarray(x), cfg_j)
+        # the smoke block's outputs reach ~1.6e6 (the normaliser clamps at
+        # 1 while q . C grows over 270 steps), and the reference's own
+        # chunked and sequential forms give blocks 1.5e-3 of that scale
+        # apart on this input; the port is 1.5e-4 of it from the chunked one
+        _close_to_scale(got, want, tol=1e-3)
+    else:
+        lj = jax.tree.map(lambda a: a[0], jp["slstm"]["s"])
+        lt = {k: v[0] for k, v in tp["slstm"]["s"].items()}
+        got = X.slstm_block(lt, torch.from_numpy(x), cfg_t)
+        want = JX.slstm_block(lj, jnp.asarray(x), cfg_j)
+        _close_to_scale(got, want)
+
+
+# ---------------------------------------------------- the serving surface ----
+
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_prefill_logits_match_jax(arch):
+    jm, jp, tm, tp = smoke_pair(arch)
+    cfg = jm.cfg
+    toks = _tokens(cfg, 2, 45)
+    want = jm.prefill_logits(jp, {"tokens": jnp.asarray(toks)})
+    got = tm.prefill_logits(tp, {"tokens": torch.from_numpy(toks)})
+    assert tuple(got.shape) == (2, 1, cfg.padded_vocab)
+    _close_to_scale(got, want)
+
+
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_serve_steps_match_jax(arch):
+    jm, jp, tm, tp = smoke_pair(arch)
+    toks = _tokens(jm.cfg, 2, 8, seed=5)
+    jcache = _jzero_cache(jm.cache_specs(2, 16))
+    tcache = _zero_cache(tm.cache_specs(2, 16))
+    for i in range(8):
+        want, jcache = jm.serve_step(
+            jp, jcache, {"token": jnp.asarray(toks[:, i:i + 1]),
+                         "pos": jnp.int32(i)})
+        got, tcache = tm.serve_step(
+            tp, tcache, {"token": torch.from_numpy(toks[:, i:i + 1]),
+                         "pos": i})
+        _close_to_scale(got, want)
+    for k in jcache:
+        _close_to_scale(tcache[k], jcache[k])
+
+
+def _decode_last(tm, tp, toks, cache):
+    logits = None
+    for i in range(toks.shape[1]):
+        logits, cache = tm.serve_step(
+            tp, cache, {"token": torch.from_numpy(toks[:, i:i + 1]), "pos": i})
+    return logits[0, -1]
+
+
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_decode_matches_prefill(arch):
+    """Sequential decode reproduces the prefill forward, at the JAX test's
+    bar of 2e-2.  xLSTM's cache holds ``sm`` = -1e9, the sLSTM
+    stabiliser's start in ``slstm_block``."""
+    jm, _, tm, tp = smoke_pair(arch)
+    toks = _tokens(jm.cfg, 1, 8, seed=6)
+    pre = tm.prefill_logits(tp, {"tokens": torch.from_numpy(toks)})[0, -1]
+    cache = _zero_cache(tm.cache_specs(1, 64))
+    if arch == "xlstm_350m":
+        cache["sm"].fill_(-1e9)
+    _close(_decode_last(tm, tp, toks, cache), pre, tol=2e-2)
+
+
+def test_xlstm_decode_from_a_zero_cache_differs_from_prefill():
+    """The known fault of the reference: a zero cache starts the sLSTM
+    stabiliser at 0, not at -1e9, and the logits move well beyond the JAX
+    test's bar (the reference gives the same difference)."""
+    jm, jp, tm, tp = smoke_pair("xlstm_350m")
+    toks = _tokens(jm.cfg, 1, 8, seed=6)
+    pre = tm.prefill_logits(tp, {"tokens": torch.from_numpy(toks)})[0, -1]
+    got = _decode_last(tm, tp, toks, _zero_cache(tm.cache_specs(1, 64)))
+    assert float((got - pre).abs().max()) > 2e-2
+    jcache = _jzero_cache(jm.cache_specs(1, 64))
+    for i in range(8):
+        want, jcache = jm.serve_step(
+            jp, jcache, {"token": jnp.asarray(toks[:, i:i + 1]),
+                         "pos": jnp.int32(i)})
+    _close_to_scale(got, want[0, -1])
+
+
+def _first_block(arch, jp, tp, cfg_j, cfg_t, x):
+    """The family's kernel-carrying block of layer 0, JAX and port."""
+    xj, xt = jnp.asarray(x), torch.from_numpy(x)
+    if arch == "qwen2_1_5b":
+        lj = jax.tree.map(lambda a: a[0], jp["layers"]["attn"])
+        lt = {k: v[0] for k, v in tp["layers"]["attn"].items()}
+        return A.mha_train(lt, xt, cfg_t), JA.mha_train(lj, xj, cfg_j)
+    if arch == "zamba2_2_7b":
+        lj = jax.tree.map(lambda a: a[0], jp["mamba"])
+        lt = {k: v[0] for k, v in tp["mamba"].items()}
+        return S.mamba2_block(lt, xt, cfg_t), JS.mamba2_block(lj, xj, cfg_j)
+    lj = jax.tree.map(lambda a: a[0, 0], jp["mlstm"]["m"])
+    lt = {k: v[0, 0] for k, v in tp["mlstm"]["m"].items()}
+    return X.mlstm_block(lt, xt, cfg_t), JX.mlstm_block(lj, xj, cfg_j)
+
+
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_full_width_one_period_matches_jax(arch):
+    """At the published widths (qwen2: 12 query / 2 KV heads of 128;
+    zamba2: Mamba2 heads of 64 with N = 64 and the shared block's heads of
+    160; xlstm: K = P = 512), one pattern period, vocabulary 512, T = 64.
+    The weights are the port's draw (``init_params``, seed 0) with every
+    stacked matrix at its own fan-in (``fan_in_rescale``), carried to the
+    JAX model: the reference's own draw reads the layer count as the
+    fan-in and makes the full-width activations too ill-conditioned for an
+    f32 comparison (ROADMAP §C).  The first kernel-carrying block and the
+    period's logits are held to 1e-4 of their scale."""
+    cut = dict(n_layers=PERIOD[arch], vocab_size=512)
+    cfg_j = dataclasses.replace(jget_config(arch), **cut)
+    cfg_t = dataclasses.replace(get_config(arch), **cut)
+    tm = build_model(cfg_t)
+    tp = fan_in_rescale(tm.param_specs,
+                        init_params(tm.param_specs, 0, torch.float32, "cpu"))
+    jm = jbuild_model(cfg_j)
+    jp = jax.tree.map(lambda t: jnp.asarray(t.numpy()), tp)
+    x = np.random.default_rng(8).normal(0, 1, (1, 64, cfg_j.d_model))
+    _close_to_scale(*_first_block(arch, jp, tp, cfg_j, cfg_t,
+                                  x.astype(np.float32)))
+    toks = _tokens(jm.cfg, 1, 64, seed=7)
+    want = jm.prefill_logits(jp, {"tokens": jnp.asarray(toks)})
+    got = tm.prefill_logits(tp, {"tokens": torch.from_numpy(toks)})
+    _close_to_scale(got, want)
+
+
+@pytest.mark.parametrize("arch", ["gemma_7b", "deepseek_67b"])
+def test_other_dense_configs_prefill_matches_jax(arch):
+    jm, jp, tm, tp = smoke_pair(arch)
+    toks = _tokens(jm.cfg, 2, 20)
+    _close_to_scale(tm.prefill_logits(tp, {"tokens": torch.from_numpy(toks)}),
+                    jm.prefill_logits(jp, {"tokens": jnp.asarray(toks)}))
+
+
+@pytest.mark.parametrize("arch", ["granite_moe_1b_a400m", "llama4_scout_17b_a16e",
+                                  "gemma3_12b", "internvl2_26b",
+                                  "seamless_m4t_large_v2"])
+def test_families_outside_the_slice_raise(arch):
+    with pytest.raises(NotImplementedError, match="ROADMAP A.10"):
+        build_model(get_config(arch, smoke=True))
+
+
+def test_training_is_not_ported_yet():
+    tm = build_model(get_config("qwen2_1_5b", smoke=True))
+    with pytest.raises(NotImplementedError, match="ROADMAP A.8"):
+        tm.train_loss({}, {})
