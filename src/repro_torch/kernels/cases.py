@@ -190,7 +190,10 @@ def paged_cases(seed: int = 21) -> List[Case]:
     * seq_len = 0 (the oracle's mean of the table's V rows);
     * the Qwen2-1.5B attention geometry, H = 12, Hk = 2, dh = 128,
       page_size = 16;
-    * the kernel's limits: G = 16, dh = 256, page_size = 64.
+    * the kernel's limits: G = 16, dh = 256, page_size = 64;
+    * the split kernel's geometry: a table of 64 pages whose lengths leave
+      whole splits empty, ``seq_len = 0`` over a table long enough to be
+      split, and ``serve_full``'s step (B = 1, 13 of 16 pages used).
     """
     rng = np.random.default_rng(seed)
     out: List[Case] = []
@@ -246,6 +249,21 @@ def paged_cases(seed: int = 21) -> List[Case]:
     q, kp, vp = draw(B, H, Hk, dh, ps, pps)
     pt = rng.permutation(kp.shape[0])[: B * pps].reshape(B, pps)
     add("kernel_limits_g16_dh256_page64", q, kp, vp, pt, [pps * ps, 70])
+
+    B, H, Hk, dh, ps, pps = 2, 4, 1, 128, 16, 64
+    q, kp, vp = draw(B, H, Hk, dh, ps, pps)
+    pt = rng.permutation(kp.shape[0])[: B * pps].reshape(B, pps)
+    add("table64_empty_splits", q, kp, vp, pt, [20, 300])
+
+    B, H, Hk, dh, ps, pps = 2, 8, 2, 64, 8, 32
+    q, kp, vp = draw(B, H, Hk, dh, ps, pps)
+    pt = rng.permutation(kp.shape[0])[: B * pps].reshape(B, pps)
+    add("seq_len_zero_split_table", q, kp, vp, pt, [0, 100])
+
+    B, H, Hk, dh, ps, pps = 1, 12, 2, 128, 16, 16
+    q, kp, vp = draw(B, H, Hk, dh, ps, pps)
+    pt = rng.permutation(kp.shape[0])[: B * pps].reshape(B, pps)
+    add("serve_full_13_of_16_pages", q, kp, vp, pt, [12 * ps + 5])
     return out
 
 
@@ -282,7 +300,11 @@ def model_cases(seed: int = 31) -> List[Case]:
       decays down to 1e-12 (a large dt), several chunks;
     * mLSTM: ragged T, P split over blocks with a ragged last slice, K not
       a multiple of the contraction tile, xLSTM-350M's K = P = 512, input
-      gates over the model's whole range exp([-10, 10]).
+      gates over the model's whole range exp([-10, 10]);
+    * flash attention at the tensor-core kernel's tiles (drawn last, so
+      the cases above keep their numbers): T = S = 1000 under GQA 6:1 at
+      dh 128 and 160 (many key tiles, a ragged last query tile), a window
+      of 200 that crosses tile edges, and T > S with masked rows at dh 128.
     """
     rng = np.random.default_rng(seed)
     out: List[Case] = []
@@ -341,6 +363,15 @@ def model_cases(seed: int = 31) -> List[Case]:
         a, i = gates(B, T, H, wide)
         add("mlstm_chunked", name, q=nrm((B, T, H, K), 1.0),
             k=nrm((B, T, H, K), 0.3), v=nrm((B, T, H, P), 1.0), a=a, i=i)
+
+    for name, (B, T, S, H, Hk, dh, causal, window) in (
+            ("t1000_gqa6_dh128", (1, 1000, 1000, 6, 1, 128, True, None)),
+            ("t1000_gqa6_dh160", (1, 1000, 1000, 6, 1, 160, True, None)),
+            ("window200_gqa6_dh64", (1, 1000, 1000, 6, 1, 64, True, 200)),
+            ("t_above_s_gqa6_dh128", (1, 300, 200, 6, 1, 128, True, None))):
+        add("flash_attention", name, dict(causal=causal, window=window),
+            q=nrm((B, T, H, dh), 0.5), k=nrm((B, S, Hk, dh), 0.5),
+            v=nrm((B, S, Hk, dh), 0.5))
     return out
 
 

@@ -1,6 +1,6 @@
-// Device helpers shared by the model-stack kernels (flash_attention.cu,
-// mamba2_scan.cu, mlstm.cu), in an anonymous namespace of each source that
-// includes it.  _build.library_path hashes this header with the source, so
+// Device helpers shared by the attention and model-stack kernels
+// (paged_attention.cu, flash_attention.cu, mamba2_scan.cu, mlstm.cu), in an
+// anonymous namespace of each source that includes it.  _build.library_path hashes this header with the source, so
 // an edit here rebuilds every library.
 
 #pragma once

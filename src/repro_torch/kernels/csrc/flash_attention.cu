@@ -5,8 +5,8 @@
 // and f32 accumulation.  Plain C interface, no PyTorch headers: the Python
 // side (repro_torch/kernels/flash_attention.py) loads the library with
 // ctypes, hands in device pointers and PyTorch's current stream, and checks
-// the returned cudaError_t.  The kernel allocates nothing and never
-// synchronises.
+// the returned cudaError_t.  The kernels allocate nothing and never
+// synchronise.
 //
 //   q    (B, T, H, dh)    f32 or bf16
 //   k/v  (B, S, Hk, dh)   q's type; GQA heads as given, head h reads KV head
@@ -24,31 +24,57 @@
 // on every key, while any valid score drives the masked terms to exactly 0.
 // Keys past S (the ragged last tile) score -inf and weigh exactly 0.
 //
-// Design
-// ------
-// * One block of 256 threads per (64-query tile, head, batch row).  The TPU
-//   kernel's sequential kv grid axis, which carried m, l, acc in VMEM
-//   scratch, is a loop inside the block; m, l (per row) and acc (64 x dh)
-//   stay in registers across it.  Query tiles are launched latest first
-//   (under a causal mask they carry the most keys).
-// * The key range a tile needs is computed from the mask: whole tiles above
-//   the diagonal and behind the window are skipped (flash_attention.py
-//   52-60); a tile holding a fully masked row walks all keys (see above).
-// * Per key tile: K (64 x dh) into shared memory, S = Q K^T as a 4 x 4
-//   register tile per thread (f32 FMAs), the online softmax of
-//   flash_attention.py 80-91 with row max / sum over the 16 threads that
-//   share a row (shuffles), P into shared memory, V into the buffer K held,
-//   O += P V with each thread owning 4 rows x dh/16 columns.
-// * Shared-memory rows are padded to an odd stride (dh + 1, 65), so the
-//   column-strided reads of K and P hit 32 different banks.
-// * bf16 is widened to f32 at the 16-byte load; no tensor cores: TF32's
-//   10-bit mantissa cannot meet the f32 tolerance of 3e-5.
-//
 // Bound.  Causal prefill at the model's widths is operations bound: 4 * B *
 // H * dh flops per (query, attended key) pair against 2 bytes per element
-// read once; at T = 4096 that is ~1000 flops per byte.  This first kernel
-// runs FFMA out of shared memory at 64 x 64 tiles; tensor cores (wgmma on
-// bf16 tiles), TMA loads and larger tiles are for a later PR.
+// read once; at T = 4096 that is ~1000 flops per byte, three times the
+// ~295 at which the H100's bf16 tensor cores, not its memory, set the pace.
+//
+// bf16: tensor cores (flash_attention_tc, the main path)
+// ------------------------------------------------------
+// * One block of two consumer warpgroups (256 threads) per (128-query tile,
+//   head, batch row), query tiles launched latest first (under a causal
+//   mask they carry the most keys).  Each warpgroup owns 64 query rows; the
+//   TPU kernel's sequential kv grid axis is a loop inside the block, and
+//   the running max, sum and the 64 x dh output stay in registers.
+// * S = Q K^T is wgmma m64nBKk16 with Q and K read from shared memory,
+//   K-major; the f32 accumulator stays in registers.  The online softmax
+//   runs there too: each row lives in one quad of threads, so the row max
+//   is two shuffles; the sum is kept per thread and reduced once at the
+//   end.  Scores are scaled after the dot (by dh^-0.5 * log2 e, so exp2).
+// * O += P V is a second wgmma: P, rounded to bf16, is the register A
+//   operand (the m64nN accumulator layout is the A fragment's), V is read
+//   from shared memory MN-major with the transpose bit.
+// * Q and every K and V tile arrive by TMA through 4-D tensor maps
+//   (dh, heads, sequence, batch): rows past T or S and columns past dh
+//   arrive as zeros and never as the next batch row's keys.  The head
+//   dimension is padded to 64, 128, 192 or 256 (DHP) by that zero fill in
+//   shared memory, so every dh the wrapper takes (multiples of 8 up to 256)
+//   runs here; dh 160 (Zamba2's shared block) computes on 192 columns.
+// * K and V tiles go through a ring of two stages, each with a "full"
+//   mbarrier per operand (TMA transaction bytes) and an "empty" mbarrier
+//   that all 256 threads arrive at when the stage's products are done; one
+//   elected thread refills a stage as soon as it is empty, so the next
+//   tile's loads overlap this tile's arithmetic.  No plain global load is
+//   left in the key loop.
+// * Key tiles of 128 (DHP <= 128) or 64 (DHP 192, 256: the 64 x 256 f32
+//   output alone is 128 registers a thread) keep the accumulators in
+//   registers; shared memory is Q plus two stages, at most 193 KB (DHP 256).
+// * Whole tiles above the diagonal and behind the window are skipped per
+//   block; a block holding a row with every key masked walks all keys.  The
+//   element mask is applied only on a tile that crosses the diagonal, the
+//   window's edge or S, for the warpgroup's rows.
+//
+// f32: FFMA (flash_attention_kernel)
+// ----------------------------------
+// TF32's 10-bit mantissa cannot meet the f32 tolerance of 3e-5, so the f32
+// path keeps the first port's kernel: one block of 256 threads per
+// (64-query tile, head, batch row); per 64-key tile, K into shared memory,
+// S = Q K^T as a 4 x 4 register tile a thread (f32 FMAs), the online
+// softmax of flash_attention.py 80-91 with row max / sum over the 16
+// threads that share a row, P into shared memory, V into the buffer K
+// held, O += P V with each thread owning 4 rows x dh/16 columns; shared
+// rows padded to an odd stride (dh + 1, 65) against bank conflicts.  No
+// bf16 shape runs it.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -56,6 +82,7 @@
 #include <stdint.h>
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -74,18 +101,6 @@ __device__ __forceinline__ void load_vec(const float* __restrict__ src,
   dst[0] = a.x; dst[1] = a.y; dst[2] = a.z; dst[3] = a.w;
   dst[4] = b.x; dst[5] = b.y; dst[6] = b.z; dst[7] = b.w;
 }
-__device__ __forceinline__ void load_vec(const __nv_bfloat16* __restrict__ src,
-                                         float* dst) {
-  const uint4 raw = *reinterpret_cast<const uint4*>(src);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    dst[2 * i] = f.x;
-    dst[2 * i + 1] = f.y;
-  }
-}
-
 // rows [0, 64) of a (rows, row_stride) array from element `base`, dh
 // columns, into shared memory at stride ld; rows at or past n_rows are 0.
 template <typename T>
@@ -246,36 +261,272 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-inline size_t smem_bytes(int dh) {
+// ------------------------------------------------ bf16 tensor-core kernel ----
+
+constexpr int kTcBQ = 128;           // query rows per block: two warpgroups
+constexpr int kTcThreads = 256;
+constexpr int kStages = 2;           // K/V ring depth
+constexpr float kLog2e = 1.4426950408889634f;
+
+template <int DHP, int BK>
+struct TcShape {
+  static constexpr int kChunks = DHP / 64;             // 128-byte column chunks
+  static constexpr int kQBytes = kTcBQ * DHP * 2;
+  static constexpr int kTileBytes = BK * DHP * 2;      // one K or V tile
+  static constexpr int kStageBytes = 2 * kTileBytes;
+  static constexpr int kSmem = kQBytes + kStages * kStageBytes + 1024;
+};
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);   // lo: low half
+  return *reinterpret_cast<const uint32_t*>(&p);
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_qk(float* d, uint64_t da, uint64_t db,
+                                         int scale_d) {
+  if constexpr (N == 64) wgmma_ss_n64(d, da, db, scale_d);
+  else wgmma_ss_n128(d, da, db, scale_d);
+}
+template <int N>
+__device__ __forceinline__ void wgmma_pv(float* d, const uint32_t* a,
+                                         uint64_t db) {
+  if constexpr (N == 64) wgmma_rs_n64(d, a, db);
+  else if constexpr (N == 128) wgmma_rs_n128(d, a, db);
+  else if constexpr (N == 192) wgmma_rs_n192(d, a, db);
+  else wgmma_rs_n256(d, a, db);
+}
+
+// DHP: head dimension padded to a multiple of 64; BK: keys per tile.
+template <int DHP, int BK>
+__global__ void __launch_bounds__(kTcThreads, 1)
+flash_attention_tc(const __grid_constant__ CUtensorMap tq,
+                   const __grid_constant__ CUtensorMap tk,
+                   const __grid_constant__ CUtensorMap tv,
+                   __nv_bfloat16* __restrict__ out, int T_, int S, int H,
+                   int Hk, int dh, int causal, int window, int offset,
+                   float scale_log2) {
+  using Shape = TcShape<DHP, BK>;
+  constexpr int kChunks = Shape::kChunks;
+  constexpr int NS = BK / 2;         // score registers a thread
+  constexpr int NO = DHP / 2;        // output registers a thread
+  constexpr int KS = BK / 16;        // k16 steps of P V
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t bar_q, bar_k[kStages], bar_v[kStages],
+      bar_empty[kStages];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~(uintptr_t)1023);
+  uint8_t* sQ = smem;
+  auto sK = [&](int st) { return smem + Shape::kQBytes + st * Shape::kStageBytes; };
+  auto sV = [&](int st) { return sK(st) + Shape::kTileBytes; };
+
+  const int nq = (T_ + kTcBQ - 1) / kTcBQ;
+  const int t0 = (nq - 1 - (int)blockIdx.x) * kTcBQ;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int kh = h / (H / Hk);
+  const int tid = threadIdx.x, wg = tid >> 7, warp = (tid >> 5) & 3;
+  const int lane = tid & 31;
+  const int t_last = min(t0 + kTcBQ, T_) - 1;
+
+  // keys [lo(t), hi(t)) are valid for row t; both bounds grow with t
+  auto lo = [&](int t) { return window >= 0 ? max(0, t + offset - window + 1) : 0; };
+  auto hi = [&](int t) { return causal ? min(S, t + offset + 1) : S; };
+  const int row = t0 + tid;
+  const bool empty_row = tid < kTcBQ && row <= t_last && lo(row) >= hi(row);
+  int s_begin = lo(t0), s_end = hi(t_last);
+  if (__syncthreads_or(empty_row)) {
+    s_begin = 0;
+    s_end = S;
+  }
+  const int first = s_begin / BK;
+  const int n_tiles = (s_end + BK - 1) / BK - first;
+
+  if (tid == 0) {
+    mbar_init(&bar_q, 1);
+    for (int i = 0; i < kStages; ++i) {
+      mbar_init(&bar_k[i], 1);
+      mbar_init(&bar_v[i], 1);
+      mbar_init(&bar_empty[i], kTcThreads);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  // one elected thread issues every copy
+  const CUtensorMap* map_k = &tk;
+  const CUtensorMap* map_v = &tv;
+  auto load_tile = [&](int j) {
+    const int st = j % kStages, s0 = (first + j) * BK;
+    mbar_expect_tx(&bar_k[st], Shape::kTileBytes);
+    for (int c = 0; c < kChunks; ++c)
+      tma_load_4d(sK(st) + c * BK * 128, map_k, &bar_k[st], c * 64, kh, s0, b);
+    mbar_expect_tx(&bar_v[st], Shape::kTileBytes);
+    for (int c = 0; c < kChunks; ++c)
+      tma_load_4d(sV(st) + c * BK * 128, map_v, &bar_v[st], c * 64, kh, s0, b);
+  };
+  if (tid == 0) {
+    mbar_expect_tx(&bar_q, Shape::kQBytes);
+    for (int c = 0; c < kChunks; ++c)
+      tma_load_4d(sQ + c * kTcBQ * 128, &tq, &bar_q, c * 64, h, t0, b);
+    for (int j = 0; j < min(kStages, n_tiles); ++j) load_tile(j);
+  }
+
+  // this thread's two rows, and its warpgroup's rows [w0, w1]
+  const int r_lo = t0 + wg * 64 + warp * 16 + (lane >> 2), r_hi = r_lo + 8;
+  const int w0 = t0 + wg * 64, w1 = w0 + 63;
+  float o[NO];
+#pragma unroll
+  for (int i = 0; i < NO; ++i) o[i] = 0.0f;
+  float m_lo = kNegInf, m_hi = kNegInf, l_lo = 0.0f, l_hi = 0.0f;
+
+  const uint8_t* q_wg = sQ + wg * 64 * 128;
+  mbar_wait(&bar_q, 0);
+  for (int j = 0; j < n_tiles; ++j) {
+    const int st = j % kStages;
+    const uint32_t ph = (j / kStages) & 1;
+    const int s0 = (first + j) * BK;
+
+    float s[NS];
+#pragma unroll
+    for (int i = 0; i < NS; ++i) s[i] = 0.0f;
+    mbar_wait(&bar_k[st], ph);
+    wgmma_fence();
+#pragma unroll
+    for (int c = 0; c < kChunks; ++c)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_qk<BK>(s, gmma_desc(q_wg + c * kTcBQ * 128 + kk * 32, 16, 1024),
+                     gmma_desc(sK(st) + c * BK * 128 + kk * 32, 16, 1024),
+                     (c | kk) != 0);
+    wgmma_commit();
+    wgmma_wait_all();
+#pragma unroll
+    for (int i = 0; i < NS; ++i) fence_reg(s[i]);
+
+    // scale, mask where the tile crosses an edge, row max over the quad
+    const bool whole = s0 + BK <= S && (!causal || s0 + BK - 1 <= w0 + offset) &&
+                       (window < 0 || s0 >= w1 + offset - window + 1);
+    float mx_lo = -INFINITY, mx_hi = -INFINITY;
+#pragma unroll
+    for (int i = 0; i < NS; ++i) {
+      float x = s[i] * scale_log2;
+      if (!whole) {
+        const int key = s0 + 8 * (i >> 2) + 2 * (lane & 3) + (i & 1);
+        const int t = (i & 2) ? r_hi : r_lo;
+        if (key >= S) {
+          x = -INFINITY;
+        } else {
+          const int rel = t - key + offset;
+          bool ok = !causal || rel >= 0;
+          if (window >= 0) ok = ok && rel < window;
+          if (!ok) x = kNegInf;
+        }
+      }
+      s[i] = x;
+      if (i & 2) mx_hi = fmaxf(mx_hi, x);
+      else mx_lo = fmaxf(mx_lo, x);
+    }
+#pragma unroll
+    for (int w = 1; w <= 2; w <<= 1) {
+      mx_lo = fmaxf(mx_lo, __shfl_xor_sync(kFull, mx_lo, w));
+      mx_hi = fmaxf(mx_hi, __shfl_xor_sync(kFull, mx_hi, w));
+    }
+    const float mn_lo = fmaxf(m_lo, mx_lo), mn_hi = fmaxf(m_hi, mx_hi);
+    const float a_lo = exp2f(m_lo - mn_lo), a_hi = exp2f(m_hi - mn_hi);
+    m_lo = mn_lo;
+    m_hi = mn_hi;
+    float sum_lo = 0.0f, sum_hi = 0.0f;
+#pragma unroll
+    for (int i = 0; i < NS; ++i) {
+      const float p = exp2f(s[i] - ((i & 2) ? mn_hi : mn_lo));
+      s[i] = p;
+      if (i & 2) sum_hi += p;
+      else sum_lo += p;
+    }
+    l_lo = l_lo * a_lo + sum_lo;
+    l_hi = l_hi * a_hi + sum_hi;
+#pragma unroll
+    for (int i = 0; i < NO; ++i) o[i] *= (i & 2) ? a_hi : a_lo;
+
+    // P (bf16) as the register A operand of P V: k16 step kk holds keys
+    // 16 kk .. 16 kk + 15, i.e. the score registers 8 kk .. 8 kk + 7
+    uint32_t pa[KS][4];
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        pa[kk][r] = pack_bf16(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
+
+    mbar_wait(&bar_v[st], ph);
+#pragma unroll
+    for (int i = 0; i < NO; ++i) fence_reg(o[i]);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk)
+      wgmma_pv<DHP>(o, pa[kk], gmma_desc(sV(st) + kk * 16 * 128, BK * 128, 1024));
+    wgmma_commit();
+    wgmma_wait_all();
+#pragma unroll
+    for (int i = 0; i < NO; ++i) fence_reg(o[i]);
+
+    mbar_arrive(&bar_empty[st]);
+    if (tid == 0 && j + kStages < n_tiles) {
+      mbar_wait(&bar_empty[st], ph);       // both warpgroups are done with it
+      load_tile(j + kStages);
+    }
+    __syncwarp();                          // warp 0 reconverges for wgmma
+  }
+
+#pragma unroll
+  for (int w = 1; w <= 2; w <<= 1) {
+    l_lo += __shfl_xor_sync(kFull, l_lo, w);
+    l_hi += __shfl_xor_sync(kFull, l_hi, w);
+  }
+  const float inv_lo = 1.0f / fmaxf(l_lo, 1e-30f);
+  const float inv_hi = 1.0f / fmaxf(l_hi, 1e-30f);
+  const size_t q_row = (size_t)H * dh;
+#pragma unroll
+  for (int i = 0; i < NO; i += 2) {
+    const int t = (i & 2) ? r_hi : r_lo;
+    const int d = 8 * (i >> 2) + 2 * (lane & 3);
+    if (t > t_last || d >= dh) continue;
+    const float inv = (i & 2) ? inv_hi : inv_lo;
+    *reinterpret_cast<__nv_bfloat162*>(
+        out + ((size_t)b * T_ + t) * q_row + (size_t)h * dh + d) =
+        __floats2bfloat162_rn(o[i] * inv, o[i + 1] * inv);
+  }
+}
+
+// ------------------------------------------------------------------ host ----
+
+inline size_t smem_bytes_f32(int dh) {
   return sizeof(float) * ((size_t)(kBQ + kBK) * (dh + 1) + (size_t)kBQ * kLdP);
 }
 
-template <typename T>
-cudaError_t init_type(int* max_dyn) {
+cudaError_t init_f32(int* max_dyn) {
   cudaError_t e;
-  if ((e = allow_smem(flash_attention_kernel<T, 2>, max_dyn))) return e;
-  if ((e = allow_smem(flash_attention_kernel<T, 4>, max_dyn))) return e;
-  if ((e = allow_smem(flash_attention_kernel<T, 8>, max_dyn))) return e;
-  if ((e = allow_smem(flash_attention_kernel<T, 10>, max_dyn))) return e;
-  return allow_smem(flash_attention_kernel<T, 16>, max_dyn);
+  if ((e = allow_smem(flash_attention_kernel<float, 2>, max_dyn))) return e;
+  if ((e = allow_smem(flash_attention_kernel<float, 4>, max_dyn))) return e;
+  if ((e = allow_smem(flash_attention_kernel<float, 8>, max_dyn))) return e;
+  if ((e = allow_smem(flash_attention_kernel<float, 10>, max_dyn))) return e;
+  return allow_smem(flash_attention_kernel<float, 16>, max_dyn);
 }
 
-template <typename T>
-int launch(const void* q, const void* k, const void* v, void* out, int B,
-           int T_, int S, int H, int Hk, int dh, int causal, int window,
-           int offset, float scale, void* stream) {
+int launch_f32(const void* q, const void* k, const void* v, void* out, int B,
+               int T_, int S, int H, int Hk, int dh, int causal, int window,
+               int offset, float scale, void* stream) {
   if (B < 1 || T_ < 1 || S < 1 || Hk < 1 || H % Hk || dh % kVec ||
       dh < kVec || dh > kMaxHeadDim)
     return (int)cudaErrorInvalidValue;
   const dim3 grid((T_ + kBQ - 1) / kBQ, H, B);
-  const size_t smem = smem_bytes(dh);
+  const size_t smem = smem_bytes_f32(dh);
   cudaStream_t st = (cudaStream_t)stream;
-  const T* qq = (const T*)q;
-  const T* kk = (const T*)k;
-  const T* vv = (const T*)v;
-  T* oo = (T*)out;
+  const float* qq = (const float*)q;
+  const float* kk = (const float*)k;
+  const float* vv = (const float*)v;
+  float* oo = (float*)out;
 #define FA_LAUNCH(NJ)                                                       \
-  flash_attention_kernel<T, NJ><<<grid, kThreads, smem, st>>>(              \
+  flash_attention_kernel<float, NJ><<<grid, kThreads, smem, st>>>(          \
       qq, kk, vv, oo, T_, S, H, Hk, dh, causal, window, offset, scale)
   if (dh <= 32) FA_LAUNCH(2);
   else if (dh <= 64) FA_LAUNCH(4);
@@ -286,18 +537,102 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
   return (int)cudaGetLastError();
 }
 
+// cuTensorMapEncodeTiled, fetched from the driver through the runtime, so
+// the library links against nothing but the CUDA runtime.
+typedef CUresult (*EncodeTiled)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (!fn) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault, &found) == cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = (EncodeTiled)p;
+  }
+  return fn;
+}
+
+// A bf16 (B, L, heads, dh) tensor as a 4-D map (dh, heads, L, B) with boxes
+// of 64 columns x `rows` rows of one head, 128-byte swizzle, zeros outside.
+bool make_map(CUtensorMap* map, const void* base, int B, int L, int heads,
+              int dh, int rows) {
+  EncodeTiled encode = encode_tiled();
+  if (!encode) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)dh, (cuuint64_t)heads,
+                              (cuuint64_t)L, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)dh * 2,
+                                 (cuuint64_t)heads * dh * 2,
+                                 (cuuint64_t)L * heads * dh * 2};
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, (void*)base, dims,
+                strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int DHP, int BK>
+int launch_tc_shape(const void* q, const void* k, const void* v, void* out,
+                    int B, int T_, int S, int H, int Hk, int dh, int causal,
+                    int window, int offset, float scale, cudaStream_t st) {
+  CUtensorMap tq, tk, tv;
+  if (!make_map(&tq, q, B, T_, H, dh, kTcBQ) ||
+      !make_map(&tk, k, B, S, Hk, dh, BK) || !make_map(&tv, v, B, S, Hk, dh, BK))
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((T_ + kTcBQ - 1) / kTcBQ, H, B);
+  flash_attention_tc<DHP, BK><<<grid, kTcThreads, TcShape<DHP, BK>::kSmem, st>>>(
+      tq, tk, tv, (__nv_bfloat16*)out, T_, S, H, Hk, dh, causal, window,
+      offset, scale * kLog2e);
+  return (int)cudaGetLastError();
+}
+
+int launch_tc(const void* q, const void* k, const void* v, void* out, int B,
+              int T_, int S, int H, int Hk, int dh, int causal, int window,
+              int offset, float scale, void* stream) {
+  if (B < 1 || T_ < 1 || S < 1 || Hk < 1 || H % Hk || dh % kVec ||
+      dh < kVec || dh > kMaxHeadDim)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (dh <= 64)
+    return launch_tc_shape<64, 128>(q, k, v, out, B, T_, S, H, Hk, dh, causal,
+                                    window, offset, scale, st);
+  if (dh <= 128)
+    return launch_tc_shape<128, 128>(q, k, v, out, B, T_, S, H, Hk, dh, causal,
+                                     window, offset, scale, st);
+  if (dh <= 192)
+    return launch_tc_shape<192, 64>(q, k, v, out, B, T_, S, H, Hk, dh, causal,
+                                    window, offset, scale, st);
+  return launch_tc_shape<256, 64>(q, k, v, out, B, T_, S, H, Hk, dh, causal,
+                                  window, offset, scale, st);
+}
+
+cudaError_t init_tc(int* max_dyn) {
+  cudaError_t e;
+  if ((e = allow_smem(flash_attention_tc<64, 128>, max_dyn))) return e;
+  if ((e = allow_smem(flash_attention_tc<128, 128>, max_dyn))) return e;
+  if ((e = allow_smem(flash_attention_tc<192, 64>, max_dyn))) return e;
+  return allow_smem(flash_attention_tc<256, 64>, max_dyn);
+}
+
 }  // namespace
 
 extern "C" {
 
-// Once per device, after the library is loaded: let every instantiation take
-// all the dynamic shared memory a block may, and write the least of them to
-// max_dyn (the wrapper checks smem_bytes(dh) against it).
+// Once per device, after the library is loaded: let every kernel take all
+// the dynamic shared memory a block may, and write the least of what is
+// left beside their static parts to max_dyn (the wrapper checks its
+// smem_bytes(dh, dtype) against it).
 int flash_attention_init(int* max_dyn) {
   *max_dyn = 1 << 30;
-  cudaError_t e = init_type<float>(max_dyn);
+  cudaError_t e = init_f32(max_dyn);
   if (e != cudaSuccess) return (int)e;
-  return (int)init_type<__nv_bfloat16>(max_dyn);
+  return (int)init_tc(max_dyn);
 }
 
 // window < 0: no window.  causal: 0 or 1.
@@ -305,16 +640,16 @@ int flash_attention_f32(const void* q, const void* k, const void* v,
                         void* out, int B, int T, int S, int H, int Hk, int dh,
                         int causal, int window, int offset, float scale,
                         void* stream) {
-  return launch<float>(q, k, v, out, B, T, S, H, Hk, dh, causal, window,
-                       offset, scale, stream);
+  return launch_f32(q, k, v, out, B, T, S, H, Hk, dh, causal, window, offset,
+                    scale, stream);
 }
 
 int flash_attention_bf16(const void* q, const void* k, const void* v,
                          void* out, int B, int T, int S, int H, int Hk, int dh,
                          int causal, int window, int offset, float scale,
                          void* stream) {
-  return launch<__nv_bfloat16>(q, k, v, out, B, T, S, H, Hk, dh, causal,
-                               window, offset, scale, stream);
+  return launch_tc(q, k, v, out, B, T, S, H, Hk, dh, causal, window, offset,
+                   scale, stream);
 }
 
 }  // extern "C"

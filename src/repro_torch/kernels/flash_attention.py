@@ -2,8 +2,11 @@
 
 Counterpart of the JAX package's ``repro.kernels.flash_attention``
 (``flash_attention_kernel``): causal / sliding-window / full attention with
-an online softmax, one thread block per (64-query tile, head, batch row).
-Unlike the Pallas kernel it takes GQA K/V as given, ``(B, S, Hk, dh)``.
+an online softmax.  bf16 runs on the tensor cores (``wgmma``, K/V through
+TMA), one block of two warpgroups per (128-query tile, head, batch row),
+the head dimension zero-padded to a multiple of 64 in shared memory; f32
+runs FFMA, one block per (64-query tile, head, batch row).  Unlike the
+Pallas kernel it takes GQA K/V as given, ``(B, S, Hk, dh)``.
 The wrapper checks device, dtype, shape, contiguity, alignment and the
 kernel's limits, allocates the output with ``torch.empty``, launches on
 PyTorch's current stream without synchronising, raises when the launch is
@@ -22,7 +25,8 @@ from typing import Optional
 import torch
 
 from . import _build
-from ._build import check_aligned, check_same_device, check_tensor, raise_on, stream_of
+from ._build import (call_on, check_aligned, check_same_device, check_tensor,
+                     raise_on, stream_of)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ENTRY = {torch.float32: "flash_attention_f32",
@@ -30,7 +34,10 @@ _ENTRY = {torch.float32: "flash_attention_f32",
 _ARGS = [_P] * 4 + [_I] * 9 + [ctypes.c_float, _P]
 #: the kernel takes a head dimension that is a multiple of VEC up to MAX_DH
 VEC, MAX_DH = 8, 256
+#: the f32 kernel's query and key tiles
 BLOCK_Q = BLOCK_K = 64
+#: the bf16 kernel: query rows per block, K/V ring stages
+TC_BLOCK_Q, TC_STAGES = 128, 2
 
 
 def library(device):
@@ -39,9 +46,20 @@ def library(device):
     return _build.bind("flash_attention", _ENTRY.values(), _ARGS, device)
 
 
-def smem_bytes(dh: int) -> int:
-    """Dynamic shared memory of one block: the Q tile and the K/V tile at a
-    row stride of dh + 1, and the 64 x 65 probabilities, all f32."""
+def tc_tiles(dh: int):
+    """``(padded head dimension, keys per tile)`` of the bf16 kernel."""
+    dhp = -(-dh // 64) * 64
+    return dhp, (128 if dhp <= 128 else 64)
+
+
+def smem_bytes(dh: int, dtype=torch.float32) -> int:
+    """Dynamic shared memory of one block.  f32: the Q tile and the K/V
+    tile at a row stride of dh + 1, and the 64 x 65 probabilities, all
+    f32.  bf16: the 128-row Q tile and two stages of K and V tiles at the
+    padded head dimension, plus 1 KB to align them to the swizzle atom."""
+    if dtype == torch.bfloat16:
+        dhp, bk = tc_tiles(dh)
+        return 2 * dhp * (TC_BLOCK_Q + TC_STAGES * 2 * bk) + 1024
     return 4 * ((BLOCK_Q + BLOCK_K) * (dh + 1) + BLOCK_Q * (BLOCK_K + 1))
 
 
@@ -71,17 +89,17 @@ def flash_attention_kernel(q, k, v, causal: bool = True,
     for t, name in ((q, "q"), (k, "k"), (v, "v")):
         check_aligned(t, name)
     lib, max_dyn = library(q.device)
-    if smem_bytes(dh) > max_dyn:
-        raise ValueError(f"flash_attention: {smem_bytes(dh)} bytes of shared "
-                         f"memory per block, the device allows {max_dyn}")
+    smem = smem_bytes(dh, q.dtype)
+    if smem > max_dyn:
+        raise ValueError(f"flash_attention: {smem} bytes of shared memory "
+                         f"per block, the device allows {max_dyn}")
     off = S - T if offset is None else int(offset)
     win = -1 if window is None else int(window)
     out = torch.empty_like(q)
-    with torch.cuda.device(q.device):
-        err = getattr(lib, _ENTRY[q.dtype])(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            B, T, S, H, Hk, dh, int(causal), win, off, dh ** -0.5,
-            stream_of(q))
+    err = call_on(q, getattr(lib, _ENTRY[q.dtype]),
+                  q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                  B, T, S, H, Hk, dh, int(causal), win, off, dh ** -0.5,
+                  stream_of(q))
     raise_on(err, "flash_attention launch")
     flash_attention_kernel.launches += 1
     return out

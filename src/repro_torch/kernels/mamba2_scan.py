@@ -20,7 +20,8 @@ import ctypes
 import torch
 
 from . import _build
-from ._build import check_same_device, check_tensor, raise_on, stream_of
+from ._build import (call_on, check_same_device, check_tensor, raise_on,
+                     stream_of)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ENTRY = {torch.float32: "mamba2_scan_f32",
@@ -66,10 +67,9 @@ def mamba2_scan_kernel(xh, a, b, c) -> torch.Tensor:
                          f"memory per block (P={P}, N={N}), the device "
                          f"allows {max_dyn}")
     y = torch.empty_like(xh)
-    with torch.cuda.device(xh.device):
-        err = getattr(lib, _ENTRY[xh.dtype])(
-            xh.data_ptr(), a.data_ptr(), b.data_ptr(), c.data_ptr(),
-            y.data_ptr(), B, T, H, P, N, stream_of(xh))
+    err = call_on(xh, getattr(lib, _ENTRY[xh.dtype]),
+                  xh.data_ptr(), a.data_ptr(), b.data_ptr(), c.data_ptr(),
+                  y.data_ptr(), B, T, H, P, N, stream_of(xh))
     raise_on(err, "mamba2_scan launch")
     mamba2_scan_kernel.launches += 1
     return y

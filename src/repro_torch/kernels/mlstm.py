@@ -22,7 +22,8 @@ import ctypes
 import torch
 
 from . import _build
-from ._build import check_same_device, check_tensor, raise_on, stream_of
+from ._build import (call_on, check_same_device, check_tensor, raise_on,
+                     stream_of)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ENTRY = {torch.float32: "mlstm_f32", torch.bfloat16: "mlstm_bf16"}
@@ -69,11 +70,10 @@ def mlstm_chunked_kernel(q, k, v, a, i) -> torch.Tensor:
         raise ValueError(f"mlstm: {smem_bytes(K)} bytes of shared memory per "
                          f"block (K={K}), the device allows {max_dyn}")
     y = torch.empty_like(v)
-    with torch.cuda.device(v.device):
-        err = getattr(lib, _ENTRY[v.dtype])(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), a.data_ptr(),
-            i.data_ptr(), y.data_ptr(), B, T, H, K, P, K ** -0.5,
-            stream_of(v))
+    err = call_on(v, getattr(lib, _ENTRY[v.dtype]),
+                  q.data_ptr(), k.data_ptr(), v.data_ptr(), a.data_ptr(),
+                  i.data_ptr(), y.data_ptr(), B, T, H, K, P, K ** -0.5,
+                  stream_of(v))
     raise_on(err, "mlstm launch")
     mlstm_chunked_kernel.launches += 1
     return y

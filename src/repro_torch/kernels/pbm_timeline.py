@@ -21,7 +21,7 @@ import torch
 
 from . import _build
 from ._build import check_tensor as _check, raise_on as _raise_on
-from ._build import stream_of as _stream
+from ._build import call_on as _call_on, stream_of as _stream
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _LIB = None
@@ -99,10 +99,9 @@ def batched_evict_kernel(key, sizes, evictable, need_free, *,
     _check(need_free, "need_free", torch.float32, (L,))
     n = _sort_len(P, max_dyn[0], "batched_evict")
     out = torch.empty((L, P), dtype=torch.bool, device=key.device)
-    with torch.cuda.device(key.device):
-        err = fn(key.data_ptr(), sizes.data_ptr(), stride,
-                 evictable.data_ptr(), need_free.data_ptr(), out.data_ptr(),
-                 L, P, int(vmax), n, _stream(key))
+    err = _call_on(key, fn, key.data_ptr(), sizes.data_ptr(), stride,
+                   evictable.data_ptr(), need_free.data_ptr(), out.data_ptr(),
+                   L, P, int(vmax), n, _stream(key))
     _raise_on(err, "batched_evict launch")
     batched_evict_kernel.launches += 1
     return out
@@ -121,11 +120,10 @@ def fifo_grant_kernel(key, sizes, budget, pops, *, vmax: int = 16,
     mask = torch.empty((L, P), dtype=torch.bool, device=key.device)
     nbytes = torch.empty((L,), dtype=torch.float32, device=key.device)
     n = torch.empty((L,), dtype=torch.int32, device=key.device)
-    with torch.cuda.device(key.device):
-        err = lib.pbm_fifo_grant(
-            key.data_ptr(), sizes.data_ptr(), stride, budget.data_ptr(),
-            pops.data_ptr(), mask.data_ptr(), nbytes.data_ptr(),
-            n.data_ptr(), L, P, int(vmax), n_sort, _stream(key))
+    err = _call_on(key, lib.pbm_fifo_grant,
+                   key.data_ptr(), sizes.data_ptr(), stride, budget.data_ptr(),
+                   pops.data_ptr(), mask.data_ptr(), nbytes.data_ptr(),
+                   n.data_ptr(), L, P, int(vmax), n_sort, _stream(key))
     _raise_on(err, "fifo_grant launch")
     fifo_grant_kernel.launches += 1
     return mask, nbytes, n
@@ -147,11 +145,11 @@ def wake_solve_kernel(key, sizes, credit0, inc, pops, *,
                          f"1..{lib.pbm_max_h_cap()}")
     n = _sort_len(P, max_dyn[2], "wake_solve")
     out = torch.empty((L, P), dtype=torch.int32, device=key.device)
-    with torch.cuda.device(key.device):
-        err = lib.pbm_wake_solve(
-            key.data_ptr(), sizes.data_ptr(), stride, credit0.data_ptr(),
-            inc.data_ptr(), pops.data_ptr(), out.data_ptr(),
-            L, P, int(h_cap), n, _stream(key))
+    err = _call_on(key, lib.pbm_wake_solve,
+                   key.data_ptr(), sizes.data_ptr(), stride,
+                   credit0.data_ptr(), inc.data_ptr(), pops.data_ptr(),
+                   out.data_ptr(),
+                   L, P, int(h_cap), n, _stream(key))
     _raise_on(err, "wake_solve launch")
     wake_solve_kernel.launches += 1
     return out

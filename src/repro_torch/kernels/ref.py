@@ -191,6 +191,64 @@ def paged_attention_ref(
     return out.reshape(b, h, dh).to(q.dtype)
 
 
+def paged_attention_split_ref(
+    q: torch.Tensor,            # (B, H, dh) f32 or bf16
+    k_pages: torch.Tensor,      # (n_pages, page_size, Hk, dh), q's dtype
+    v_pages: torch.Tensor,      # (n_pages, page_size, Hk, dh), q's dtype
+    page_table: torch.Tensor,   # (B, pages_per_seq) i32 pool page ids
+    seq_lens: torch.Tensor,     # (B,) i32
+    pages_per_split: int,
+    partials: bool = False,
+):
+    """:func:`paged_attention_ref` in the split-then-combine formulation of
+    the CUDA kernel (``csrc/paged_attention.cu``), for tests only.
+
+    Split ``k`` covers table pages ``[k * pages_per_split, ...)`` and reads
+    only those that hold a position ``< seq_len`` (every page for
+    ``seq_len <= 0``).  It reports its running max ``m``, denominator
+    ``l`` and unnormalised numerator ``acc`` in f32; a split with no page
+    to read reports ``m = -inf``, ``l = 0``, ``acc = 0``.  The combine takes
+    ``M = max m``, weights ``exp(m - M)`` and divides by
+    ``max(sum weight * l, 1e-30)``.  Returns the output in ``q.dtype``, and
+    with ``partials`` also ``(m, l, acc)`` of shapes ``(B, Hk, G, n)``,
+    ``(B, Hk, G, n)``, ``(B, Hk, G, n, dh)``."""
+    b, h, dh = q.shape
+    _, ps, hk, _ = k_pages.shape
+    g = h // hk
+    pps = page_table.shape[1]
+    sl = seq_lens.long()
+    n_read = torch.where(sl > 0, ((sl + ps - 1) // ps).clamp(max=pps),
+                         torch.full_like(sl, pps))
+    qf = q.reshape(b, hk, g, dh).float()
+    ms, ls, accs = [], [], []
+    for p0 in range(0, pps, pages_per_split):
+        p1 = min(p0 + pages_per_split, pps)
+        n = (p1 - p0) * ps
+        idx = page_table[:, p0:p1].long()
+        kk = k_pages[idx].reshape(b, n, hk, dh).float()
+        vv = v_pages[idx].reshape(b, n, hk, dh).float()
+        scores = torch.einsum("bkgd,bskd->bkgs", qf, kk) * (dh ** -0.5)
+        pos = p0 * ps + torch.arange(n, device=q.device)
+        scores = torch.where((pos[None, :] < seq_lens[:, None])[:, None, None],
+                             scores, torch.full_like(scores, NEG_INF))
+        read = (torch.arange(p0, p1, device=q.device)[None, :]
+                < n_read[:, None]).repeat_interleave(ps, dim=1)   # (B, n)
+        scores = torch.where(read[:, None, None, :], scores,
+                             torch.full_like(scores, float("-inf")))
+        m = scores.amax(dim=-1)                    # -inf: nothing read
+        p = torch.exp(scores - m.clamp(min=NEG_INF)[..., None])
+        ls.append(p.sum(dim=-1))
+        accs.append(torch.einsum("bkgs,bskd->bkgd", p, vv))
+        ms.append(m)
+    m, l, acc = (torch.stack(ms, dim=-1), torch.stack(ls, dim=-1),
+                 torch.stack(accs, dim=-2))
+    w = torch.exp(m - m.amax(dim=-1, keepdim=True))     # split 0 is finite
+    out = (w[..., None] * acc).sum(dim=-2) \
+        / (w * l).sum(dim=-1).clamp(min=1e-30)[..., None]
+    out = out.reshape(b, h, dh).to(q.dtype)
+    return (out, (m, l, acc)) if partials else out
+
+
 # ------------------------------------------------- model-stack prefill ----
 
 def flash_attention_ref(

@@ -236,3 +236,61 @@ def test_cuda_kernels_equal_plain_versions_on_every_case():
     for kernel in PORT:
         assert ops.launch_counts()[kernel] == sum(
             c["kernel"] == kernel for c in CASES)
+
+
+def _attention_p_in_bf16(q, k, v):
+    """Causal attention as the tensor-core kernel rounds it: f32 scores and
+    softmax statistics, the unnormalised probabilities rounded to bf16
+    before P V (f32 accumulation), the f32 sum of the unrounded ones as the
+    denominator, the output rounded to bf16."""
+    B, T, H, dh = q.shape
+    g = H // k.shape[2]
+    kf = k.float().repeat_interleave(g, dim=2)
+    vf = v.float().repeat_interleave(g, dim=2)
+    s = torch.einsum("bthd,bshd->bhts", q.float(), kf) * dh ** -0.5
+    keep = torch.ones(T, k.shape[1], dtype=torch.bool).tril(k.shape[1] - T)
+    s = s.masked_fill(~keep, ref.NEG_INF)
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    o = torch.einsum("bhts,bshd->bthd", p.bfloat16().float(), vf)
+    return (o / p.sum(dim=-1).transpose(1, 2)[..., None]).bfloat16()
+
+
+def _normwise_max_block(x, want, rows=128):
+    """Largest normwise relative error over (batch, ``rows``-query tile,
+    head) blocks of a (B, T, H, dh) output: one CTA's part of it."""
+    B, T, H, dh = want.shape
+    d = (x.double() - want.double()).square().view(B, T // rows, rows, H, dh)
+    w = want.double().square().view(B, T // rows, rows, H, dh)
+    return float((d.sum((2, 4)) / w.sum((2, 4))).sqrt().max())
+
+
+@pytest.mark.parametrize("dh", [128, 160])
+def test_the_bf16_normwise_bar_can_be_met(dh):
+    """``chip_smoke.py`` holds flash attention's bf16 kernel to the plain
+    version on the same inputs cast to f32 at a normwise relative error of
+    1e-2, over the whole output and over each CTA's (batch, 128-query tile,
+    head) block.  Rounding P to bf16 before P V and the output to bf16 —
+    what the tensor-core kernel does — stays well under it at T = S = 512,
+    GQA 6:1; a dropped key tile does not, nor does one confined to one
+    block, which the global norm dilutes."""
+    rng = np.random.default_rng(7)
+    q, k, v = (torch.from_numpy(rng.normal(0, 0.5, (1, 512, h, dh))
+                                .astype(np.float32)).bfloat16()
+               for h in (6, 1, 1))
+    want = ref.flash_attention_ref(q.float(), k.float(), v.float())
+    got = _attention_p_in_bf16(q, k, v)
+
+    def normwise(x):
+        return float((x.double() - want.double()).norm() / want.double().norm())
+    assert normwise(got) < 1e-2
+    assert _normwise_max_block(got, want) < 1e-2
+    assert normwise(want.bfloat16()) < 5e-3        # output rounding alone
+    k_cut, v_cut = k.clone(), v.clone()
+    k_cut[:, 128:256] = 0.0                        # one key tile dropped
+    v_cut[:, 128:256] = 0.0
+    cut = _attention_p_in_bf16(q, k_cut, v_cut)
+    assert normwise(cut) > 1e-2
+    one_block = got.clone()                        # ... in one block only
+    one_block[:, 384:512, 5] = cut[:, 384:512, 5]
+    assert _normwise_max_block(one_block, want) > 1e-2
+    assert _normwise_max_block(one_block, want) > 2 * normwise(one_block)
