@@ -21,11 +21,17 @@ One JSON object per phase, one per line:
                       stack and local memory that ``cuobjdump -res-usage``
                       reads from the library (and ptxas -v's lines for the
                       builds this run made), per library the SASS count of
-                      HGMMA / UTMALDG / UBLKCP / LDGSTS: flash_attention
-                      must show HGMMA and UTMALDG, paged_attention LDGSTS
-                      or UBLKCP, and neither may use local memory
+                      HGMMA / HMMA / UTMALDG / UBLKCP / LDGSTS:
+                      flash_attention must show HGMMA and UTMALDG,
+                      paged_attention LDGSTS or UBLKCP, pbm_timeline no
+                      tensor-core instruction; no kernel of those two
+                      libraries, and neither fifo_grant nor wake_solve, may
+                      have a stack frame or use local memory
 3. ``kernels_fuzz``   every buffer-pool kernel against its plain version on
-                      the fuzz shapes of the CPU tests (outputs must be EQUAL)
+                      the fuzz shapes of the CPU tests (outputs must be EQUAL);
+                      for fifo_grant and wake_solve the lanes that took each
+                      path (head selected, whole row sorted: computed on the
+                      host), each path at least once
 4. ``paged_fuzz``     paged attention against its plain version on its fuzz
                       cases, f32 and bf16 (atol = rtol = 3e-5 / 3e-2), and
                       in bf16 against the plain version on the inputs cast
@@ -65,6 +71,8 @@ One JSON object per phase, one per line:
                       and its bound; also ``device_ms`` and ``host_ms``
                       (``_queued_ms``: launches queued behind a sleep, the
                       device's time and the host's time to issue one);
+                      fifo_grant and wake_solve with the lanes of the
+                      captured inputs that took each path;
                       paged attention also at a deployment's batch (B = 32,
                       1024-4096 tokens); B4's and B5's bf16 inputs held to
                       f32 as in 4
@@ -182,11 +190,18 @@ def nvidia_smi_line() -> str:
 # ----------------------------------------------------------------- build ----
 
 #: SASS instructions that show which of the card's features a library uses:
-#: warpgroup MMA, TMA tensor loads, bulk copies, cp.async
-SASS_OPS = ("HGMMA", "UTMALDG", "UBLKCP", "LDGSTS")
+#: warpgroup MMA, warp MMA, TMA tensor loads, bulk copies, cp.async
+SASS_OPS = ("HGMMA", "HMMA", "UTMALDG", "UBLKCP", "LDGSTS")
 #: what each redesigned library must show (any one of the names)
 SASS_REQUIRED = {"flash_attention": (("HGMMA",), ("UTMALDG",)),
                  "paged_attention": (("LDGSTS", "UBLKCP"),)}
+#: what a library must not show: the buffer-pool kernels sum whole byte
+#: counts, which a tensor-core product would round
+SASS_FORBIDDEN = {"pbm_timeline": ("HGMMA", "HMMA")}
+#: redesigned kernels of other libraries held to no stack frame and no
+#: local memory (every kernel of the SASS_REQUIRED libraries is)
+NO_LOCAL_KERNELS = {"pbm_timeline": ("fifo_grant_kernel",
+                                     "wake_solve_kernel")}
 
 
 def _cuobjdump(flag: str, name: str) -> str:
@@ -234,14 +249,28 @@ def resource_usage(name: str) -> list:
 
 def build_evidence_ok(usage: dict, sass: dict):
     """The redesigned kernels' libraries use the features their designs
-    rest on, and every kernel in them is listed by ``cuobjdump
-    -res-usage`` with no stack frame and no local memory (no spill, no
-    array in local memory).  A library with no kernel listed fails."""
+    rest on and none they must not, and every kernel in them (in
+    ``NO_LOCAL_KERNELS``: each kernel named there) is listed by
+    ``cuobjdump -res-usage`` with no stack frame and no local memory (no
+    spill, no array in local memory).  A library or a named kernel that
+    is not listed fails."""
     for lib, groups in SASS_REQUIRED.items():
         for names in groups:
             if not any(sass.get(lib, {}).get(n, 0) for n in names):
                 return False, f"{lib}: no {' / '.join(names)} in its SASS"
+    for lib, names in SASS_FORBIDDEN.items():
+        for op in names:
+            if sass.get(lib, {}).get(op, 0):
+                return False, f"{lib}: {op} in its SASS"
+    gated = {lib: usage.get(lib, []) for lib in SASS_REQUIRED}
+    for lib, kernels in NO_LOCAL_KERNELS.items():
         rows = usage.get(lib, [])
+        for kernel in kernels:
+            if not any(kernel in (row["kernel"] or "") for row in rows):
+                return False, f"{lib}: cuobjdump -res-usage lists no {kernel}"
+        gated[lib] = [row for row in rows
+                      if any(k in (row["kernel"] or "") for k in kernels)]
+    for lib, rows in gated.items():
         if not rows:
             return False, f"{lib}: cuobjdump -res-usage lists no kernel"
         for row in rows:
@@ -283,6 +312,23 @@ def kernel_fns():
     }
 
 
+#: the kernels with two paths, a head of the queue selected and sorted
+#: alone or the whole row sorted (``pbm_timeline.lane_paths``)
+TWO_PATH_KERNELS = ("fifo_grant", "wake_solve")
+
+
+def path_counts(name, inputs) -> dict:
+    """Lanes of the calls ``inputs`` (``[(args, static), ...]``) that took
+    each path of ``name``'s kernel, computed on the host from the inputs
+    as the kernel decides on the device."""
+    from repro_torch.kernels.pbm_timeline import lane_paths
+    counts = {"select_lanes": 0, "full_lanes": 0}
+    for args, static in inputs:
+        for path in lane_paths(name, args, static):
+            counts[f"{path}_lanes"] += 1
+    return counts
+
+
 def phase_kernels_fuzz(dev) -> None:
     from repro_torch.kernels import cases
     fns = kernel_fns()
@@ -291,6 +337,7 @@ def phase_kernels_fuzz(dev) -> None:
         kernel, plain = fns[name]
         n_cases = bad = 0
         err = 0.0
+        inputs = []
         for case in make():
             args = _to_dev(case, cases.TENSOR_FIELDS[name], dev)
             got = kernel(*args, **case["static"])
@@ -301,11 +348,17 @@ def phase_kernels_fuzz(dev) -> None:
             bad += b
             err = max(err, e)
             n_cases += 1
+            inputs.append((args, case["static"]))
         out[name] = {"cases": n_cases, "mismatches": bad, "max_abs_err": err}
-    out["ok"] = all(out[k]["mismatches"] == 0 for k in cases.CASES)
+        if name in TWO_PATH_KERNELS:
+            out[name].update(path_counts(name, inputs))
+    out["ok"] = all(out[k]["mismatches"] == 0 for k in cases.CASES) and all(
+        out[k]["select_lanes"] > 0 and out[k]["full_lanes"] > 0
+        for k in TWO_PATH_KERNELS)
     emit(out)
     if not out["ok"]:
-        fail("kernels_fuzz", "a kernel disagrees with its plain version")
+        fail("kernels_fuzz", "a kernel disagrees with its plain version, or "
+                             "a path of fifo_grant / wake_solve was not run")
 
 
 class Recorder:
@@ -470,6 +523,8 @@ def sim_kernel_entries(dev, recorder: Recorder, launches: dict,
                               _library_call(name, args)),
                 "bound_ms": bound, "bound_by": bound_by,
             }
+            if name in TWO_PATH_KERNELS:   # every input captured at P
+                by_p[P]["paths"] = path_counts(name, samples)
         if main_p not in by_p:
             fail("kernels", f"{name}: no input captured at P={main_p}")
         main = by_p[main_p]
@@ -484,6 +539,10 @@ def sim_kernel_entries(dev, recorder: Recorder, launches: dict,
             "library_device_ms": main["library_device_ms"],
             "shapes": list(by_p.values()),
         }
+        if name in TWO_PATH_KERNELS:       # every captured input, every P
+            entry.update(path_counts(name, [
+                s for (kname, _), samples in recorder.samples.items()
+                if kname == name for s in samples]))
         if name == "batched_evict":
             # the integer-key instantiation: the simulator's policies all
             # give f32 scores, so it is timed on the main path's input with

@@ -14,10 +14,21 @@ victim count, zero budget / zero need, nothing eligible, nothing
 grantable, heavy ties, integer keys around 2^24, queue keys near 2^30 and
 evictable keys at the value that masks the non-evictable pages.
 
-Sizes are whole numbers in 1..8, so every byte prefix is exact in f32 as
-well as in f64 and any disagreement is a fault of the logic, not of
-rounding.  Arrays are ``(L, P)`` / ``(L,)`` numpy; ``static`` holds the
-keyword arguments that are Python ints.
+Sizes are whole numbers in 1..8 (0 and negative ones where a case says
+so), so every byte prefix is exact in f32 as well as in f64 and any
+disagreement is a fault of the logic, not of rounding.  Arrays are
+``(L, P)`` / ``(L,)`` numpy; ``static`` holds the keyword arguments that
+are Python ints.
+
+The queue kernels' later cases (drawn after the others, so those keep
+their numbers) cover the two paths of their CUDA kernels, each with
+``path``: per lane, the path it must take (``"select"`` or ``"full"``,
+:func:`repro_torch.kernels.pbm_timeline.lane_paths`): the main path's
+shapes (P = 768, 3072, 8832 with the simulator's queue keys, vmax 384,
+pops 6, h_cap 64), ties across the m-th entry, a head that is the whole
+queue, heads of ``HEAD_CAP`` and ``HEAD_CAP + 1`` entries, ``inc`` of 0
+and below 0, zero and negative sizes, a P that is not a multiple of 4
+and an empty queue.
 """
 
 from __future__ import annotations
@@ -34,6 +45,31 @@ Case = Dict[str, object]
 
 def _sizes(rng, L, P):
     return rng.integers(1, 9, (L, P)).astype(np.float32)
+
+
+#: the CUDA queue kernels' longest head sorted alone (pbm_timeline.HEAD_CAP)
+HEAD_CAP = 1024
+
+
+def queue_keys(rng, fractions, P):
+    """Queue keys as the simulator builds them (stamp * 32768 + tie, ~30
+    bits, the stamps few so the top digits are shared), lane ``l`` wanting
+    about ``fractions[l]`` of its pages; -1 = not wanted."""
+    L = len(fractions)
+    wanted = rng.random((L, P)) < np.asarray(fractions).reshape(L, 1)
+    key = (32767 - rng.integers(0, 64, (L, P))) * 32768 \
+        + rng.integers(0, 32768, (L, P))
+    return np.where(wanted, key, -1)
+
+
+def _wanting(rng, counts, P):
+    """Random queue keys with exactly ``counts[l]`` pages wanted in lane
+    ``l``."""
+    key = np.full((len(counts), P), -1, np.int64)
+    for lane, c in enumerate(counts):
+        pages = rng.permutation(P)[:c]
+        key[lane, pages] = rng.integers(0, 2**29, c)
+    return key
 
 
 def evict_cases(seed: int = 0) -> List[Case]:
@@ -127,6 +163,44 @@ def grant_cases(seed: int = 4) -> List[Case]:
         rng.integers(1, 300, L), rng.integers(1, 64, L), 48)
     add("vmax_is_the_cap", rng.integers(0, 2**29, (L, P)), _sizes(rng, L, P),
         np.full(L, 1e6), np.full(L, 100), 9)
+
+    def head(name, key, sizes, budget, pops, vmax, path):
+        add(name, key, sizes, budget, pops, vmax)
+        out[-1]["path"] = tuple(path)
+
+    sel5 = ("select",) * 5
+    fractions = (0.05, 0.3, 0.6, 0.9, 1.0)
+    for P in (768, 3072, 8832):     # the simulator's vmax = n_rounds = 384
+        head(f"main_P{P}", queue_keys(rng, fractions, P), _sizes(rng, 5, P),
+             [300.0, 900.0, 1800.0, 1e9, 2500.0], [6, 384, 100, 384, 384],
+             384, sel5)
+    P = 600
+    head("ties_straddle_head",
+         np.where(rng.random((5, P)) < 0.9, rng.integers(0, 3, (5, P)), -1),
+         _sizes(rng, 5, P), np.full(5, 1e6), [200, 150, 211, 6, 300], 200,
+         sel5)
+    P = 500     # lim = the wanted pages: the head is the whole queue
+    head("head_is_the_queue", _wanting(rng, [1, 100, 384, 499, 500], P),
+         _sizes(rng, 5, P), np.full(5, 1e9), np.full(5, 600), 500, sel5)
+    P = 1500    # lim = 100, 1100, HEAD_CAP + 1, HEAD_CAP, 0
+    head("head_cap_edges", rng.integers(0, 2**29, (5, P)), _sizes(rng, 5, P),
+         np.full(5, 1e9), [100, 1100, HEAD_CAP + 1, HEAD_CAP, 0], 1100,
+         ("select", "full", "full", "select", "select"))
+    P = 300
+    sizes = _sizes(rng, 5, P)
+    sizes[rng.random((5, P)) < 0.3] = 0.0
+    head("zero_size_wanted", rng.integers(-1, 2**29, (5, P)), sizes,
+         rng.integers(0, 200, 5), np.full(5, 200), 250, sel5)
+    P = 771     # rows start off 16-byte boundaries
+    head("unaligned_p771", queue_keys(rng, fractions, P), _sizes(rng, 5, P),
+         rng.integers(50, 2000, 5), [6, 384, 100, 384, 384], 384, sel5)
+    P = 768
+    head("empty_queue", np.full((3, P), -1), _sizes(rng, 3, P),
+         np.full(3, 1e6), np.full(3, 384), 384, ("select",) * 3)
+    P = 3072
+    head("full_row_p3072", queue_keys(rng, (0.5, 0.9, 1.0), P),
+         _sizes(rng, 3, P), [1e9, 3000.0, 9000.0], np.full(3, 2048), 2048,
+         ("full",) * 3)
     return out
 
 
@@ -170,6 +244,55 @@ def wake_cases(seed: int = 11) -> List[Case]:
     add("fractional_cadence", key, _sizes(rng, L, P),
         rng.random(L) * 7.0, rng.random(L) * 3.0 + 0.1,
         rng.integers(1, 7, L), 64)
+
+    def head(name, key, sizes, credit0, inc, pops, h_cap, path):
+        add(name, key, sizes, credit0, inc, pops, h_cap)
+        out[-1]["path"] = tuple(path)
+
+    sel5 = ("select",) * 5
+    fractions = (0.05, 0.3, 0.6, 0.9, 1.0)
+    for P in (768, 3072, 8832):     # the simulator's pops 6, h_cap 64
+        head(f"main_P{P}", queue_keys(rng, fractions, P), _sizes(rng, 5, P),
+             rng.integers(0, 9, 5), [2.0, 9.0, 20.0, 31.0, 40.0],
+             np.full(5, 6), 64, sel5)
+    P = 600
+    head("ties_straddle_head",
+         np.where(rng.random((5, P)) < 0.9, rng.integers(0, 3, (5, P)), -1),
+         _sizes(rng, 5, P), rng.integers(0, 9, 5), rng.integers(1, 40, 5),
+         np.full(5, 6), 64, sel5)
+    P = 500     # m = the wanted pages (384 = h_cap * pops too), or 0
+    head("head_is_the_queue", _wanting(rng, [10, 200, 384, 400, 0], P),
+         _sizes(rng, 5, P), rng.integers(0, 9, 5), rng.integers(1, 40, 5),
+         np.full(5, 6), 64, sel5)
+    P = 1200    # m = HEAD_CAP, 1088, 384, 1200, 0
+    head("head_cap_edges", rng.integers(0, 2**29, (5, P)), _sizes(rng, 5, P),
+         rng.integers(0, 9, 5), rng.integers(20, 90, 5), [16, 17, 6, 20, 0],
+         64, ("select", "full", "select", "full", "select"))
+    P = 1100    # m = HEAD_CAP + 1: the wanted pages
+    head("head_cap_plus_one", _wanting(rng, [HEAD_CAP + 1], P),
+         _sizes(rng, 1, P), [5.0], [80.0], [17], 64, ("full",))
+    P = 300
+    head("inc_zero_and_negative", rng.integers(-1, 2**29, (5, P)),
+         _sizes(rng, 5, P), [20.0, 50.0, 3.0, 30.0, 0.0],
+         [0.0, -1.0, 2.5, -0.5, 0.0], np.full(5, 6), 64,
+         ("select", "full", "select", "full", "select"))
+    key = rng.integers(-1, 2**29, (5, P))
+    sizes = _sizes(rng, 5, P)
+    sizes[rng.random((5, P)) < 0.3] = 0.0
+    first_wanted = (key >= 0).argmax(axis=1)
+    for lane in (1, 3):             # a negative size on a wanted page
+        sizes[lane, first_wanted[lane]] = -3.0
+    head("zero_and_negative_sizes", key, sizes, rng.integers(0, 9, 5),
+         rng.integers(1, 20, 5), np.full(5, 6), 64,
+         ("select", "full", "select", "full", "select"))
+    P = 771     # rows start off 16-byte boundaries
+    head("unaligned_p771", queue_keys(rng, fractions, P), _sizes(rng, 5, P),
+         rng.integers(0, 9, 5), rng.integers(1, 40, 5), np.full(5, 6), 64,
+         sel5)
+    P = 768
+    head("empty_queue", np.full((3, P), -1), _sizes(rng, 3, P),
+         np.full(3, 10.0), np.full(3, 20.0), np.full(3, 6), 64,
+         ("select",) * 3)
     return out
 
 

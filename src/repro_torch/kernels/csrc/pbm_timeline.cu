@@ -18,28 +18,36 @@
 // * All three are "walk the pages in service order with a running byte sum".
 //   Service order is (key descending, page index ascending).  The TPU kernels
 //   avoid a sort by contracting a 512 x 512 "q precedes p" tile against the
-//   sizes on the matrix unit, O(P^2); here the block SORTS the lane's row once
-//   in shared memory (bitonic, O(P log^2 P), a few microseconds) and the rest
-//   is a prefix sum.  Each page becomes one 64-bit word
+//   sizes on the matrix unit, O(P^2).  Here each page becomes one 64-bit word
 //       [takes no part : 1][~order-preserving key : 32][page index : 31]
-//   so an ascending sort of the words is the service order, ties by index
+//   so the ascending order of the words is the service order, ties by index
 //   included, with the pages that take no part (not wanted / padding up to
-//   the power of two) at the end.  Keys are compared as
-//   integers built from their own bits: an integer key never passes through
-//   a float (queue keys use ~30 bits; [2^24, 2^24 + 1] must stay distinct),
-//   and a float key maps monotonically (-0.0 is read as +0.0 first, so equal
+//   the power of two) at the end.  batched_evict SORTS the lane's whole row
+//   in shared memory (bitonic, O(P log^2 P)).  fifo_grant and wake_solve
+//   need only the head of the queue, at most 384 entries in the simulator
+//   (min(vmax, pops) and h_cap * pops): they SELECT the m smallest words
+//   exactly (a radix select on the key field, ties by a prefix count in
+//   index order) and sort only those; a lane whose head is longer than
+//   kHeadCap, or for which the head alone does not decide the answer, sorts
+//   its whole row inside the same kernel.  Keys are compared as integers
+//   built from their own bits: an integer key never passes through a float
+//   (queue keys use ~30 bits; [2^24, 2^24 + 1] must stay distinct), and a
+//   float key maps monotonically (-0.0 is read as +0.0 first, so equal
 //   floats stay tied and fall to the index).
 // * Bytes are accumulated in float64 and compared with the f32 thresholds
 //   widened to double.  Page sizes are whole byte counts, so every partial
 //   sum is exact and independent of the order it is taken in (the block scan
 //   adds in another order than a sequential sum); the plain PyTorch versions
-//   (repro_torch/kernels/ref.py) do the same and agree bit for bit.  The
-//   prefix is never stored: a thread owns a contiguous run of the sorted row,
-//   the block scans the threads' totals, and each later pass re-walks its run
-//   from the thread's offset, reading sizes through the sorted indices.
+//   (repro_torch/kernels/ref.py) do the same and agree bit for bit.  On a
+//   whole-row path a thread owns a contiguous run of the sorted row, the
+//   block scans the threads' totals, and each later pass re-walks its run
+//   from the thread's offset; on a head path a thread holds one entry.
 // * No tensor cores: an f32 tensor-core product would round sizes to TF32.
+//   No stack frame and no local memory: per-thread state is scalars, every
+//   array lives in shared memory.
 
 #include <cuda_runtime.h>
+#include <float.h>
 #include <stdint.h>
 
 namespace {
@@ -47,9 +55,13 @@ namespace {
 constexpr int kMaxRun = 16;          // sorted entries one thread owns, at most
 constexpr int kMaxThreads = 1024;
 constexpr int kMaxHCap = 256;
+constexpr int kHeadCap = 1024;       // longest head a lane sorts alone
+constexpr int kBins = 256;           // radix select: 8-bit digits
 constexpr unsigned kFull = 0xffffffffu;
 constexpr uint64_t kOutBit = 1ull << 63;
 constexpr uint32_t kIdxMask = 0x7fffffffu;
+constexpr uint32_t kNotQueued = 0xffffffffu;   // key field of a page not wanted
+constexpr long long kNoMin = 0x7fffffffffffffffLL;
 
 template <typename K> __device__ __forceinline__ K lowest_key();
 template <> __device__ __forceinline__ int lowest_key<int>() {
@@ -92,9 +104,10 @@ __device__ void bitonic_sort(uint64_t* s, int n) {
   }
 }
 
-__device__ __forceinline__ double warp_inclusive(double v, int lane) {
+template <typename T>
+__device__ __forceinline__ T warp_inclusive(T v, int lane) {
   for (int o = 1; o < 32; o <<= 1) {
-    const double t = __shfl_up_sync(kFull, v, o);
+    const T t = __shfl_up_sync(kFull, v, o);
     if (lane >= o) v += t;
   }
   return v;
@@ -116,6 +129,216 @@ __device__ double block_exclusive(double total, double* s_wtot) {
   }
   __syncthreads();
   return excl + (warp > 0 ? s_wtot[warp - 1] : 0.0);
+}
+
+// ---------------------------------------------------------------------------
+// The head of a queue (fifo_grant, wake_solve; written so that
+// batched_evict's top-vmax can take it too).  The lane's row is staged once
+// in shared memory as one 32-bit key field per page (the middle field of its
+// sort word), the m smallest (key field, index) pairs are selected exactly,
+// and only those m words are sorted.  Layout of the dynamic shared memory on
+// this path: the staged row (4 P bytes, later reused for the output row),
+// then two buffers of head_slots(n) words.  The row is staged by plain
+// loads, four in flight a thread: a 1-D bulk copy of it (cp.async.bulk into
+// an mbarrier, then the fields made in place) measured slower at 768 and
+// 3072 pages and 2 % faster at 8832 (tools/time_queue_kernels.py).
+// ---------------------------------------------------------------------------
+
+__host__ __device__ __forceinline__ size_t head_offset(int P) {
+  return ((size_t)4 * P + 15) & ~(size_t)15;
+}
+__host__ __device__ __forceinline__ int head_slots(int n) {
+  return n < kHeadCap ? n : kHeadCap;
+}
+
+// A queue key's field: 0x7fffffff - k for a wanted page (k >= 0), above
+// every such value for a page not wanted.
+__device__ __forceinline__ uint32_t queue_field(int k) {
+  return k >= 0 ? ~ord_key(k) : kNotQueued;
+}
+
+__device__ __forceinline__ unsigned lanemask_lt() {
+  unsigned m;
+  asm("mov.u32 %0, %%lanemask_lt;" : "=r"(m));
+  return m;
+}
+
+__device__ __forceinline__ int pow2_at_least(int m) {     // m >= 1
+  return m <= 32 ? 32 : 1 << (32 - __clz(m - 1));
+}
+
+// The head as a test on a page's key field u: the page is in it iff
+// (u >> shift) < prefix, or (u >> shift) == prefix and fewer than `need`
+// pages of lower index share that prefix (n_eq pages share it).
+struct Head {
+  uint32_t prefix;
+  int shift;
+  int need;
+  int n_eq;
+};
+
+// Radix select of the m smallest fields of s_u[0..P), 1 <= m <= n_part,
+// n_part the wanted pages (fields below 2^31): when m = n_part the head is
+// every wanted page and no pass runs.  Otherwise passes of 8 bits from the
+// top, each a block histogram of the pages still in play whose scan picks
+// the digit that holds the m-th smallest.  Queue keys share their top
+// digits (stamp * 32768 + tie), so the lanes of a warp that fall in one bin
+// add to it once (__match_any_sync).  Stops as soon as every page of the
+// picked prefix is needed.  s_hist: 2 * kBins ints, s_pick: 3 ints.  Every
+// thread must call it.
+__device__ Head select_head(const uint32_t* s_u, int P, int m, int n_part,
+                            int* s_hist, int* s_pick) {
+  // tested here, on m as passed: in fifo_grant itself a `lim == n_part`
+  // read true for a lim clamped below n_part (nvcc 12.9, a device printf)
+  if (m >= n_part) return Head{1u, 31, 0, P - n_part};
+  const int lane = threadIdx.x & 31;
+  Head h{0u, 32, m, P};
+  for (int i = threadIdx.x; i < kBins; i += blockDim.x) s_hist[i] = 0;
+  __syncthreads();
+  const int iters = (P + blockDim.x - 1) / blockDim.x;
+  for (int pass = 0; pass < 4; ++pass) {
+    const int shift = 24 - 8 * pass;
+    int* hist = s_hist + (pass & 1) * kBins;
+    int* next = s_hist + ((pass + 1) & 1) * kBins;
+    for (int it = 0; it < iters; ++it) {          // the same count in a warp
+      const int p = it * blockDim.x + threadIdx.x;
+      uint32_t bin = kBins;                       // not in play
+      if (p < P) {
+        const uint32_t u = s_u[p];
+        if ((uint32_t)((uint64_t)u >> (shift + 8)) == h.prefix)
+          bin = (u >> shift) & (kBins - 1);
+      }
+      const unsigned peers = __match_any_sync(kFull, bin);
+      if (bin < kBins && lane == __ffs(peers) - 1)
+        atomicAdd(&hist[bin], __popc(peers));
+    }
+    for (int i = threadIdx.x; i < kBins; i += blockDim.x) next[i] = 0;
+    __syncthreads();
+    if (threadIdx.x < 32) {                       // lane: bins [8 lane, +8)
+      int sum = 0;
+      for (int b = 0; b < 8; ++b) sum += hist[8 * lane + b];
+      const int incl = warp_inclusive(sum, lane);
+      int c = incl - sum;
+      if (c < h.need && h.need <= incl) {
+        for (int b = 8 * lane;; ++b) {
+          const int cnt = hist[b];
+          if (h.need <= c + cnt) {
+            s_pick[0] = b;
+            s_pick[1] = c;
+            s_pick[2] = cnt;
+            break;
+          }
+          c += cnt;
+        }
+      }
+    }
+    __syncthreads();
+    h.prefix = (h.prefix << 8) | (uint32_t)s_pick[0];
+    h.need -= s_pick[1];
+    h.n_eq = s_pick[2];
+    h.shift = shift;
+    if (h.need == h.n_eq) break;                  // the whole prefix is in
+  }
+  return h;
+}
+
+// Writes the sort words of the head's pages to s_cand, in no particular
+// order (*s_count must be 0 and ends at the head's length).  Pages that share
+// the picked prefix are ranked in index order by a block prefix count: warp
+// w owns pages [w seg, (w + 1) seg), its lanes interleaved.  Every thread
+// must call it.
+__device__ void compact_head(const uint32_t* s_u, int P, Head h,
+                             uint64_t* s_cand, int* s_count, double* s_wtot) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int seg = 32 * ((P + blockDim.x - 1) / blockDim.x);
+  const int p0 = warp * seg;
+  const unsigned below = lanemask_lt();
+  const bool all_eq = h.need == h.n_eq;
+  const bool ranked = h.need > 0 && !all_eq;      // the same in every thread
+  int eq_before = 0;
+  if (ranked) {
+    int cnt = 0;
+    for (int j = 0; j < seg; j += 32) {
+      const int p = p0 + j + lane;
+      cnt += __popc(__ballot_sync(
+          kFull, p < P && (s_u[p] >> h.shift) == h.prefix));
+    }
+    // lane 0 of each warp carries its warp's count
+    const double excl = block_exclusive(lane == 0 ? (double)cnt : 0.0, s_wtot);
+    eq_before = (int)__shfl_sync(kFull, excl, 0);
+  }
+  for (int j = 0; j < seg; j += 32) {
+    const int p = p0 + j + lane;
+    const uint32_t u = p < P ? s_u[p] : kNotQueued;
+    const uint32_t hi = u >> h.shift;
+    const bool eq = p < P && hi == h.prefix;
+    const unsigned eqs = __ballot_sync(kFull, eq);
+    const bool in = p < P && (hi < h.prefix ||
+                              (eq && (all_eq || (ranked &&
+                               eq_before + __popc(eqs & below) < h.need))));
+    eq_before += __popc(eqs);
+    const unsigned ins = __ballot_sync(kFull, in);
+    int at = 0;
+    if (lane == 0 && ins) at = atomicAdd(s_count, __popc(ins));
+    at = __shfl_sync(kFull, at, 0);
+    if (in)
+      s_cand[at + __popc(ins & below)] = ((uint64_t)u << 31) | (uint32_t)p;
+  }
+}
+
+// Ascending bitonic sort of n words (a power of two, 32 <= n <= blockDim),
+// thread t holding word t in x; returns the thread's word of the sorted
+// order.  Steps within a warp are shuffles; the log2(n / 32) * (log2(n / 32)
+// + 1) / 2 steps across warps go through buf0 / buf1 in turn (n words each),
+// one barrier each.  Every thread must call it.
+__device__ uint64_t sort_head(uint64_t x, int n, uint64_t* buf0,
+                              uint64_t* buf1) {
+  const int t = threadIdx.x;
+  const bool act = t < n;                         // whole warps
+  bool flip = false;
+  for (int k = 2; k <= n; k <<= 1) {
+    for (int j = k >> 1; j > 0; j >>= 1) {
+      uint64_t y = x;
+      if (j >= 32) {
+        uint64_t* buf = flip ? buf1 : buf0;
+        flip = !flip;
+        if (act) buf[t] = x;
+        __syncthreads();
+        if (act) y = buf[t ^ j];
+      } else if (act) {
+        y = __shfl_xor_sync(kFull, x, j);
+      }
+      const bool keep_min = ((t & j) == 0) == ((t & k) == 0);
+      x = keep_min ? (y < x ? y : x) : (y < x ? x : y);
+    }
+  }
+  return x;
+}
+
+// n_k = min(k pop, min_{j <= k} (cnt_j + (k - j) pop)) for k = 1..h_cap:
+// the closed form of wake_solve's n_k = min(cnt_k, n_{k-1} + pop), n_0 = 0
+// (the plain version's `ramp`).  Thread k - 1 passes cnt_k; s_n[k - 1] gets
+// min(n_k, cap), which keeps every comparison with a rank + 1 <= cap.  A
+// prefix minimum of cnt_j - j pop: warp scans, then the warps' minima.
+// blockDim >= h_cap; every thread must call it.
+__device__ void grant_counts(long long cnt, int h_cap, long long pop, int cap,
+                             int* s_n, long long* s_wmin) {
+  const int k = threadIdx.x, lane = k & 31, warp = k >> 5;
+  long long a = k < h_cap ? cnt - (long long)(k + 1) * pop : kNoMin;
+  if (warp * 32 < h_cap) {
+    for (int o = 1; o < 32; o <<= 1) {
+      const long long b = __shfl_up_sync(kFull, a, o);
+      if (lane >= o && b < a) a = b;
+    }
+    if (lane == 31) s_wmin[warp] = a;
+  }
+  __syncthreads();
+  if (k < h_cap) {
+    for (int w = 0; w < warp; ++w) a = s_wmin[w] < a ? s_wmin[w] : a;
+    const long long nk = (long long)(k + 1) * pop + (a < 0 ? a : 0);
+    s_n[k] = (int)(nk < cap ? nk : cap);
+  }
+  __syncthreads();
 }
 
 // ---------------------------------------------------------------------------
@@ -181,63 +404,39 @@ batched_evict_kernel(const K* __restrict__ key, const float* __restrict__ sizes,
 }
 
 // ---------------------------------------------------------------------------
-// fifo_grant — replaces src/repro/kernels/pbm_timeline.py fifo_grant_kernel
-// (body _grant_kernel): per lane, pop the request queue in service order with
-// strict head-of-line admission against `budget` bytes and min(pops, vmax)
-// pops; key < 0 = not wanted.  Outputs the grant mask, the granted bytes and
-// the number of grants.
+// fifo_grant — replaces src/repro/kernels/pbm_timeline.py:269
+// fifo_grant_kernel (body _grant_kernel): per lane, pop the request queue in
+// service order with strict head-of-line admission against `budget` bytes
+// and min(pops, vmax) pops; key < 0 = not wanted.  Outputs the grant mask,
+// the granted bytes and the number of grants.
 //
-// Bound: bytes, L*P*4 + 4*P in and L*P + 8*L out: one launch.  After the sort
-// a wanted page's rank is its position, so "fits" is one comparison of the
-// running byte sum, and the head of line is the smallest position that does
-// not fit (a shared-memory atomicMin): the TPU kernel's second O(P^2) pass
-// ("any non-fitting predecessor") disappears.  The granted pages are exactly
-// the positions below the head, so the granted bytes are the running sum at
-// the last of them: no reduction over sizes.
+// Bound: bytes, L*P*4 + 4*P in and L*P + 8*L out, a fraction of a
+// microsecond; in practice the launch and the block's barriers.
+// Why only the head is sorted: no position at or past lim = min(vmax, P,
+// pops, wanted pages) is granted, and whether one before it is depends on
+// the positions before it alone, so the first lim words of the service
+// order decide every output.  The kernel selects those lim pages
+// (select_head: a radix select, ~a dozen barriers, O(P) a pass) and sorts
+// them alone, where sorting the row took 55-105 barriers.  The head of line
+// is the smallest position whose running byte sum does not fit (a
+// shared-memory atomicMin): the TPU kernel's second O(P^2) pass ("any
+// non-fitting predecessor") disappears, and the granted bytes are the
+// running sum at the last grant.  Every other page gets 0 in one coalesced
+// pass over the row.  A lane with lim > kHeadCap sorts its whole row
+// instead (bitonic, a thread a contiguous run of it).
 // ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(kMaxThreads)
-fifo_grant_kernel(const int* __restrict__ key, const float* __restrict__ sizes,
-                  int sizes_stride, const float* __restrict__ budget,
-                  const int* __restrict__ pops, uint8_t* __restrict__ mask_out,
-                  float* __restrict__ bytes_out, int* __restrict__ n_out,
-                  int P, int vmax, int n) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  uint64_t* s_word = reinterpret_cast<uint64_t*>(smem);
-  __shared__ double s_wtot[32];
-  __shared__ int s_part;            // pages taking part (wanted)
-  __shared__ int s_head;            // first sorted position that does not fit
-
-  const int lane = blockIdx.x;
-  const size_t row = (size_t)lane * P;
-  if (threadIdx.x == 0) {
-    s_part = 0;
-    s_head = 0x7fffffff;
-  }
-  __syncthreads();
-  int mine = 0;
+__device__ __forceinline__ void grant_whole_row(
+    const int* __restrict__ key_row, const float* __restrict__ sz_row,
+    double budget_d, int lim, int P, int n, uint64_t* s_word, double* s_wtot,
+    int* s_head, uint8_t* __restrict__ mask_row, float* __restrict__ bytes,
+    int* __restrict__ n_granted) {
   for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    const int k = i < P ? key[row + i] : -1;
-    mine += (k >= 0);
+    const int k = i < P ? key_row[i] : -1;
     s_word[i] = sort_word<int>(k >= 0, k, i);
   }
-  if (mine) atomicAdd(&s_part, mine);
   __syncthreads();
-  if (s_part == 0) {                  // block-uniform: empty queue
-    for (int p = threadIdx.x; p < P; p += blockDim.x) mask_out[row + p] = 0;
-    if (threadIdx.x == 0) {
-      bytes_out[lane] = 0.0f;
-      n_out[lane] = 0;
-    }
-    return;
-  }
   bitonic_sort(s_word, n);
 
-  const float* sz_row = sizes + (size_t)lane * sizes_stride;
-  int lim = vmax < P ? vmax : P;      // positions that may be granted at all
-  const int n_pops = pops[lane];
-  lim = n_pops < lim ? n_pops : lim;
-  lim = lim < s_part ? lim : s_part;
-  lim = lim > 0 ? lim : 0;
   const int run_len = n / blockDim.x;
   const int base = threadIdx.x * run_len;
   double total = 0.0;
@@ -246,141 +445,303 @@ fifo_grant_kernel(const int* __restrict__ key, const float* __restrict__ sizes,
     if (i < lim) total += (double)sz_row[s_word[i] & kIdxMask];
   }
   const double offset = block_exclusive(total, s_wtot);
-  const double budget_d = (double)budget[lane];
   double csum = offset;
   for (int c = 0; c < run_len; ++c) {
     const int i = base + c;
     if (i >= lim) break;
     csum += (double)sz_row[s_word[i] & kIdxMask];
     if (!(csum <= budget_d)) {
-      atomicMin(&s_head, i);
+      atomicMin(s_head, i);
       break;                          // later positions are larger
     }
   }
   __syncthreads();
 
-  const int n_grant = s_head < lim ? s_head : lim;
+  const int n_grant = *s_head < lim ? *s_head : lim;
   if (threadIdx.x == 0) {
-    n_out[lane] = n_grant;
-    if (n_grant == 0) bytes_out[lane] = 0.0f;
+    *n_granted = n_grant;
+    if (n_grant == 0) *bytes = 0.0f;
   }
   csum = offset;
   for (int c = 0; c < run_len; ++c) {
     const int i = base + c;
     const int idx = (int)(s_word[i] & kIdxMask);
     if (idx >= P) continue;                   // padding
-    mask_out[row + idx] = i < n_grant ? 1 : 0;
+    mask_row[idx] = i < n_grant ? 1 : 0;
     if (i < n_grant) {
       csum += (double)sz_row[idx];
-      if (i == n_grant - 1) bytes_out[lane] = (float)csum;
+      if (i == n_grant - 1) *bytes = (float)csum;
     }
   }
 }
 
+__global__ void __launch_bounds__(kMaxThreads)
+fifo_grant_kernel(const int* __restrict__ key, const float* __restrict__ sizes,
+                  int sizes_stride, const float* __restrict__ budget,
+                  const int* __restrict__ pops, uint8_t* __restrict__ mask_out,
+                  float* __restrict__ bytes_out, int* __restrict__ n_out,
+                  int P, int vmax, int n) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ double s_wtot[32];
+  __shared__ int s_hist[2 * kBins];
+  __shared__ int s_pick[3];
+  __shared__ int s_part;            // pages taking part (wanted)
+  __shared__ int s_count;           // head entries compacted
+  __shared__ int s_head;            // first sorted position that does not fit
+
+  const int lane = blockIdx.x, t = threadIdx.x;
+  const int* key_row = key + (size_t)lane * P;
+  const float* sz_row = sizes + (size_t)lane * sizes_stride;
+  uint8_t* mask_row = mask_out + (size_t)lane * P;
+  if (t == 0) {
+    s_part = 0;
+    s_count = 0;
+    s_head = 0x7fffffff;
+  }
+  __syncthreads();
+  uint32_t* s_u = reinterpret_cast<uint32_t*>(smem);
+  int mine = 0;
+#pragma unroll 4
+  for (int p = t; p < P; p += blockDim.x) {
+    const int k = key_row[p];
+    s_u[p] = queue_field(k);
+    mine += k >= 0;
+  }
+  mine = __reduce_add_sync(kFull, mine);
+  if ((t & 31) == 0 && mine) atomicAdd(&s_part, mine);
+  __syncthreads();
+  const int n_part = s_part;
+  int lim = vmax < P ? vmax : P;      // positions that may be granted at all
+  const int n_pops = pops[lane];
+  lim = n_pops < lim ? n_pops : lim;
+  lim = lim < n_part ? lim : n_part;
+  lim = lim > 0 ? lim : 0;
+  const double budget_d = (double)budget[lane];
+  if (lim > kHeadCap) {               // block-uniform
+    grant_whole_row(key_row, sz_row, budget_d, lim, P, n,
+                    reinterpret_cast<uint64_t*>(smem), s_wtot, &s_head,
+                    mask_row, bytes_out + lane, n_out + lane);
+    return;
+  }
+  if (lim == 0) {                     // nothing can be granted
+    for (int p = t; p < P; p += blockDim.x) mask_row[p] = 0;
+    if (t == 0) {
+      bytes_out[lane] = 0.0f;
+      n_out[lane] = 0;
+    }
+    return;
+  }
+
+  uint64_t* s_cand = reinterpret_cast<uint64_t*>(smem + head_offset(P));
+  uint64_t* s_swap = s_cand + head_slots(n);
+  const Head h = select_head(s_u, P, lim, n_part, s_hist, s_pick);
+  compact_head(s_u, P, h, s_cand, &s_count, s_wtot);
+  __syncthreads();
+  uint64_t x = t < lim ? s_cand[t] : ~0ull;
+  uint8_t* s_mask = reinterpret_cast<uint8_t*>(smem);    // s_u is read no more
+  for (int p = t; p < P; p += blockDim.x) s_mask[p] = 0;
+  x = sort_head(x, pow2_at_least(lim), s_cand, s_swap);
+
+  const int idx = (int)(x & kIdxMask);
+  const double sz = t < lim ? (double)sz_row[idx] : 0.0;
+  const double csum = block_exclusive(sz, s_wtot) + sz;   // inclusive
+  const unsigned late = __ballot_sync(kFull, t < lim && !(csum <= budget_d));
+  if (late && (t & 31) == __ffs(late) - 1) atomicMin(&s_head, t);
+  __syncthreads();
+  const int n_grant = s_head < lim ? s_head : lim;
+  if (t < n_grant) s_mask[idx] = 1;
+  if (t == n_grant - 1) bytes_out[lane] = (float)csum;
+  if (t == 0) {
+    n_out[lane] = n_grant;
+    if (n_grant == 0) bytes_out[lane] = 0.0f;
+  }
+  __syncthreads();
+  for (int p = t; p < P; p += blockDim.x) mask_row[p] = s_mask[p];
+}
+
 // ---------------------------------------------------------------------------
-// wake_solve — replaces src/repro/kernels/pbm_timeline.py wake_solve_kernel
-// (body _wake_kernel): per lane, with the queue frozen, the fine step at
-// which the serial I/O server grants each wanted page.  rank and
-// prefix-inclusive bytes for ALL wanted pages; cnt_k = entries whose prefix
-// fits credit0 + k*inc, k = 1..h_cap; n_k = min(cnt_k, n_{k-1} + pops);
-// per page 1 + #{k : n_k < rank + 1}; sentinel h_cap + 1.
+// wake_solve — replaces src/repro/kernels/pbm_timeline.py:367
+// wake_solve_kernel (body _wake_kernel): per lane, with the queue frozen, the
+// fine step at which the serial I/O server grants each wanted page.
+// cnt_k = wanted entries whose prefix-inclusive bytes fit credit0 + k*inc,
+// k = 1..h_cap; n_k = min(cnt_k, n_{k-1} + pops); a page at service rank r
+// gets 1 + #{k : n_k < r + 1}; sentinel h_cap + 1.
 //
-// Bound: bytes, L*P*4 + 4*P in and 4*L*P out: one launch.  The three
-// sequential grid phases of the TPU kernel are three block phases here:
-// (1) sort and running byte sum, each thread counting which of its pages fit
-// each cnt_k (a warp reduction, then one integer shared-memory atomic per
-// warp and k: order-free); (2) the h_cap steps of the recursion in one
-// thread (the TPU's h_cap x h_cap min-plus tile is 64 dependent integer
-// operations here); (3) one pass over n_k per page.  credit0 + k*inc is a
-// rounded f32 multiply then a rounded f32 add (__fmul_rn / __fadd_rn), never
-// a fused multiply-add, to reproduce the reference's threshold bit for bit.
+// Bound: bytes, L*P*4 + 4*P in and 4*L*P out, a fraction of a
+// microsecond; in practice the launch and the block's barriers.
+// Why only the head is sorted: n_k <= k * pops, so every page at rank
+// >= m = min(wanted, h_cap * pops) gets the sentinel; with sizes >= 0 the
+// prefix is non-decreasing, so the head's own prefix counts give
+// min(cnt_k, m), which decides every comparison n_k < r + 1 <= m; and with
+// inc >= 0 the thresholds, a rounded f32 multiply then a rounded f32 add
+// (__fmul_rn / __fadd_rn, never an FMA), are non-decreasing in k, so cnt_k
+// and n_k are too.  The staging pass reads every wanted page's size to
+// check the second condition.  So the kernel selects
+// and sorts the head alone (select_head, as fifo_grant), takes its prefix
+// in f64, finds cnt_k by a binary search of the head's prefixes (thread
+// k - 1), n_k by its closed form (a block prefix minimum), and each entry's
+// step by a binary search of n_k: O(log) an entry, not O(h_cap).  Every
+// other page gets h_cap + 1 in one coalesced pass over the row.  A lane
+// with m > kHeadCap, inc < 0 or NaN, or a wanted page whose size is
+// negative or not finite sorts its whole row and counts cnt_k over all of
+// it (a warp per k) and each step over all h_cap values of n_k.
 // ---------------------------------------------------------------------------
+__device__ __forceinline__ void wake_whole_row(
+    const int* __restrict__ key_row, const float* __restrict__ sz_row,
+    int n_part, long long pop, int h_cap, int P, int n, unsigned char* smem,
+    const double* s_thr, int* s_cnt, int* s_n, long long* s_wmin,
+    double* s_wtot, int* __restrict__ out_row) {
+  uint64_t* s_word = reinterpret_cast<uint64_t*>(smem);
+  double* s_csum = reinterpret_cast<double*>(smem);    // s_word, entry by entry
+  int* s_idx = reinterpret_cast<int*>(smem + 8 * (size_t)n);
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    const int k = i < P ? key_row[i] : -1;
+    s_word[i] = sort_word<int>(k >= 0, k, i);
+  }
+  __syncthreads();
+  bitonic_sort(s_word, n);
+
+  const int run_len = (n + blockDim.x - 1) / blockDim.x;
+  const int base = threadIdx.x * run_len;
+  double total = 0.0;
+  for (int c = 0; c < run_len; ++c) {
+    const int i = base + c;
+    if (i < n_part) total += (double)sz_row[s_word[i] & kIdxMask];
+  }
+  double csum = block_exclusive(total, s_wtot);
+  for (int c = 0; c < run_len; ++c) {
+    const int i = base + c;
+    if (i >= n) break;
+    const int idx = (int)(s_word[i] & kIdxMask);
+    s_idx[i] = idx;
+    if (i < n_part) csum += (double)sz_row[idx];
+    s_csum[i] = csum;
+  }
+  __syncthreads();
+  const int lane = threadIdx.x & 31;
+  for (int k = threadIdx.x >> 5; k < h_cap; k += blockDim.x >> 5) {
+    const double thr = s_thr[k];
+    int fit = 0;
+    for (int i = lane; i < n_part; i += 32) fit += s_csum[i] <= thr;
+    fit = __reduce_add_sync(kFull, fit);
+    if (lane == 0) s_cnt[k] = fit;
+  }
+  __syncthreads();
+  const int t = threadIdx.x;
+  grant_counts(t < h_cap ? s_cnt[t] : 0, h_cap, pop, n_part, s_n, s_wmin);
+  for (int c = 0; c < run_len; ++c) {
+    const int i = base + c;
+    if (i >= n) break;
+    const int idx = s_idx[i];
+    if (idx >= P) continue;                    // padding
+    int step = h_cap + 1;
+    if (i < n_part) {
+      step = 1;
+      for (int k = 0; k < h_cap; ++k) step += s_n[k] <= i;
+    }
+    out_row[idx] = step;
+  }
+}
+
 __global__ void __launch_bounds__(kMaxThreads)
 wake_solve_kernel(const int* __restrict__ key, const float* __restrict__ sizes,
                   int sizes_stride, const float* __restrict__ credit0,
                   const float* __restrict__ inc, const int* __restrict__ pops,
                   int* __restrict__ out, int P, int h_cap, int n) {
   extern __shared__ __align__(16) unsigned char smem[];
-  uint64_t* s_word = reinterpret_cast<uint64_t*>(smem);
   __shared__ double s_wtot[32];
   __shared__ double s_thr[kMaxHCap];
   __shared__ int s_cnt[kMaxHCap];
-  __shared__ long long s_nk[kMaxHCap];
+  __shared__ int s_n[kMaxHCap];
+  __shared__ long long s_wmin[kMaxHCap / 32];
+  __shared__ int s_hist[2 * kBins];
+  __shared__ int s_pick[3];
   __shared__ int s_part;            // pages taking part (wanted)
+  __shared__ int s_count;           // head entries compacted
 
-  const int lane = blockIdx.x;
-  const size_t row = (size_t)lane * P;
+  const int lane = blockIdx.x, t = threadIdx.x;
+  const int* key_row = key + (size_t)lane * P;
+  const float* sz_row = sizes + (size_t)lane * sizes_stride;
+  int* out_row = out + (size_t)lane * P;
   const float c0 = credit0[lane];
   const float step_inc = inc[lane];
-  if (threadIdx.x == 0) s_part = 0;
-  for (int k = threadIdx.x; k < h_cap; k += blockDim.x) {
+  const int n_pops = pops[lane];
+  const long long pop = n_pops > 0 ? n_pops : 0;
+  if (t == 0) {
+    s_part = 0;
+    s_count = 0;
+  }
+  for (int k = t; k < h_cap; k += blockDim.x)
     s_thr[k] = (double)__fadd_rn(c0, __fmul_rn((float)(k + 1), step_inc));
-    s_cnt[k] = 0;
-  }
   __syncthreads();
+  uint32_t* s_u = reinterpret_cast<uint32_t*>(smem);
   int mine = 0;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    const int k = i < P ? key[row + i] : -1;
-    mine += (k >= 0);
-    s_word[i] = sort_word<int>(k >= 0, k, i);
+  bool bad = false;                 // a wanted size < 0, NaN or infinite
+#pragma unroll 4
+  for (int p = t; p < P; p += blockDim.x) {
+    const int k = key_row[p];
+    const float s = sz_row[p];
+    s_u[p] = queue_field(k);
+    if (k >= 0) {
+      ++mine;
+      bad |= !(s >= 0.0f && s <= FLT_MAX);
+    }
   }
-  if (mine) atomicAdd(&s_part, mine);
-  __syncthreads();
+  mine = __reduce_add_sync(kFull, mine);
+  if ((t & 31) == 0 && mine) atomicAdd(&s_part, mine);
+  const bool any_bad = __syncthreads_or(bad);
   const int n_part = s_part;
-  if (n_part == 0) {                  // block-uniform: empty queue
-    for (int p = threadIdx.x; p < P; p += blockDim.x) out[row + p] = h_cap + 1;
+  const long long reach = (long long)h_cap * pop;
+  const int m = reach < n_part ? (int)reach : n_part;
+  if (m == 0) {                     // nothing is granted within h_cap
+    for (int p = t; p < P; p += blockDim.x) out_row[p] = h_cap + 1;
     return;
   }
-  bitonic_sort(s_word, n);
-
-  const float* sz_row = sizes + (size_t)lane * sizes_stride;
-  const int run_len = n / blockDim.x;          // <= kMaxRun
-  const int base = threadIdx.x * run_len;
-  double csum[kMaxRun];
-  double total = 0.0;
-#pragma unroll
-  for (int c = 0; c < kMaxRun; ++c) {
-    const int i = base + c;
-    if (c < run_len && i < n_part)
-      total += (double)sz_row[s_word[i] & kIdxMask];
-    csum[c] = total;                           // inclusive, within the run
+  if (m > kHeadCap || !(step_inc >= 0.0f) || any_bad) {   // block-uniform
+    wake_whole_row(key_row, sz_row, n_part, pop, h_cap, P, n, smem, s_thr,
+                   s_cnt, s_n, s_wmin, s_wtot, out_row);
+    return;
   }
-  const double offset = block_exclusive(total, s_wtot);
-  const int lane_id = threadIdx.x & 31;
-  for (int k = 0; k < h_cap; ++k) {
-    const double thr = s_thr[k];
-    int fit = 0;
-#pragma unroll
-    for (int c = 0; c < kMaxRun; ++c)
-      fit += (c < run_len && base + c < n_part && offset + csum[c] <= thr);
-    fit = __reduce_add_sync(kFull, fit);
-    if (lane_id == 0 && fit) atomicAdd(&s_cnt[k], fit);
+
+  uint64_t* s_cand = reinterpret_cast<uint64_t*>(smem + head_offset(P));
+  uint64_t* s_swap = s_cand + head_slots(n);
+  const Head h = select_head(s_u, P, m, n_part, s_hist, s_pick);
+  compact_head(s_u, P, h, s_cand, &s_count, s_wtot);
+  __syncthreads();
+  uint64_t x = t < m ? s_cand[t] : ~0ull;
+  int* s_out = reinterpret_cast<int*>(smem);              // s_u is read no more
+  for (int p = t; p < P; p += blockDim.x) s_out[p] = h_cap + 1;
+  x = sort_head(x, pow2_at_least(m), s_cand, s_swap);
+
+  const int idx = (int)(x & kIdxMask);
+  const double sz = t < m ? (double)sz_row[idx] : 0.0;
+  const double csum = block_exclusive(sz, s_wtot) + sz;   // inclusive
+  double* s_csum = reinterpret_cast<double*>(s_swap);
+  if (t < m) s_csum[t] = csum;
+  __syncthreads();
+  long long cnt = 0;
+  if (t < h_cap) {                  // cnt_{t+1}: head prefixes <= threshold
+    const double thr = s_thr[t];
+    int lo = 0, hi = m;
+    while (lo < hi) {
+      const int mid = (lo + hi) >> 1;
+      if (s_csum[mid] <= thr) lo = mid + 1;
+      else hi = mid;
+    }
+    cnt = lo;
+  }
+  grant_counts(cnt, h_cap, pop, m, s_n, s_wmin);
+  if (t < m) {                      // step = 1 + #{k : n_k <= rank}
+    int lo = 0, hi = h_cap;
+    while (lo < hi) {
+      const int mid = (lo + hi) >> 1;
+      if (s_n[mid] <= t) lo = mid + 1;
+      else hi = mid;
+    }
+    s_out[idx] = 1 + lo;
   }
   __syncthreads();
-
-  if (threadIdx.x == 0) {
-    const int n_pops = pops[lane];
-    const long long pop = n_pops > 0 ? n_pops : 0;
-    long long granted = 0;
-    for (int k = 0; k < h_cap; ++k) {
-      const long long c = s_cnt[k];
-      granted = c < granted + pop ? c : granted + pop;
-      s_nk[k] = granted;
-    }
-  }
-  __syncthreads();
-
-  for (int c = 0; c < run_len; ++c) {
-    const int i = base + c;
-    const int idx = (int)(s_word[i] & kIdxMask);
-    if (idx >= P) continue;                    // padding
-    int step = h_cap + 1;
-    if (i < n_part) {
-      step = 1;
-      for (int k = 0; k < h_cap; ++k) step += (s_nk[k] < (long long)i + 1);
-    }
-    out[row + idx] = step;
-  }
+  for (int p = t; p < P; p += blockDim.x) out_row[p] = s_out[p];
 }
 
 // Opt a kernel in to all the shared memory a block may take (227 KB on
@@ -405,6 +766,14 @@ inline cudaError_t allow_large_smem(Kern kern, int* max_dyn) {
 
 inline int threads_for(int n) { return n < kMaxThreads ? n : kMaxThreads; }
 
+// Dynamic shared memory of a block: the larger of the whole-row path's
+// (`row_bytes` per sorted entry) and the head path's.
+inline size_t smem_for(int P, int n, int row_bytes) {
+  const size_t whole = (size_t)row_bytes * n;
+  const size_t head = head_offset(P) + 16 * (size_t)head_slots(n);
+  return whole > head ? whole : head;
+}
+
 }  // namespace
 
 extern "C" {
@@ -412,6 +781,8 @@ extern "C" {
 int pbm_max_h_cap() { return kMaxHCap; }
 // Most sorted entries a row may have: kMaxRun per thread of a full block.
 int pbm_max_sort_len() { return kMaxRun * kMaxThreads; }
+// Longest head that fifo_grant and wake_solve select and sort alone.
+int pbm_head_cap() { return kHeadCap; }
 
 // Once, after the library is loaded: raise every kernel's dynamic shared
 // memory limit and write the three limits (evict, grant, wake) to max_dyn.
@@ -428,8 +799,9 @@ int pbm_init(int* max_dyn) {
   return (int)e;
 }
 
-// `n` is the sorted row length: a power of two, >= 32 and >= P; each block
-// takes 8 * n bytes of dynamic shared memory.
+// `n` is the sorted row length: a power of two, >= 32 and >= P.  A block
+// takes 8 * n bytes of dynamic shared memory (12 * n for wake_solve),
+// a little more for a short row's head path.
 
 int pbm_batched_evict_f32(const void* key, const void* sizes, int sizes_stride,
                           const void* evictable, const void* need_free,
@@ -459,7 +831,7 @@ int pbm_fifo_grant(const void* key, const void* sizes, int sizes_stride,
                    const void* budget, const void* pops, void* mask_out,
                    void* bytes_out, void* n_out, int L, int P, int vmax, int n,
                    void* stream) {
-  fifo_grant_kernel<<<L, threads_for(n), 8 * (size_t)n,
+  fifo_grant_kernel<<<L, threads_for(n), smem_for(P, n, 8),
                       (cudaStream_t)stream>>>(
       (const int*)key, (const float*)sizes, sizes_stride, (const float*)budget,
       (const int*)pops, (uint8_t*)mask_out, (float*)bytes_out, (int*)n_out, P,
@@ -470,8 +842,11 @@ int pbm_fifo_grant(const void* key, const void* sizes, int sizes_stride,
 int pbm_wake_solve(const void* key, const void* sizes, int sizes_stride,
                    const void* credit0, const void* inc, const void* pops,
                    void* out, int L, int P, int h_cap, int n, void* stream) {
-  wake_solve_kernel<<<L, threads_for(n), 8 * (size_t)n,
-                      (cudaStream_t)stream>>>(
+  // a thread per k of the recursion: at least h_cap threads
+  int threads = threads_for(n);
+  const int for_k = (h_cap + 31) & ~31;
+  if (threads < for_k) threads = for_k;
+  wake_solve_kernel<<<L, threads, smem_for(P, n, 12), (cudaStream_t)stream>>>(
       (const int*)key, (const float*)sizes, sizes_stride, (const float*)credit0,
       (const float*)inc, (const int*)pops, (int*)out, P, h_cap, n);
   return (int)cudaGetLastError();

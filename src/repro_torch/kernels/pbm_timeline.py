@@ -24,6 +24,9 @@ from ._build import check_tensor as _check, raise_on as _raise_on
 from ._build import call_on as _call_on, stream_of as _stream
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
+#: longest head that fifo_grant and wake_solve select and sort alone
+#: (``kHeadCap`` in ``csrc/pbm_timeline.cu``, checked when it is loaded)
+HEAD_CAP = 1024
 _LIB = None
 _MAX_DYN = {}   # device index -> dynamic shared-memory limit: evict, grant, wake
 
@@ -43,6 +46,9 @@ def library(device):
         lib.pbm_wake_solve.argtypes = [_P, _P, _I, _P, _P, _P, _P,
                                        _I, _I, _I, _I, _P]
         lib.pbm_init.argtypes = [ctypes.POINTER(ctypes.c_int)]
+        if lib.pbm_head_cap() != HEAD_CAP:
+            raise RuntimeError(f"pbm_timeline: the library's head capacity "
+                               f"{lib.pbm_head_cap()} is not {HEAD_CAP}")
         _LIB = lib
     device = torch.device(device)
     if device.type != "cuda":
@@ -66,15 +72,16 @@ def _sizes_stride(sizes: torch.Tensor, L: int, P: int) -> int:
     return P
 
 
-def _sort_len(P: int, max_dyn: int, name: str) -> int:
+def _sort_len(P: int, max_dyn: int, name: str, entry_bytes: int = 8) -> int:
     """Length of the row a block sorts in shared memory: the power of two
-    at or above ``P`` (at least one warp), 8 bytes an entry.  Raises above
-    what one block can hold."""
+    at or above ``P`` (at least one warp), ``entry_bytes`` an entry (the
+    head path of a short row takes at most 25 KB, which every block has).
+    Raises above what one block can hold."""
     n = max(32, 1 << (max(P, 1) - 1).bit_length())
-    most = min(_LIB.pbm_max_sort_len(), max_dyn // 8)
+    most = min(_LIB.pbm_max_sort_len(), max_dyn // entry_bytes)
     if n > most:
         raise ValueError(
-            f"{name}: P={P} pages sort as {n} entries ({8 * n} bytes of "
+            f"{name}: P={P} pages sort as {n} entries ({entry_bytes * n} bytes of "
             f"shared memory per lane); one block holds at most {most} "
             "(page-split candidate selection is not ported yet)"
         )
@@ -143,7 +150,7 @@ def wake_solve_kernel(key, sizes, credit0, inc, pops, *,
     if not 1 <= int(h_cap) <= lib.pbm_max_h_cap():
         raise ValueError(f"wake_solve: h_cap={h_cap} outside "
                          f"1..{lib.pbm_max_h_cap()}")
-    n = _sort_len(P, max_dyn[2], "wake_solve")
+    n = _sort_len(P, max_dyn[2], "wake_solve", entry_bytes=12)
     out = torch.empty((L, P), dtype=torch.int32, device=key.device)
     err = _call_on(key, lib.pbm_wake_solve,
                    key.data_ptr(), sizes.data_ptr(), stride,
@@ -153,6 +160,36 @@ def wake_solve_kernel(key, sizes, credit0, inc, pops, *,
     _raise_on(err, "wake_solve launch")
     wake_solve_kernel.launches += 1
     return out
+
+
+def lane_paths(name: str, args, static) -> list:
+    """Per lane of one ``fifo_grant`` or ``wake_solve`` call (``args`` its
+    tensors in call order, ``static`` its keyword arguments), the path its
+    kernel takes: ``"select"`` (the m entries at the head of the queue
+    selected and sorted alone; m = 0 writes the empty answer) or
+    ``"full"`` (the whole row sorted), by the rule the kernel applies on
+    the device.  fifo_grant: m = min(vmax, P, pops, wanted pages), full
+    iff m > HEAD_CAP.  wake_solve: m = min(wanted pages, h_cap * max(pops,
+    0)), full iff m > 0 and (m > HEAD_CAP, or ``inc`` is negative or NaN,
+    or a wanted page's size is negative or not finite)."""
+    key = args[0]
+    L, P = key.shape
+    wanted = key >= 0
+    n_part = wanted.sum(dim=1)
+    if name == "fifo_grant":
+        pops = args[3].long()
+        m = torch.minimum(torch.minimum(pops, n_part),
+                          torch.full_like(n_part, min(int(static["vmax"]), P)))
+        full = m > HEAD_CAP
+    elif name == "wake_solve":
+        sizes, inc, pops = args[1], args[3], args[4]
+        sizes = sizes.expand(L, P)
+        m = torch.minimum(n_part, int(static["h_cap"]) * pops.long().clamp(min=0))
+        bad = (wanted & ~(torch.isfinite(sizes) & (sizes >= 0))).any(dim=1)
+        full = (m > 0) & ((m > HEAD_CAP) | ~(inc >= 0) | bad)
+    else:
+        raise ValueError(f"lane_paths: {name} has one path")
+    return ["full" if f else "select" for f in full.tolist()]
 
 
 batched_evict_kernel.launches = 0
