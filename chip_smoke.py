@@ -23,14 +23,16 @@ One JSON object per phase, one per line:
                       builds this run made), per library the SASS count of
                       HGMMA / HMMA / UTMALDG / UBLKCP / LDGSTS:
                       flash_attention must show HGMMA and UTMALDG,
-                      paged_attention LDGSTS or UBLKCP, pbm_timeline no
-                      tensor-core instruction; no kernel of those two
-                      libraries, and neither fifo_grant nor wake_solve, may
-                      have a stack frame or use local memory
+                      paged_attention LDGSTS or UBLKCP, mamba2_scan HGMMA
+                      or HMMA, pbm_timeline no tensor-core instruction; no
+                      kernel of those three libraries, and none of
+                      batched_evict (both key types), fifo_grant and
+                      wake_solve, may have a stack frame or use local memory
 3. ``kernels_fuzz``   every buffer-pool kernel against its plain version on
                       the fuzz shapes of the CPU tests (outputs must be EQUAL);
-                      for fifo_grant and wake_solve the lanes that took each
-                      path (head selected, whole row sorted: computed on the
+                      per kernel the lanes that took each path (nothing to
+                      do, head selected, whole row sorted, and for
+                      batched_evict every page a candidate: computed on the
                       host), each path at least once
 4. ``paged_fuzz``     paged attention against its plain version on its fuzz
                       cases, f32 and bf16 (atol = rtol = 3e-5 / 3e-2), and
@@ -39,7 +41,8 @@ One JSON object per phase, one per line:
                       over each CTA's block, <= NORMWISE_TOL)
 5. ``model_fuzz``     flash attention, the Mamba2 scan and the mLSTM against
                       their plain versions on their fuzz cases, f32 and bf16
-                      (flash attention's bf16 also as in 4)
+                      (flash attention's and the Mamba2 scan's bf16 also as
+                      in 4)
 6. ``sim_small``      a tiny sweep on ``cuda`` and, asked for explicitly, on
                       ``cpu``: the two must agree
 7. ``serve_small``    ``TinyConfig()`` with the same weights on ``cuda`` and,
@@ -71,11 +74,13 @@ One JSON object per phase, one per line:
                       and its bound; also ``device_ms`` and ``host_ms``
                       (``_queued_ms``: launches queued behind a sleep, the
                       device's time and the host's time to issue one);
-                      fifo_grant and wake_solve with the lanes of the
-                      captured inputs that took each path;
+                      the buffer-pool kernels with the lanes of the
+                      captured inputs that took each path; the Mamba2 scan
+                      with the CUDA kernels one call launches (profiler;
+                      each of its three passes once, else the phase fails);
                       paged attention also at a deployment's batch (B = 32,
-                      1024-4096 tokens); B4's and B5's bf16 inputs held to
-                      f32 as in 4
+                      1024-4096 tokens); B4's, B5's and B6's bf16 inputs held
+                      to f32 as in 4
 
 then the card's name and power limit as ``nvidia-smi`` prints them, then
 ``{"ok": true, "device": {...}}`` as the last line.  Any failed phase ends
@@ -194,14 +199,17 @@ def nvidia_smi_line() -> str:
 SASS_OPS = ("HGMMA", "HMMA", "UTMALDG", "UBLKCP", "LDGSTS")
 #: what each redesigned library must show (any one of the names)
 SASS_REQUIRED = {"flash_attention": (("HGMMA",), ("UTMALDG",)),
-                 "paged_attention": (("LDGSTS", "UBLKCP"),)}
+                 "paged_attention": (("LDGSTS", "UBLKCP"),),
+                 "mamba2_scan": (("HGMMA", "HMMA"),)}
 #: what a library must not show: the buffer-pool kernels sum whole byte
 #: counts, which a tensor-core product would round
 SASS_FORBIDDEN = {"pbm_timeline": ("HGMMA", "HMMA")}
 #: redesigned kernels of other libraries held to no stack frame and no
-#: local memory (every kernel of the SASS_REQUIRED libraries is)
-NO_LOCAL_KERNELS = {"pbm_timeline": ("fifo_grant_kernel",
-                                     "wake_solve_kernel")}
+#: local memory (every kernel of the SASS_REQUIRED libraries is), each with
+#: the number of its instantiations that must be listed
+NO_LOCAL_KERNELS = {"pbm_timeline": {"fifo_grant_kernel": 1,
+                                     "wake_solve_kernel": 1,
+                                     "batched_evict_kernel": 2}}
 
 
 def _cuobjdump(flag: str, name: str) -> str:
@@ -250,10 +258,10 @@ def resource_usage(name: str) -> list:
 def build_evidence_ok(usage: dict, sass: dict):
     """The redesigned kernels' libraries use the features their designs
     rest on and none they must not, and every kernel in them (in
-    ``NO_LOCAL_KERNELS``: each kernel named there) is listed by
-    ``cuobjdump -res-usage`` with no stack frame and no local memory (no
-    spill, no array in local memory).  A library or a named kernel that
-    is not listed fails."""
+    ``NO_LOCAL_KERNELS``: each kernel named there, every instantiation) is
+    listed by ``cuobjdump -res-usage`` with no stack frame and no local
+    memory (no spill, no array in local memory).  A library or a named
+    kernel that is not listed fails."""
     for lib, groups in SASS_REQUIRED.items():
         for names in groups:
             if not any(sass.get(lib, {}).get(n, 0) for n in names):
@@ -265,9 +273,11 @@ def build_evidence_ok(usage: dict, sass: dict):
     gated = {lib: usage.get(lib, []) for lib in SASS_REQUIRED}
     for lib, kernels in NO_LOCAL_KERNELS.items():
         rows = usage.get(lib, [])
-        for kernel in kernels:
-            if not any(kernel in (row["kernel"] or "") for row in rows):
-                return False, f"{lib}: cuobjdump -res-usage lists no {kernel}"
+        for kernel, count in kernels.items():
+            listed = sum(kernel in (row["kernel"] or "") for row in rows)
+            if listed < count:
+                return False, (f"{lib}: cuobjdump -res-usage lists {listed} "
+                               f"of the {count} instantiations of {kernel}")
         gated[lib] = [row for row in rows
                       if any(k in (row["kernel"] or "") for k in kernels)]
     for lib, rows in gated.items():
@@ -312,17 +322,14 @@ def kernel_fns():
     }
 
 
-#: the kernels with two paths, a head of the queue selected and sorted
-#: alone or the whole row sorted (``pbm_timeline.lane_paths``)
-TWO_PATH_KERNELS = ("fifo_grant", "wake_solve")
-
-
 def path_counts(name, inputs) -> dict:
     """Lanes of the calls ``inputs`` (``[(args, static), ...]``) that took
-    each path of ``name``'s kernel, computed on the host from the inputs
-    as the kernel decides on the device."""
-    from repro_torch.kernels.pbm_timeline import lane_paths
-    counts = {"select_lanes": 0, "full_lanes": 0}
+    each path of ``name``'s kernel (``pbm_timeline.PATHS``: nothing to do,
+    the head of the service order selected and sorted alone, the whole row
+    sorted, and for batched_evict every page a candidate), computed on the
+    host from the inputs as the kernel decides on the device."""
+    from repro_torch.kernels.pbm_timeline import PATHS, lane_paths
+    counts = {f"{path}_lanes": 0 for path in PATHS[name]}
     for args, static in inputs:
         for path in lane_paths(name, args, static):
             counts[f"{path}_lanes"] += 1
@@ -349,16 +356,15 @@ def phase_kernels_fuzz(dev) -> None:
             err = max(err, e)
             n_cases += 1
             inputs.append((args, case["static"]))
-        out[name] = {"cases": n_cases, "mismatches": bad, "max_abs_err": err}
-        if name in TWO_PATH_KERNELS:
-            out[name].update(path_counts(name, inputs))
+        out[name] = {"cases": n_cases, "mismatches": bad, "max_abs_err": err,
+                     **path_counts(name, inputs)}
     out["ok"] = all(out[k]["mismatches"] == 0 for k in cases.CASES) and all(
-        out[k]["select_lanes"] > 0 and out[k]["full_lanes"] > 0
-        for k in TWO_PATH_KERNELS)
+        v > 0 for k in cases.CASES for key, v in out[k].items()
+        if key.endswith("_lanes"))
     emit(out)
     if not out["ok"]:
         fail("kernels_fuzz", "a kernel disagrees with its plain version, or "
-                             "a path of fifo_grant / wake_solve was not run")
+                             "a path of a buffer-pool kernel was not run")
 
 
 class Recorder:
@@ -523,8 +529,7 @@ def sim_kernel_entries(dev, recorder: Recorder, launches: dict,
                               _library_call(name, args)),
                 "bound_ms": bound, "bound_by": bound_by,
             }
-            if name in TWO_PATH_KERNELS:   # every input captured at P
-                by_p[P]["paths"] = path_counts(name, samples)
+            by_p[P]["paths"] = path_counts(name, samples)   # every input at P
         if main_p not in by_p:
             fail("kernels", f"{name}: no input captured at P={main_p}")
         main = by_p[main_p]
@@ -539,10 +544,9 @@ def sim_kernel_entries(dev, recorder: Recorder, launches: dict,
             "library_device_ms": main["library_device_ms"],
             "shapes": list(by_p.values()),
         }
-        if name in TWO_PATH_KERNELS:       # every captured input, every P
-            entry.update(path_counts(name, [
-                s for (kname, _), samples in recorder.samples.items()
-                if kname == name for s in samples]))
+        entry.update(path_counts(name, [    # every captured input, every P
+            s for (kname, _), samples in recorder.samples.items()
+            if kname == name for s in samples]))
         if name == "batched_evict":
             # the integer-key instantiation: the simulator's policies all
             # give f32 scores, so it is timed on the main path's input with
@@ -593,8 +597,11 @@ def _dtype_name(t) -> str:
 NORMWISE_TOL = 1e-2
 
 
-#: query rows of one block of B5's blockwise check: a CTA's query tile
+#: query rows of one block of B5's blockwise check: a CTA's query tile;
+#: B6's chunk (a block's tile is a chunk of one head)
 NORMWISE_BLOCK_T = 128
+#: the model-stack kernels held to NORMWISE_TOL on bf16 inputs
+NORMWISE_KERNELS = ("flash_attention", "mamba2_scan")
 
 
 def _normwise(got, want32) -> float:
@@ -604,8 +611,9 @@ def _normwise(got, want32) -> float:
 
 def _normwise_max_block(got, want32) -> float:
     """The largest normwise relative error over the blocks one CTA writes:
-    (batch row, 128-query tile, head) of B5's (B, T, H, dh) output, (sequence,
-    head) rows of B4's (B, H, dh) one.  A fault confined to one block (one
+    (batch row, 128-query tile, head) of B5's (B, T, H, dh) output, (batch
+    row, 128-step chunk, head) of B6's (B, T, H, P) one, (sequence, head)
+    rows of B4's (B, H, dh) one.  A fault confined to one block (one
     warpgroup's rows, one head, a tile's last chunk) shows there in full,
     where the global norm dilutes it by the square root of the block
     count."""
@@ -877,7 +885,7 @@ def phase_model_fuzz(dev) -> None:
     fns = model_fns()
     out = {"phase": "model_fuzz", "device": str(dev),
            "tolerance": cases.MODEL_TOL}
-    normwise = 0.0
+    normwise = dict.fromkeys(NORMWISE_KERNELS, 0.0)
     for case in cases.model_cases():
         kernel, plain = fns[case["kernel"]]
         args = cases.model_tensors(case, dev)
@@ -886,9 +894,10 @@ def phase_model_fuzz(dev) -> None:
         b, e = _model_compare(case["kernel"], got,
                               plain(*args, **case["static"]), case["dtype"])
         nw = None
-        if case["kernel"] == "flash_attention" and case["dtype"] == "bfloat16":
+        if case["kernel"] in normwise and case["dtype"] == "bfloat16":
             nw = _vs_f32(plain, got, args, case["static"])
-            normwise = _max_nan(normwise, _normwise_worst(nw))
+            normwise[case["kernel"]] = _max_nan(normwise[case["kernel"]],
+                                                _normwise_worst(nw))
         if b or (nw is not None and not _normwise_worst(nw) <= NORMWISE_TOL):
             emit({"phase": "model_fuzz", "kernel": case["kernel"],
                   "case": case["name"], "mismatches": b, "max_abs_err": e,
@@ -898,11 +907,12 @@ def phase_model_fuzz(dev) -> None:
         row["cases"] += 1
         row["mismatches"] += b
         row["max_abs_err"] = max(row["max_abs_err"], e)
-    out["flash_attention"]["bfloat16"]["max_normwise_vs_f32"] = normwise
+    for k, worst in normwise.items():
+        out[k]["bfloat16"]["max_normwise_vs_f32"] = worst
     out["normwise_tolerance"] = NORMWISE_TOL
     out["ok"] = (all(r["mismatches"] == 0 for k in MODEL_KERNELS
                      for r in out[k].values())
-                 and normwise <= NORMWISE_TOL)
+                 and all(w <= NORMWISE_TOL for w in normwise.values()))
     emit(out)
     if not out["ok"]:
         fail("model_fuzz", "a model-stack kernel disagrees with its plain "
@@ -1180,6 +1190,54 @@ def _held_to_plain(name, args, static, dtype: str) -> dict:
     return {"mismatches": b, "max_abs_err": e, "rms_want": rms}
 
 
+#: the CUDA kernels one mamba2_scan call launches, each once: the SSD
+#: split's three passes (csrc/mamba2_scan.cu)
+SCAN_PASSES = ("chunk_state", "state_pass", "chunk_scan")
+
+
+def cuda_kernels_per_call(fn, reps: int = 20) -> dict:
+    """The CUDA kernels one call of ``fn`` launches, by name, each with its
+    launches per call, counted by ``torch.profiler`` (device activity only,
+    as ``tools/time_ssd_passes.py`` reads it) over ``reps`` calls.  A
+    warm-up step of as many calls comes first: late in a long process the
+    device activity started recording some milliseconds after the profiler
+    was entered, and the first calls' kernels went uncounted; each step
+    also waits 0.1 s before its first call."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        for _ in range(2):              # the warm-up step, the counted one
+            time.sleep(0.1)
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
+
+    def is_kernel(k) -> bool:       # not the steps' own annotations
+        if getattr(k, "is_user_annotation", False) \
+                or k.key.startswith("ProfilerStep"):
+            return False
+        return k.device_type == DeviceType.CUDA \
+            or (getattr(k, "self_device_time_total", 0.0) or 0.0) > 0
+    return {k.key: k.count / reps for k in prof.key_averages()
+            if is_kernel(k)}
+
+
+def _scan_launches(kernels: dict) -> dict:
+    """``cuda_kernels_per_call``'s count for one mamba2_scan call, held to
+    the design: each of ``SCAN_PASSES`` once and nothing else."""
+    per_pass = {p: sum(n for k, n in kernels.items() if p in k)
+                for p in SCAN_PASSES}
+    total = sum(kernels.values())
+    if total != len(SCAN_PASSES) or any(n != 1 for n in per_pass.values()):
+        fail("kernels", f"mamba2_scan: a call launched {kernels}, expected "
+                        f"each of {SCAN_PASSES} once")
+    return {"cuda_launches_per_call": total, "cuda_kernels": kernels}
+
+
 def model_kernel_entries(dev, calls: FirstCalls, serve: dict) -> list:
     """B5-B7 against their plain versions on every input captured from
     ``model_serve``, twice: as captured (bf16) and cast to f32, where the
@@ -1208,7 +1266,7 @@ def model_kernel_entries(dev, calls: FirstCalls, serve: dict) -> list:
             err = max(err, held["max_abs_err"])
             err32 = max(err32, held32["max_abs_err"])
             bound, bound_by = _model_bound_ms(name, args, static)
-            if name == "flash_attention" and args[0].dtype == torch.bfloat16:
+            if name in NORMWISE_KERNELS and args[0].dtype == torch.bfloat16:
                 held.update(_vs_f32(plain, kernel(*args, **static), args,
                                     static))
                 bad += not _normwise_worst(held) <= NORMWISE_TOL
@@ -1229,6 +1287,9 @@ def model_kernel_entries(dev, calls: FirstCalls, serve: dict) -> list:
                    "bound_ms": bound, "bound_by": bound_by}
             if sdpa is not None:
                 row["library_ms"] = _time_budget_ms(sdpa, dev)
+            if name == "mamba2_scan":      # one count a call, three launches
+                row.update(_scan_launches(cuda_kernels_per_call(
+                    lambda: kernel(*args, **static))))
             rows.append(row)
             torch.cuda.empty_cache()
         main = rows[0]
@@ -1251,8 +1312,11 @@ def model_kernel_entries(dev, calls: FirstCalls, serve: dict) -> list:
             "library_device_ms": main.get("library_device_ms"),
             "shapes": rows,
         })
-        if name == "flash_attention":
+        if name in NORMWISE_KERNELS:
             entries[-1]["normwise_tolerance"] = NORMWISE_TOL
+        if name == "mamba2_scan":
+            entries[-1]["cuda_launches_per_call"] = \
+                main["cuda_launches_per_call"]
     return entries
 
 

@@ -20,15 +20,18 @@ disagreement is a fault of the logic, not of rounding.  Arrays are
 ``(L, P)`` / ``(L,)`` numpy; ``static`` holds the keyword arguments that
 are Python ints.
 
-The queue kernels' later cases (drawn after the others, so those keep
-their numbers) cover the two paths of their CUDA kernels, each with
-``path``: per lane, the path it must take (``"select"`` or ``"full"``,
+The buffer-pool kernels' later cases (drawn after the others, so those
+keep their numbers) cover the paths of their CUDA kernels, each with
+``path``: per lane, the path it must take (``"idle"``, ``"select"``,
+``"full"`` or, for the eviction kernel, ``"all"``,
 :func:`repro_torch.kernels.pbm_timeline.lane_paths`): the main path's
 shapes (P = 768, 3072, 8832 with the simulator's queue keys, vmax 384,
-pops 6, h_cap 64), ties across the m-th entry, a head that is the whole
-queue, heads of ``HEAD_CAP`` and ``HEAD_CAP + 1`` entries, ``inc`` of 0
-and below 0, zero and negative sizes, a P that is not a multiple of 4
-and an empty queue.
+pops 6, h_cap 64; for eviction P = 3072 and 8832 with vmax 256 and
+negative scores), ties across the m-th entry, a head that is the whole
+queue (every page), heads of ``HEAD_CAP`` and ``HEAD_CAP + 1`` entries,
+``inc`` of 0 and below 0, zero and negative sizes, a P that is not a
+multiple of 4, an empty queue, and eviction keys at -0.0 / +0.0 / +inf,
+around 2^24 and at the masking values on the head path.
 """
 
 from __future__ import annotations
@@ -125,6 +128,58 @@ def evict_cases(seed: int = 0) -> List[Case]:
     add("i32_evictable_key_at_mask_value",
         np.where(at_mask, -2**31, ikey).astype(np.int32),
         _sizes(rng, L, P), rng.random((L, P)) < 0.5, np.full(L, 1e6), 48)
+
+    def head(name, key, sizes, evictable, need, vmax, path):
+        add(name, key, sizes, evictable, need, vmax)
+        out[-1]["path"] = tuple(path)
+
+    sel5 = ("select",) * 5
+    evictable_fracs = np.array([0.05, 0.3, 0.6, 0.9, 1.0]).reshape(5, 1)
+    for P in (3072, 8832):      # the simulator's vmax at most 256
+        # scores as the policies give them: fractional, mostly negative
+        key = (rng.normal(-200.0, 120.0, (5, P))
+               * (1 + rng.integers(0, 2, (5, P)))).astype(np.float32)
+        head(f"main_P{P}_negative_keys", key, _sizes(rng, 5, P),
+             rng.random((5, P)) < evictable_fracs,
+             [30.0, 600.0, 5000.0, 1e9, 200.0], 256, sel5)
+    P = 200     # vmax >= P: the head is every page, all of them negative
+    head("head_is_every_page", -rng.integers(1, 50, (5, P)).astype(np.float32),
+         _sizes(rng, 5, P), rng.random((5, P)) < evictable_fracs,
+         [40.0, 1e9, 0.0, 300.0, 900.0], 256,
+         ("all", "all", "idle", "all", "all"))
+    P = 600     # three keys, 90 % evictable: the m-th entry inside a tie run
+    head("ties_straddle_head",
+         -rng.integers(0, 3, (5, P)).astype(np.float32), _sizes(rng, 5, P),
+         rng.random((5, P)) < 0.9, [1e9, 100.0, 250.0, 1e9, 5.0], 100, sel5)
+    # -0.0 and +0.0 tie by index; +inf first; i32 keys on the head path
+    key = rng.choice(np.array([-0.0, 0.0, -1.5, 1.5, np.inf], np.float32),
+                     (5, 800))
+    head("signed_zeros_and_inf", key, _sizes(rng, 5, 800),
+         rng.random((5, 800)) < 0.7, np.full(5, 1e9), 256, sel5)
+    key = (2**24 + rng.integers(-40, 40, (5, 3072))).astype(np.int32)
+    key[:, ::7] = -2**31 + 2 + rng.integers(0, 3, (5, 439))
+    head("i32_head_p3072_around_2pow24", key, _sizes(rng, 5, 3072),
+         rng.random((5, 3072)) < 0.6, np.full(5, 1e9), 256, sel5)
+    for name, P, vmax, path in (    # the head's length at HEAD_CAP's edges
+            ("head_cap", 1500, HEAD_CAP, "select"),
+            ("head_cap_plus_one", 1500, HEAD_CAP + 1, "full"),
+            ("every_page_at_head_cap", HEAD_CAP, 2000, "all"),
+            ("every_page_past_head_cap", HEAD_CAP + 1, 2000, "full")):
+        head(name, rng.integers(-99, 99, (3, P)).astype(np.float32),
+             _sizes(rng, 3, P), rng.random((3, P)) < 0.8,
+             [1e9, 2500.0, 0.0], vmax, (path, path, "idle"))
+    # the masking values on the head path (compared with the oracle only):
+    # so many pages at it that the m-th entry falls inside their tie run
+    P = 3072
+    key = rng.normal(0.0, 10.0, (5, P)).astype(np.float32)
+    key[rng.random((5, P)) < 0.95] = -np.inf
+    head("f32_head_key_at_mask_value", key, _sizes(rng, 5, P),
+         rng.random((5, P)) < 0.5, np.full(5, 1e9), 256, sel5)
+    key = rng.integers(-2**31, 2**31 - 1, (5, P), dtype=np.int64)
+    key[rng.random((5, P)) < 0.95] = -2**31
+    head("i32_head_key_at_mask_value", key.astype(np.int32),
+         _sizes(rng, 5, P), rng.random((5, P)) < 0.5, np.full(5, 1e9), 256,
+         sel5)
     return out
 
 
@@ -185,7 +240,7 @@ def grant_cases(seed: int = 4) -> List[Case]:
     P = 1500    # lim = 100, 1100, HEAD_CAP + 1, HEAD_CAP, 0
     head("head_cap_edges", rng.integers(0, 2**29, (5, P)), _sizes(rng, 5, P),
          np.full(5, 1e9), [100, 1100, HEAD_CAP + 1, HEAD_CAP, 0], 1100,
-         ("select", "full", "full", "select", "select"))
+         ("select", "full", "full", "select", "idle"))
     P = 300
     sizes = _sizes(rng, 5, P)
     sizes[rng.random((5, P)) < 0.3] = 0.0
@@ -196,7 +251,7 @@ def grant_cases(seed: int = 4) -> List[Case]:
          rng.integers(50, 2000, 5), [6, 384, 100, 384, 384], 384, sel5)
     P = 768
     head("empty_queue", np.full((3, P), -1), _sizes(rng, 3, P),
-         np.full(3, 1e6), np.full(3, 384), 384, ("select",) * 3)
+         np.full(3, 1e6), np.full(3, 384), 384, ("idle",) * 3)
     P = 3072
     head("full_row_p3072", queue_keys(rng, (0.5, 0.9, 1.0), P),
          _sizes(rng, 3, P), [1e9, 3000.0, 9000.0], np.full(3, 2048), 2048,
@@ -263,11 +318,11 @@ def wake_cases(seed: int = 11) -> List[Case]:
     P = 500     # m = the wanted pages (384 = h_cap * pops too), or 0
     head("head_is_the_queue", _wanting(rng, [10, 200, 384, 400, 0], P),
          _sizes(rng, 5, P), rng.integers(0, 9, 5), rng.integers(1, 40, 5),
-         np.full(5, 6), 64, sel5)
+         np.full(5, 6), 64, sel5[:4] + ("idle",))
     P = 1200    # m = HEAD_CAP, 1088, 384, 1200, 0
     head("head_cap_edges", rng.integers(0, 2**29, (5, P)), _sizes(rng, 5, P),
          rng.integers(0, 9, 5), rng.integers(20, 90, 5), [16, 17, 6, 20, 0],
-         64, ("select", "full", "select", "full", "select"))
+         64, ("select", "full", "select", "full", "idle"))
     P = 1100    # m = HEAD_CAP + 1: the wanted pages
     head("head_cap_plus_one", _wanting(rng, [HEAD_CAP + 1], P),
          _sizes(rng, 1, P), [5.0], [80.0], [17], 64, ("full",))
@@ -292,7 +347,7 @@ def wake_cases(seed: int = 11) -> List[Case]:
     P = 768
     head("empty_queue", np.full((3, P), -1), _sizes(rng, 3, P),
          np.full(3, 10.0), np.full(3, 20.0), np.full(3, 6), 64,
-         ("select",) * 3)
+         ("idle",) * 3)
     return out
 
 
@@ -427,7 +482,11 @@ def model_cases(seed: int = 31) -> List[Case]:
     * flash attention at the tensor-core kernel's tiles (drawn last, so
       the cases above keep their numbers): T = S = 1000 under GQA 6:1 at
       dh 128 and 160 (many key tiles, a ragged last query tile), a window
-      of 200 that crosses tile edges, and T > S with masked rows at dh 128.
+      of 200 that crosses tile edges, and T > S with masked rows at dh 128;
+    * the Mamba2 scan's split kernel (drawn after those): 2,100 steps, so
+      that the state pass crosses 17 chunks of 128 (33 of 64 in f32); the
+      model's 80 heads at P = N = 64, which one block serves with one C B^T;
+      a long memory (a near 1) at N = 128; ragged P = 48, N = 32.
     """
     rng = np.random.default_rng(seed)
     out: List[Case] = []
@@ -495,6 +554,15 @@ def model_cases(seed: int = 31) -> List[Case]:
         add("flash_attention", name, dict(causal=causal, window=window),
             q=nrm((B, T, H, dh), 0.5), k=nrm((B, S, Hk, dh), 0.5),
             v=nrm((B, S, Hk, dh), 0.5))
+
+    for name, (B, T, H, P, N, a_lo) in (
+            ("state_pass_17_chunks", (2, 2100, 3, 64, 64, 0.9)),
+            ("zamba2_heads_h80", (1, 300, 80, 64, 64, 0.6)),
+            ("long_memory_n128", (1, 1000, 2, 64, 128, 0.99)),
+            ("ragged_p48_n32", (3, 333, 5, 48, 32, 0.8))):
+        add("mamba2_scan", name, xh=nrm((B, T, H, P), 0.5),
+            a=rng.uniform(a_lo, 1.0, (B, T, H)).astype(np.float32),
+            b=nrm((B, T, N), 0.3), c=nrm((B, T, N), 0.3))
     return out
 
 

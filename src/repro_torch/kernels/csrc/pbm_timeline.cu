@@ -22,14 +22,14 @@
 //       [takes no part : 1][~order-preserving key : 32][page index : 31]
 //   so the ascending order of the words is the service order, ties by index
 //   included, with the pages that take no part (not wanted / padding up to
-//   the power of two) at the end.  batched_evict SORTS the lane's whole row
-//   in shared memory (bitonic, O(P log^2 P)).  fifo_grant and wake_solve
-//   need only the head of the queue, at most 384 entries in the simulator
-//   (min(vmax, pops) and h_cap * pops): they SELECT the m smallest words
+//   the power of two) at the end.  All three need only the head of that
+//   order, at most 384 entries in the simulator (min(vmax, P) <= 256,
+//   min(vmax, pops) and h_cap * pops): they SELECT the m smallest words
 //   exactly (a radix select on the key field, ties by a prefix count in
 //   index order) and sort only those; a lane whose head is longer than
 //   kHeadCap, or for which the head alone does not decide the answer, sorts
-//   its whole row inside the same kernel.  Keys are compared as integers
+//   its whole row in shared memory inside the same kernel (bitonic,
+//   O(P log^2 P)).  Keys are compared as integers
 //   built from their own bits: an integer key never passes through a float
 //   (queue keys use ~30 bits; [2^24, 2^24 + 1] must stay distinct), and a
 //   float key maps monotonically (-0.0 is read as +0.0 first, so equal
@@ -132,8 +132,8 @@ __device__ double block_exclusive(double total, double* s_wtot) {
 }
 
 // ---------------------------------------------------------------------------
-// The head of a queue (fifo_grant, wake_solve; written so that
-// batched_evict's top-vmax can take it too).  The lane's row is staged once
+// The head of the service order (fifo_grant, wake_solve, batched_evict's
+// first min(vmax, P)).  The lane's row is staged once
 // in shared memory as one 32-bit key field per page (the middle field of its
 // sort word), the m smallest (key field, index) pairs are selected exactly,
 // and only those m words are sorted.  Layout of the dynamic shared memory on
@@ -178,14 +178,16 @@ struct Head {
 };
 
 // Radix select of the m smallest fields of s_u[0..P), 1 <= m <= n_part,
-// n_part the wanted pages (fields below 2^31): when m = n_part the head is
-// every wanted page and no pass runs.  Otherwise passes of 8 bits from the
-// top, each a block histogram of the pages still in play whose scan picks
-// the digit that holds the m-th smallest.  Queue keys share their top
-// digits (stamp * 32768 + tie), so the lanes of a warp that fall in one bin
-// add to it once (__match_any_sync).  Stops as soon as every page of the
-// picked prefix is needed.  s_hist: 2 * kBins ints, s_pick: 3 ints.  Every
-// thread must call it.
+// n_part the pages taking part: for a queue the wanted pages (fields below
+// 2^31), when m = n_part the head is every wanted page and no pass runs;
+// batched_evict passes n_part = P and m < P, its fields spanning 32 bits.
+// Otherwise passes of 8 bits from the top, each a block histogram of the
+// pages still in play whose scan picks the digit that holds the m-th
+// smallest.  Queue keys share their top digits (stamp * 32768 + tie), so
+// the lanes of a warp that fall in one bin add to it once
+// (__match_any_sync).  Stops as soon as every page of the picked prefix is
+// needed.  s_hist: 2 * kBins ints, s_pick: 3 ints.  Every thread must call
+// it.
 __device__ Head select_head(const uint32_t* s_u, int P, int m, int n_part,
                             int* s_hist, int* s_pick) {
   // tested here, on m as passed: in fifo_grant itself a `lim == n_part`
@@ -342,19 +344,72 @@ __device__ void grant_counts(long long cnt, int h_cap, long long pop, int cap,
 }
 
 // ---------------------------------------------------------------------------
-// batched_evict — replaces src/repro/kernels/pbm_timeline.py
+// batched_evict — replaces src/repro/kernels/pbm_timeline.py:316
 // batched_evict_kernel (body _kernel): per lane, the evict mask = evictable
-// pages taken in service order among the top `vmax` while the bytes freed
-// BEFORE the page are < need_free, and need_free > 0.  A page that is not
-// evictable sorts with the key type's minimum (-inf / INT_MIN), as in the
-// plain version: an evictable page whose key IS that minimum ties with those
-// pages by index and can fall outside the top `vmax`.
+// pages taken in service order among the first m = min(vmax, P) while the
+// bytes freed BEFORE the page are < need_free, and need_free > 0.  A page
+// that is not evictable sorts with the key type's minimum (-inf / INT_MIN),
+// as in the plain version: an evictable page whose key IS that minimum ties
+// with those pages by index and can fall outside the first m.
 //
 // Bound: bytes.  It must read L*P*(4 + 1) + 4*P and write L*P bytes, a
-// fraction of a microsecond at 3.35 TB/s, so in practice one launch.  Its own
-// time is the sort of the row; a lane with nothing to free skips it, and only
-// the first min(vmax, P) sorted pages are summed.
+// fraction of a microsecond at 3.35 TB/s, so in practice one launch and the
+// block's barriers.
+// Why only the head is sorted: no page past position m of the service order
+// is evicted, and whether one before it is depends on the positions before
+// it alone.  So the kernel selects the m smallest (key field, index) pairs
+// (select_head / compact_head, as fifo_grant; m <= 256 in the simulator) and
+// sorts only those, where sorting the row took 55-105 barriers.  Unlike a
+// queue, EVERY page takes part: the key field spans all 32 bits (a negative
+// f32 key, and any key at the type's minimum, lies at or above 2^31), so
+// select_head is given n_part = P, and a lane with vmax >= P takes every
+// page without a selection (select_head's m >= n_part shortcut admits only
+// fields below 2^31, which is right for a queue and wrong here).  Ties at
+// the m-th entry are ranked by index inside compact_head.  A lane with m >
+// kHeadCap sorts its whole row instead (bitonic, a thread a contiguous run).
 // ---------------------------------------------------------------------------
+
+// A page's key field: the middle field of its sort word, with a page that is
+// not evictable at the key type's minimum.  Ascending (field, index) is the
+// service order, ties by index included.
+template <typename K>
+__device__ __forceinline__ uint32_t evict_field(bool ev, K k) {
+  return ~ord_key(ev ? k : lowest_key<K>());
+}
+
+template <typename K>
+__device__ __forceinline__ void evict_whole_row(
+    const K* __restrict__ key_row, const float* __restrict__ sz_row,
+    const uint8_t* __restrict__ ev_row, double need_d, int m, int P, int n,
+    uint64_t* s_word, double* s_wtot, uint8_t* __restrict__ out_row) {
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    const bool ev = i < P && ev_row[i];
+    s_word[i] = sort_word<K>(i < P, ev ? key_row[i] : lowest_key<K>(), i);
+  }
+  __syncthreads();
+  bitonic_sort(s_word, n);
+
+  const int run_len = n / blockDim.x;
+  const int base = threadIdx.x * run_len;
+  double total = 0.0;
+  for (int c = 0; c < run_len; ++c) {
+    const int i = base + c;
+    if (i < m) {
+      const int idx = (int)(s_word[i] & kIdxMask);
+      if (ev_row[idx]) total += (double)sz_row[idx];
+    }
+  }
+  double before = block_exclusive(total, s_wtot);
+  for (int c = 0; c < run_len; ++c) {
+    const int i = base + c;
+    const int idx = (int)(s_word[i] & kIdxMask);
+    if (idx >= P) continue;                   // padding
+    const bool ev = i < m && ev_row[idx];
+    out_row[idx] = (ev && before < need_d) ? 1 : 0;
+    if (ev) before += (double)sz_row[idx];
+  }
+}
+
 template <typename K>
 __global__ void __launch_bounds__(kMaxThreads)
 batched_evict_kernel(const K* __restrict__ key, const float* __restrict__ sizes,
@@ -362,45 +417,59 @@ batched_evict_kernel(const K* __restrict__ key, const float* __restrict__ sizes,
                      const float* __restrict__ need_free,
                      uint8_t* __restrict__ out, int P, int vmax, int n) {
   extern __shared__ __align__(16) unsigned char smem[];
-  uint64_t* s_word = reinterpret_cast<uint64_t*>(smem);
   __shared__ double s_wtot[32];
+  __shared__ int s_hist[2 * kBins];
+  __shared__ int s_pick[3];
+  __shared__ int s_count;           // head entries compacted
 
-  const int lane = blockIdx.x;
+  const int lane = blockIdx.x, t = threadIdx.x;
   const size_t row = (size_t)lane * P;
+  const K* key_row = key + row;
+  const uint8_t* ev_row = evictable + row;
+  const float* sz_row = sizes + (size_t)lane * sizes_stride;
+  uint8_t* out_row = out + row;
   const float need = need_free[lane];
-  if (!(need > 0.0f)) {               // block-uniform: nothing to free
-    for (int p = threadIdx.x; p < P; p += blockDim.x) out[row + p] = 0;
+  const int m = vmax < P ? vmax : P;  // candidates: the first m of the order
+  if (!(need > 0.0f) || m <= 0) {     // block-uniform: nothing to free
+    for (int p = t; p < P; p += blockDim.x) out_row[p] = 0;
     return;
   }
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    const bool ev = i < P && evictable[row + i];
-    s_word[i] = sort_word<K>(i < P, ev ? key[row + i] : lowest_key<K>(), i);
-  }
-  __syncthreads();
-  bitonic_sort(s_word, n);
-
-  const float* sz_row = sizes + (size_t)lane * sizes_stride;
-  const int cap = vmax < P ? vmax : P;        // candidates: sorted [0, cap)
-  const int run_len = n / blockDim.x;
-  const int base = threadIdx.x * run_len;
-  double total = 0.0;
-  for (int c = 0; c < run_len; ++c) {
-    const int i = base + c;
-    if (i < cap) {
-      const int idx = (int)(s_word[i] & kIdxMask);
-      if (evictable[row + idx]) total += (double)sz_row[idx];
-    }
-  }
-  double before = block_exclusive(total, s_wtot);
   const double need_d = (double)need;
-  for (int c = 0; c < run_len; ++c) {
-    const int i = base + c;
-    const int idx = (int)(s_word[i] & kIdxMask);
-    if (idx >= P) continue;                   // padding
-    const bool ev = i < cap && evictable[row + idx];
-    out[row + idx] = (ev && before < need_d) ? 1 : 0;
-    if (ev) before += (double)sz_row[idx];
+  if (m > kHeadCap) {                 // block-uniform
+    evict_whole_row<K>(key_row, sz_row, ev_row, need_d, m, P, n,
+                       reinterpret_cast<uint64_t*>(smem), s_wtot, out_row);
+    return;
   }
+
+  uint64_t* s_cand = reinterpret_cast<uint64_t*>(smem + head_offset(P));
+  uint64_t* s_swap = s_cand + head_slots(n);
+  uint64_t x = ~0ull;
+  if (vmax >= P) {                    // the head is every page (m = P)
+    if (t < P) x = ((uint64_t)evict_field<K>(ev_row[t], key_row[t]) << 31) |
+                   (uint32_t)t;
+  } else {
+    if (t == 0) s_count = 0;
+    uint32_t* s_u = reinterpret_cast<uint32_t*>(smem);
+#pragma unroll 4
+    for (int p = t; p < P; p += blockDim.x)
+      s_u[p] = evict_field<K>(ev_row[p], key_row[p]);
+    __syncthreads();
+    const Head h = select_head(s_u, P, m, P, s_hist, s_pick);
+    compact_head(s_u, P, h, s_cand, &s_count, s_wtot);
+    __syncthreads();
+    if (t < m) x = s_cand[t];
+  }
+  uint8_t* s_mask = smem;             // s_u is read no more
+  for (int p = t; p < P; p += blockDim.x) s_mask[p] = 0;
+  x = sort_head(x, pow2_at_least(m), s_cand, s_swap);
+
+  const int idx = (int)(x & kIdxMask);
+  const bool ev = t < m && ev_row[idx];
+  const double sz = ev ? (double)sz_row[idx] : 0.0;
+  const double before = block_exclusive(sz, s_wtot);     // exclusive
+  if (ev && before < need_d) s_mask[idx] = 1;
+  __syncthreads();
+  for (int p = t; p < P; p += blockDim.x) out_row[p] = s_mask[p];
 }
 
 // ---------------------------------------------------------------------------
@@ -781,7 +850,7 @@ extern "C" {
 int pbm_max_h_cap() { return kMaxHCap; }
 // Most sorted entries a row may have: kMaxRun per thread of a full block.
 int pbm_max_sort_len() { return kMaxRun * kMaxThreads; }
-// Longest head that fifo_grant and wake_solve select and sort alone.
+// Longest head that the three kernels select and sort alone.
 int pbm_head_cap() { return kHeadCap; }
 
 // Once, after the library is loaded: raise every kernel's dynamic shared
@@ -808,7 +877,7 @@ int pbm_batched_evict_f32(const void* key, const void* sizes, int sizes_stride,
                           void* out, int L, int P, int vmax, int n,
                           void* stream) {
   batched_evict_kernel<float>
-      <<<L, threads_for(n), 8 * (size_t)n, (cudaStream_t)stream>>>(
+      <<<L, threads_for(n), smem_for(P, n, 8), (cudaStream_t)stream>>>(
           (const float*)key, (const float*)sizes, sizes_stride,
           (const uint8_t*)evictable, (const float*)need_free, (uint8_t*)out, P,
           vmax, n);
@@ -820,7 +889,7 @@ int pbm_batched_evict_i32(const void* key, const void* sizes, int sizes_stride,
                           void* out, int L, int P, int vmax, int n,
                           void* stream) {
   batched_evict_kernel<int>
-      <<<L, threads_for(n), 8 * (size_t)n, (cudaStream_t)stream>>>(
+      <<<L, threads_for(n), smem_for(P, n, 8), (cudaStream_t)stream>>>(
           (const int*)key, (const float*)sizes, sizes_stride,
           (const uint8_t*)evictable, (const float*)need_free, (uint8_t*)out, P,
           vmax, n);

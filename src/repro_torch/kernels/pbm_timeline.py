@@ -24,8 +24,8 @@ from ._build import check_tensor as _check, raise_on as _raise_on
 from ._build import call_on as _call_on, stream_of as _stream
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-#: longest head that fifo_grant and wake_solve select and sort alone
-#: (``kHeadCap`` in ``csrc/pbm_timeline.cu``, checked when it is loaded)
+#: longest head that the three kernels select and sort alone (``kHeadCap``
+#: in ``csrc/pbm_timeline.cu``, checked when it is loaded)
 HEAD_CAP = 1024
 _LIB = None
 _MAX_DYN = {}   # device index -> dynamic shared-memory limit: evict, grant, wake
@@ -163,33 +163,54 @@ def wake_solve_kernel(key, sizes, credit0, inc, pops, *,
 
 
 def lane_paths(name: str, args, static) -> list:
-    """Per lane of one ``fifo_grant`` or ``wake_solve`` call (``args`` its
-    tensors in call order, ``static`` its keyword arguments), the path its
-    kernel takes: ``"select"`` (the m entries at the head of the queue
-    selected and sorted alone; m = 0 writes the empty answer) or
-    ``"full"`` (the whole row sorted), by the rule the kernel applies on
-    the device.  fifo_grant: m = min(vmax, P, pops, wanted pages), full
-    iff m > HEAD_CAP.  wake_solve: m = min(wanted pages, h_cap * max(pops,
-    0)), full iff m > 0 and (m > HEAD_CAP, or ``inc`` is negative or NaN,
-    or a wanted page's size is negative or not finite)."""
+    """Per lane of one ``batched_evict``, ``fifo_grant`` or ``wake_solve``
+    call (``args`` its tensors in call order, ``static`` its keyword
+    arguments), the path its kernel takes, by the rule the kernel applies
+    on the device: ``"idle"`` (nothing to do: the lane writes the empty
+    answer and selects nothing), ``"select"`` (the first m entries of the
+    service order selected and sorted alone), ``"full"`` (the whole row
+    sorted) and, for batched_evict, ``"all"`` (every page is a candidate,
+    so every page is sorted with no selection).
+
+    batched_evict: m = min(vmax, P), every page taking part; idle iff
+    need_free is not > 0 or m <= 0, else full iff m > HEAD_CAP, else all
+    iff vmax >= P.  fifo_grant: m = min(vmax, P, pops, wanted pages), idle
+    iff m <= 0, full iff m > HEAD_CAP.  wake_solve: m = min(wanted pages,
+    h_cap * max(pops, 0)), idle iff m = 0, full iff m > HEAD_CAP, or
+    ``inc`` is negative or NaN, or a wanted page's size is negative or not
+    finite."""
     key = args[0]
     L, P = key.shape
+    if name == "batched_evict":
+        vmax = int(static["vmax"])
+        m = min(vmax, P)
+        busy = (args[3] > 0) & (m > 0)
+        path = "full" if m > HEAD_CAP else "all" if vmax >= P else "select"
+        return [path if b else "idle" for b in busy.tolist()]
     wanted = key >= 0
     n_part = wanted.sum(dim=1)
     if name == "fifo_grant":
         pops = args[3].long()
         m = torch.minimum(torch.minimum(pops, n_part),
                           torch.full_like(n_part, min(int(static["vmax"]), P)))
-        full = m > HEAD_CAP
+        idle, full = m <= 0, m > HEAD_CAP
     elif name == "wake_solve":
         sizes, inc, pops = args[1], args[3], args[4]
         sizes = sizes.expand(L, P)
         m = torch.minimum(n_part, int(static["h_cap"]) * pops.long().clamp(min=0))
         bad = (wanted & ~(torch.isfinite(sizes) & (sizes >= 0))).any(dim=1)
-        full = (m > 0) & ((m > HEAD_CAP) | ~(inc >= 0) | bad)
+        idle = m == 0
+        full = (m > HEAD_CAP) | ~(inc >= 0) | bad
     else:
         raise ValueError(f"lane_paths: {name} has one path")
-    return ["full" if f else "select" for f in full.tolist()]
+    return ["idle" if i else "full" if f else "select"
+            for i, f in zip(idle.tolist(), full.tolist())]
+
+
+#: the paths each kernel's lanes can take (``lane_paths``)
+PATHS = {"batched_evict": ("idle", "select", "all", "full"),
+         "fifo_grant": ("idle", "select", "full"),
+         "wake_solve": ("idle", "select", "full")}
 
 
 batched_evict_kernel.launches = 0

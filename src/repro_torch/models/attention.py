@@ -153,7 +153,7 @@ def mha_decode(
     if ring:
         raise NotImplementedError(
             "ring-buffer caches (the 5:1 local:global pattern) are not "
-            "ported yet (ROADMAP A.7)")
+            "ported yet (ROADMAP A.10)")
     b = x.shape[0]
     dh = cfg.head_dim_
     hk = cfg.n_kv_heads

@@ -32,8 +32,14 @@ from repro_torch.kernels import cases, ops  # noqa: E402
 # the port follows the oracle
 EVICT_AT_MASK = [c for c in cases.evict_cases()
                  if c["name"].endswith("_at_mask_value")]
+# -0.0 beside +0.0: the oracle's top_k orders -0.0 below +0.0, the Pallas
+# body compares them equal and ties them by page index (as the oracle's
+# docstring says ties resolve); the port follows the Pallas body
+EVICT_SIGNED_ZEROS = [c for c in cases.evict_cases()
+                      if "signed_zeros" in c["name"]]
 EVICT = [c for c in cases.evict_cases()
-         if not c["name"].endswith("_at_mask_value")]
+         if not c["name"].endswith("_at_mask_value")
+         and "signed_zeros" not in c["name"]]
 GRANT = cases.grant_cases()
 WAKE = cases.wake_cases()
 
@@ -100,6 +106,21 @@ def test_batched_evict_key_at_the_mask_value_follows_the_oracle(case):
     np.testing.assert_array_equal(got.numpy(), want)
     vmax = case["static"]["vmax"]
     assert bool((got.sum(1) < torch.clamp(evictable.sum(1), max=vmax)).all())
+
+
+@pytest.mark.parametrize("case", EVICT_SIGNED_ZEROS,
+                         ids=[c["name"] for c in EVICT_SIGNED_ZEROS])
+def test_batched_evict_signed_zeros_tie_as_the_pallas_body_ties_them(case):
+    """-0.0 == +0.0: equal keys, ordered by page index.  The Pallas body
+    does so; the oracle's ``top_k`` puts +0.0 first, so it differs here."""
+    fields = cases.TENSOR_FIELDS["batched_evict"]
+    got = ops.batched_evict(*_torch_args(case, fields), **case["static"])
+    want, = _jax_per_lane(batched_evict_kernel, case, fields, interpret=True,
+                          **case["static"])
+    np.testing.assert_array_equal(got.numpy(), want)
+    oracle, = _jax_per_lane(jref.batched_evict_ref, case, fields,
+                            **case["static"])
+    assert (oracle != want).any()
 
 
 def test_batched_evict_i32_pair_beyond_2pow24_evicts_index_1():

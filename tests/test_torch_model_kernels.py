@@ -219,6 +219,64 @@ def test_a_cuda_tensor_never_takes_the_plain_version(kernel):
     assert ops.launch_counts()[kernel] == before
 
 
+def _scan_args(P, N, dtype, device, B=1, T=40, H=3):
+    g = torch.Generator().manual_seed(P * 1000 + N)
+    return [(0.5 * torch.randn(B, T, H, P, generator=g)).to(dtype).to(device),
+            (0.9 + 0.1 * torch.rand(B, T, H, generator=g)).to(device),
+            (0.3 * torch.randn(B, T, N, generator=g)).to(dtype).to(device),
+            (0.3 * torch.randn(B, T, N, generator=g)).to(dtype).to(device)]
+
+
+#: widths the CUDA scan refuses: narrower than 16, not a multiple of 16, or
+#: wider than MAX_P / MAX_N (the first port, a block per head, took P = N =
+#: 128)
+REFUSED_WIDTHS = [(8, 64), (24, 64), (128, 64), (128, 128), (64, 8),
+                  (64, 144)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("P,N", REFUSED_WIDTHS)
+def test_mamba2_scan_refuses_widths_its_kernels_do_not_take(P, N, dtype):
+    """Checked before the device is: a ``meta`` tensor stands in for a CUDA
+    one, and the message names the limits."""
+    args = [t.to("meta") for t in _scan_args(P, N, getattr(torch, dtype),
+                                             "cpu")]
+    before = ops.launch_counts()["mamba2_scan"]
+    with pytest.raises(ValueError, match="multiples of 16 with P <= 64 and "
+                                         "N <= 128"):
+        ops.mamba2_scan(*args)
+    assert ops.launch_counts()["mamba2_scan"] == before
+
+
+def test_mamba2_scan_width_limits_are_the_librarys():
+    """The wrapper's MAX_P / MAX_N are the CUDA source's kMaxP / kMaxN."""
+    import pathlib
+    import re
+
+    from repro_torch.kernels import mamba2_scan as m2
+    src = (pathlib.Path(m2.__file__).parent / "csrc" /
+           "mamba2_scan.cu").read_text()
+    limits = {k: int(v) for k, v in
+              re.findall(r"constexpr int (kMax[PN]) = (\d+);", src)}
+    assert limits == {"kMaxP": m2.MAX_P, "kMaxN": m2.MAX_N}
+
+
+def test_mamba2_scan_widths_within_the_limits_reach_the_device_check():
+    args = [t.to("meta") for t in _scan_args(48, 128, torch.bfloat16, "cpu")]
+    with pytest.raises(ValueError, match="expected a CUDA tensor"):
+        ops.mamba2_scan(*args)
+
+
+@pytest.mark.gpu
+def test_cuda_mamba2_scan_refuses_widths_its_kernels_do_not_take():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    for P, N in REFUSED_WIDTHS:
+        args = _scan_args(P, N, torch.bfloat16, "cuda")
+        with pytest.raises(ValueError, match="multiples of 16"):
+            ops.mamba2_scan(*args)
+
+
 @pytest.mark.gpu
 def test_cuda_kernels_equal_plain_versions_on_every_case():
     if not torch.cuda.is_available():

@@ -333,3 +333,13 @@ def test_training_is_not_ported_yet():
     tm = build_model(get_config("qwen2_1_5b", smoke=True))
     with pytest.raises(NotImplementedError, match="ROADMAP A.8"):
         tm.train_loss({}, {})
+
+
+def test_ring_cache_decode_raises_naming_its_roadmap_item():
+    """The 5:1 local:global ring cache belongs to ROADMAP A.10 (the rest of
+    the model stack), as the families that need it do."""
+    cfg = get_config("gemma3_12b", smoke=True)
+    x = torch.zeros(1, 1, cfg.d_model)
+    kv = torch.zeros(1, 4, cfg.n_kv_heads, cfg.head_dim_)
+    with pytest.raises(NotImplementedError, match=r"ROADMAP A\.10\)"):
+        A.mha_decode({}, x, kv, kv.clone(), 0, cfg, window=4, ring=True)

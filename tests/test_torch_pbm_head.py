@@ -23,7 +23,7 @@ import pytest
 import torch
 
 from repro_torch.kernels import cases, ref
-from repro_torch.kernels.pbm_timeline import HEAD_CAP, lane_paths
+from repro_torch.kernels.pbm_timeline import HEAD_CAP, PATHS, lane_paths
 
 SEEDS = range(12)
 
@@ -136,4 +136,4 @@ def test_each_queue_kernel_has_cases_on_both_paths():
     for name in ("fifo_grant", "wake_solve"):
         paths = {p for n, case in HEAD_CASES if n == name
                  for p in case["path"]}
-        assert paths == {"select", "full"}
+        assert paths == set(PATHS[name])
