@@ -23,9 +23,10 @@ One JSON object per phase, one per line:
                       builds this run made), per library the SASS count of
                       HGMMA / HMMA / UTMALDG / UBLKCP / LDGSTS:
                       flash_attention must show HGMMA and UTMALDG,
-                      paged_attention LDGSTS or UBLKCP, mamba2_scan HGMMA
-                      or HMMA, pbm_timeline no tensor-core instruction; no
-                      kernel of those three libraries, and none of
+                      paged_attention LDGSTS or UBLKCP, mamba2_scan and
+                      mlstm HGMMA or HMMA, pbm_timeline no tensor-core
+                      instruction; no kernel of those four libraries (mlstm's
+                      f32 and bf16 kernels all listed), and none of
                       batched_evict (both key types), fifo_grant and
                       wake_solve, may have a stack frame or use local memory
 3. ``kernels_fuzz``   every buffer-pool kernel against its plain version on
@@ -41,8 +42,8 @@ One JSON object per phase, one per line:
                       over each CTA's block, <= NORMWISE_TOL)
 5. ``model_fuzz``     flash attention, the Mamba2 scan and the mLSTM against
                       their plain versions on their fuzz cases, f32 and bf16
-                      (flash attention's and the Mamba2 scan's bf16 also as
-                      in 4)
+                      (their bf16 also as in 4, each block a CTA's tile:
+                      for the scans a 128-step chunk of one head)
 6. ``sim_small``      a tiny sweep on ``cuda`` and, asked for explicitly, on
                       ``cpu``: the two must agree
 7. ``serve_small``    ``TinyConfig()`` with the same weights on ``cuda`` and,
@@ -76,11 +77,11 @@ One JSON object per phase, one per line:
                       device's time and the host's time to issue one);
                       the buffer-pool kernels with the lanes of the
                       captured inputs that took each path; the Mamba2 scan
-                      with the CUDA kernels one call launches (profiler;
-                      each of its three passes once, else the phase fails);
-                      paged attention also at a deployment's batch (B = 32,
-                      1024-4096 tokens); B4's, B5's and B6's bf16 inputs held
-                      to f32 as in 4
+                      and the mLSTM with the CUDA kernels one call launches
+                      (profiler; each of their passes once, else the phase
+                      fails); paged attention also at a deployment's batch
+                      (B = 32, 1024-4096 tokens); B4's to B7's bf16 inputs
+                      held to f32 as in 4
 
 then the card's name and power limit as ``nvidia-smi`` prints them, then
 ``{"ok": true, "device": {...}}`` as the last line.  Any failed phase ends
@@ -200,16 +201,20 @@ SASS_OPS = ("HGMMA", "HMMA", "UTMALDG", "UBLKCP", "LDGSTS")
 #: what each redesigned library must show (any one of the names)
 SASS_REQUIRED = {"flash_attention": (("HGMMA",), ("UTMALDG",)),
                  "paged_attention": (("LDGSTS", "UBLKCP"),),
-                 "mamba2_scan": (("HGMMA", "HMMA"),)}
+                 "mamba2_scan": (("HGMMA", "HMMA"),),
+                 "mlstm": (("HMMA", "HGMMA"),)}
 #: what a library must not show: the buffer-pool kernels sum whole byte
 #: counts, which a tensor-core product would round
 SASS_FORBIDDEN = {"pbm_timeline": ("HGMMA", "HMMA")}
-#: redesigned kernels of other libraries held to no stack frame and no
-#: local memory (every kernel of the SASS_REQUIRED libraries is), each with
-#: the number of its instantiations that must be listed
+#: kernels that must be listed, each with the number of its instantiations:
+#: in a library outside SASS_REQUIRED the redesigned kernels, which alone
+#: are held to no stack frame and no local memory (every kernel of a
+#: SASS_REQUIRED library is); in mlstm the f32 and the bf16 path's kernels
 NO_LOCAL_KERNELS = {"pbm_timeline": {"fifo_grant_kernel": 1,
                                      "wake_solve_kernel": 1,
-                                     "batched_evict_kernel": 2}}
+                                     "batched_evict_kernel": 2},
+                    "mlstm": {"mlstm_ffma": 1, "mlstm_scores_bf16": 1,
+                              "mlstm_recur_bf16": 2}}
 
 
 def _cuobjdump(flag: str, name: str) -> str:
@@ -257,11 +262,11 @@ def resource_usage(name: str) -> list:
 
 def build_evidence_ok(usage: dict, sass: dict):
     """The redesigned kernels' libraries use the features their designs
-    rest on and none they must not, and every kernel in them (in
-    ``NO_LOCAL_KERNELS``: each kernel named there, every instantiation) is
-    listed by ``cuobjdump -res-usage`` with no stack frame and no local
-    memory (no spill, no array in local memory).  A library or a named
-    kernel that is not listed fails."""
+    rest on and none they must not, and every kernel in them (in a library
+    of ``NO_LOCAL_KERNELS`` outside ``SASS_REQUIRED``: each kernel named
+    there) is listed by ``cuobjdump -res-usage`` with no stack frame and no
+    local memory (no spill, no array in local memory).  A library or a
+    named kernel (every instantiation) that is not listed fails."""
     for lib, groups in SASS_REQUIRED.items():
         for names in groups:
             if not any(sass.get(lib, {}).get(n, 0) for n in names):
@@ -278,8 +283,9 @@ def build_evidence_ok(usage: dict, sass: dict):
             if listed < count:
                 return False, (f"{lib}: cuobjdump -res-usage lists {listed} "
                                f"of the {count} instantiations of {kernel}")
-        gated[lib] = [row for row in rows
-                      if any(k in (row["kernel"] or "") for k in kernels)]
+        if lib not in SASS_REQUIRED:
+            gated[lib] = [row for row in rows
+                          if any(k in (row["kernel"] or "") for k in kernels)]
     for lib, rows in gated.items():
         if not rows:
             return False, f"{lib}: cuobjdump -res-usage lists no kernel"
@@ -601,7 +607,7 @@ NORMWISE_TOL = 1e-2
 #: B6's chunk (a block's tile is a chunk of one head)
 NORMWISE_BLOCK_T = 128
 #: the model-stack kernels held to NORMWISE_TOL on bf16 inputs
-NORMWISE_KERNELS = ("flash_attention", "mamba2_scan")
+NORMWISE_KERNELS = ("flash_attention", "mamba2_scan", "mlstm_chunked")
 
 
 def _normwise(got, want32) -> float:
@@ -612,11 +618,12 @@ def _normwise(got, want32) -> float:
 def _normwise_max_block(got, want32) -> float:
     """The largest normwise relative error over the blocks one CTA writes:
     (batch row, 128-query tile, head) of B5's (B, T, H, dh) output, (batch
-    row, 128-step chunk, head) of B6's (B, T, H, P) one, (sequence, head)
-    rows of B4's (B, H, dh) one.  A fault confined to one block (one
-    warpgroup's rows, one head, a tile's last chunk) shows there in full,
-    where the global norm dilutes it by the square root of the block
-    count."""
+    row, 128-step chunk, head) of B6's and B7's (B, T, H, P) ones (B7's
+    CTA owns a P slice of one head over every chunk: the chunk is the finer
+    cut), (sequence, head) rows of B4's (B, H, dh) one.  A fault confined
+    to one block (one warpgroup's rows, one head, a tile's last chunk)
+    shows there in full, where the global norm dilutes it by the square
+    root of the block count."""
     import torch
     d = (got.double() - want32.double()).square()
     w = want32.double().square()
@@ -1190,9 +1197,11 @@ def _held_to_plain(name, args, static, dtype: str) -> dict:
     return {"mismatches": b, "max_abs_err": e, "rms_want": rms}
 
 
-#: the CUDA kernels one mamba2_scan call launches, each once: the SSD
-#: split's three passes (csrc/mamba2_scan.cu)
-SCAN_PASSES = ("chunk_state", "state_pass", "chunk_scan")
+#: the CUDA kernels one call launches on a bf16 input, each once: the SSD
+#: split's three passes (csrc/mamba2_scan.cu), the mLSTM's scores and
+#: recurrence (csrc/mlstm.cu)
+CUDA_PASSES = {"mamba2_scan": ("chunk_state", "state_pass", "chunk_scan"),
+               "mlstm_chunked": ("mlstm_scores", "mlstm_recur")}
 
 
 def cuda_kernels_per_call(fn, reps: int = 20) -> dict:
@@ -1226,15 +1235,17 @@ def cuda_kernels_per_call(fn, reps: int = 20) -> dict:
             if is_kernel(k)}
 
 
-def _scan_launches(kernels: dict) -> dict:
-    """``cuda_kernels_per_call``'s count for one mamba2_scan call, held to
-    the design: each of ``SCAN_PASSES`` once and nothing else."""
+def _pass_launches(name: str, kernels: dict) -> dict:
+    """``cuda_kernels_per_call``'s count for one call of ``name``'s
+    kernel, held to the design: each of ``CUDA_PASSES[name]`` once and
+    nothing else."""
+    passes = CUDA_PASSES[name]
     per_pass = {p: sum(n for k, n in kernels.items() if p in k)
-                for p in SCAN_PASSES}
+                for p in passes}
     total = sum(kernels.values())
-    if total != len(SCAN_PASSES) or any(n != 1 for n in per_pass.values()):
-        fail("kernels", f"mamba2_scan: a call launched {kernels}, expected "
-                        f"each of {SCAN_PASSES} once")
+    if total != len(passes) or any(n != 1 for n in per_pass.values()):
+        fail("kernels", f"{name}: a call launched {kernels}, expected "
+                        f"each of {passes} once")
     return {"cuda_launches_per_call": total, "cuda_kernels": kernels}
 
 
@@ -1287,8 +1298,8 @@ def model_kernel_entries(dev, calls: FirstCalls, serve: dict) -> list:
                    "bound_ms": bound, "bound_by": bound_by}
             if sdpa is not None:
                 row["library_ms"] = _time_budget_ms(sdpa, dev)
-            if name == "mamba2_scan":      # one count a call, three launches
-                row.update(_scan_launches(cuda_kernels_per_call(
+            if name in CUDA_PASSES:        # one count a call, a launch a pass
+                row.update(_pass_launches(name, cuda_kernels_per_call(
                     lambda: kernel(*args, **static))))
             rows.append(row)
             torch.cuda.empty_cache()
@@ -1314,7 +1325,7 @@ def model_kernel_entries(dev, calls: FirstCalls, serve: dict) -> list:
         })
         if name in NORMWISE_KERNELS:
             entries[-1]["normwise_tolerance"] = NORMWISE_TOL
-        if name == "mamba2_scan":
+        if name in CUDA_PASSES:
             entries[-1]["cuda_launches_per_call"] = \
                 main["cuda_launches_per_call"]
     return entries

@@ -486,7 +486,15 @@ def model_cases(seed: int = 31) -> List[Case]:
     * the Mamba2 scan's split kernel (drawn after those): 2,100 steps, so
       that the state pass crosses 17 chunks of 128 (33 of 64 in f32); the
       model's 80 heads at P = N = 64, which one block serves with one C B^T;
-      a long memory (a near 1) at N = 128; ragged P = 48, N = 32.
+      a long memory (a near 1) at N = 128; ragged P = 48, N = 32;
+    * the Mamba2 scan's heads wider than its tiles (drawn after those): P =
+      N = 128, P = 96 at N = 64 and P = 80 at N = 32, run as sub-heads of
+      64, 48 and 16;
+    * the mLSTM's tensor-core kernels (drawn last): 2,100 steps (33 chunks
+      of 64 through one block's chain), the model's gate range at K = P =
+      512 with 4 heads over more than two chunks, a ragged T with K = 37 and
+      P = 45 (no multiple of a tile, of 8 or of 2: the element-wise copies
+      and stores), B = 3 with 4 heads.
     """
     rng = np.random.default_rng(seed)
     out: List[Case] = []
@@ -563,6 +571,23 @@ def model_cases(seed: int = 31) -> List[Case]:
         add("mamba2_scan", name, xh=nrm((B, T, H, P), 0.5),
             a=rng.uniform(a_lo, 1.0, (B, T, H)).astype(np.float32),
             b=nrm((B, T, N), 0.3), c=nrm((B, T, N), 0.3))
+
+    for name, (B, T, H, P, N, a_lo) in (
+            ("sub_heads_p128_n128", (1, 300, 2, 128, 128, 0.8)),
+            ("sub_heads_p96_n64", (2, 200, 3, 96, 64, 0.7)),
+            ("sub_heads_p80_n32", (1, 250, 2, 80, 32, 0.9))):
+        add("mamba2_scan", name, xh=nrm((B, T, H, P), 0.5),
+            a=rng.uniform(a_lo, 1.0, (B, T, H)).astype(np.float32),
+            b=nrm((B, T, N), 0.3), c=nrm((B, T, N), 0.3))
+
+    for name, (B, T, H, K, P, wide) in (
+            ("chain_33_chunks", (2, 2100, 2, 64, 64, False)),
+            ("xlstm_gate_range_k512_h4", (1, 200, 4, 512, 512, True)),
+            ("ragged_k37_p45", (2, 157, 3, 37, 45, False)),
+            ("batch3_h4", (3, 300, 4, 64, 96, True))):
+        a, i = gates(B, T, H, wide)
+        add("mlstm_chunked", name, q=nrm((B, T, H, K), 1.0),
+            k=nrm((B, T, H, K), 0.3), v=nrm((B, T, H, P), 1.0), a=a, i=i)
     return out
 
 

@@ -1,17 +1,25 @@
 // Device helpers shared by the attention and model-stack kernels
-// (paged_attention.cu, flash_attention.cu, mamba2_scan.cu, mlstm.cu), in an
-// anonymous namespace of each source that includes it.  _build.library_path hashes this header with the source, so
-// an edit here rebuilds every library.
+// (paged_attention.cu, flash_attention.cu, mamba2_scan.cu, mlstm.cu, and
+// through them hopper.cuh and mma.cuh), in an anonymous namespace of each
+// source that includes it.  _build.library_path hashes this header with the
+// source, so an edit here rebuilds every library.
 
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
+
+// The shared-window address of a pointer into shared memory, as PTX's
+// shared-state-space operands take it.
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {

@@ -24,11 +24,9 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-namespace {
+#include "common.cuh"   // smem_u32
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
+namespace {
 
 // ---------------------------------------------------------- mbarriers ----
 

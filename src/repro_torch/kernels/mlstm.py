@@ -1,16 +1,23 @@
-"""Wrapper of the Hopper chunkwise mLSTM kernel (``csrc/mlstm.cu``).
+"""Wrapper of the Hopper chunkwise mLSTM kernels (``csrc/mlstm.cu``).
 
 Counterpart of the JAX package's ``repro.kernels.mlstm``
 (``mlstm_chunked_kernel``, oracle ``gla_ref``): gated linear attention with
 a matrix memory ``C (K, P)`` and normaliser ``n (K)`` carried in f32 over
-chunks.  ``P`` is split over thread blocks (32 columns each), so that a
-block's slice of ``C`` fits in shared memory at K = 512.  The wrapper
-checks device, dtype, shape, contiguity and the kernel's shared-memory
-need, allocates the output with ``torch.empty``, launches on PyTorch's
-current stream without synchronising, raises when the launch is refused,
-and adds one to ``mlstm_chunked_kernel.launches`` where it launches —
-nowhere else.  The plain PyTorch version that defines the semantics is
-:func:`repro_torch.kernels.ref.mlstm_chunked_ref`;
+chunks of 64 steps.  bf16 (the model's path) runs in two launches with its
+products on the tensor cores: the gated scores W = (Q K^T) o L o i of every
+chunk at once, into a work buffer that the wrapper allocates with
+``torch.empty`` (a record of ``mlstm_record_bytes()`` per (batch, chunk,
+head): 11.3 MB at xLSTM-350M's 4 x 4,096 tokens), then the recurrence, a
+block per (P slice, head, batch row) walking its chunks with its slice of C
+in shared memory.  f32 runs one FFMA launch.  The kernels take K <= 1024
+(``MAX_K``) and any P; the wrapper refuses a wider K before it looks at the
+device.  The wrapper checks device, dtype, shape, contiguity, alignment and
+the kernels' shared-memory need, allocates the output, launches on
+PyTorch's current stream without synchronising, raises when a launch is
+refused, and adds one to ``mlstm_chunked_kernel.launches`` per call —
+nowhere else — however many CUDA launches the call makes (two in bf16:
+``chip_smoke.py`` counts them).  The plain PyTorch version that defines the
+semantics is :func:`repro_torch.kernels.ref.mlstm_chunked_ref`;
 :mod:`repro_torch.kernels.ops` picks between the two by the tensor's
 device.
 """
@@ -22,39 +29,40 @@ import ctypes
 import torch
 
 from . import _build
-from ._build import (call_on, check_same_device, check_tensor, raise_on,
-                     stream_of)
+from ._build import (call_on, check_aligned, check_same_device, check_tensor,
+                     raise_on, stream_of)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ENTRY = {torch.float32: "mlstm_f32", torch.bfloat16: "mlstm_bf16"}
-_ARGS = [_P] * 6 + [_I] * 5 + [ctypes.c_float, _P]
-CHUNK, P_TILE, K_TILE = 64, 32, 32
+_ARGS = [_P] * 6 + [_I] * 5 + [ctypes.c_float, _P, _I, _P]
+#: the widest K the kernels take (kMaxK)
+MAX_K = 1024
+#: the columns of P a bf16 recurrence block owns, widest first: the first
+#: whose shared memory fits the device is taken
+P_SLICES = (64, 32)
 
 
 def library(device):
     """``(library, dynamic shared-memory limit)`` on the CUDA ``device``:
-    built and loaded at first use."""
+    built and loaded at first use.  ``library.mlstm_chunk()`` is the chunk
+    length, ``mlstm_record_bytes()`` a work record's size and
+    ``mlstm_smem_bytes(bf16, K, p_slice)`` a block's shared memory (-1 for
+    a shape the kernels do not take)."""
     return _build.bind("mlstm", _ENTRY.values(), _ARGS, device)
-
-
-def smem_bytes(K: int) -> int:
-    """Dynamic shared memory of one block, f32: the state slice (K x 32)
-    and normaliser (K), the q and k tiles (64 x 33 each), v (64 x 32), the
-    gated scores (64 x 65) and five per-step rows."""
-    Q = CHUNK
-    return 4 * (K * P_TILE + K + 2 * Q * (K_TILE + 1) + Q * P_TILE
-                + Q * (Q + 1) + 5 * Q)
 
 
 def mlstm_chunked_kernel(q, k, v, a, i) -> torch.Tensor:
     """``y`` ``(B, T, H, P)`` in ``v.dtype``: ``q``/``k`` ``(B, T, H, K)``
     and ``v`` ``(B, T, H, P)`` f32 or bf16 (one dtype), ``a``/``i``
-    ``(B, T, H)`` f32."""
+    ``(B, T, H)`` f32; K <= 1024."""
     if q.dim() != 4 or v.dim() != 4:
         raise ValueError("expected q, k (B, T, H, K), v (B, T, H, P), "
                          "a and i (B, T, H)")
     B, T, H, K = q.shape
     P = v.shape[-1]
+    if K > MAX_K:
+        raise ValueError(f"mlstm: K={K}; the kernels take K <= {MAX_K} "
+                         f"and any P")
     if v.dtype not in _ENTRY:
         raise TypeError(f"v: expected float32 or bfloat16, got {v.dtype}")
     check_tensor(q, "q", v.dtype, (B, T, H, K))
@@ -63,16 +71,27 @@ def mlstm_chunked_kernel(q, k, v, a, i) -> torch.Tensor:
     check_tensor(a, "a", torch.float32, (B, T, H))
     check_tensor(i, "i", torch.float32, (B, T, H))
     check_same_device(q, k, v, a, i)
+    for t, name in ((q, "q"), (k, "k"), (v, "v")):     # 16-byte copies
+        check_aligned(t, name)
     if min(B, T, H, K, P) < 1:
         raise ValueError("every dimension must be at least 1")
     lib, max_dyn = library(v.device)
-    if smem_bytes(K) > max_dyn:
-        raise ValueError(f"mlstm: {smem_bytes(K)} bytes of shared memory per "
-                         f"block (K={K}), the device allows {max_dyn}")
+    bf16 = int(v.dtype == torch.bfloat16)
+    need = {pt: lib.mlstm_smem_bytes(bf16, K, pt) for pt in P_SLICES}
+    pt = next((pt for pt in P_SLICES if 0 <= need[pt] <= max_dyn), None)
+    if pt is None:
+        raise ValueError(f"mlstm: {need} bytes of shared memory per block by "
+                         f"P slice (K={K}), the device allows {max_dyn}")
     y = torch.empty_like(v)
+    work = None
+    if bf16:            # the scores' records (B, nc, H), 16-byte aligned
+        nc = -(-T // lib.mlstm_chunk())
+        work = torch.empty(B * nc * H * lib.mlstm_record_bytes(),
+                           dtype=torch.uint8, device=v.device)
     err = call_on(v, getattr(lib, _ENTRY[v.dtype]),
                   q.data_ptr(), k.data_ptr(), v.data_ptr(), a.data_ptr(),
                   i.data_ptr(), y.data_ptr(), B, T, H, K, P, K ** -0.5,
+                  None if work is None else work.data_ptr(), pt,
                   stream_of(v))
     raise_on(err, "mlstm launch")
     mlstm_chunked_kernel.launches += 1

@@ -228,9 +228,8 @@ def _scan_args(P, N, dtype, device, B=1, T=40, H=3):
 
 
 #: widths the CUDA scan refuses: narrower than 16, not a multiple of 16, or
-#: wider than MAX_P / MAX_N (the first port, a block per head, took P = N =
-#: 128)
-REFUSED_WIDTHS = [(8, 64), (24, 64), (128, 64), (128, 128), (64, 8),
+#: a state wider than MAX_N (a head wider than MAX_P runs as sub-heads)
+REFUSED_WIDTHS = [(8, 64), (24, 64), (40, 64), (64, 256), (64, 8),
                   (64, 144)]
 
 
@@ -242,8 +241,9 @@ def test_mamba2_scan_refuses_widths_its_kernels_do_not_take(P, N, dtype):
     args = [t.to("meta") for t in _scan_args(P, N, getattr(torch, dtype),
                                              "cpu")]
     before = ops.launch_counts()["mamba2_scan"]
-    with pytest.raises(ValueError, match="multiples of 16 with P <= 64 and "
-                                         "N <= 128"):
+    with pytest.raises(ValueError, match=r"multiples of 16 with N <= 128 "
+                                         r"\(P > 64 as sub-heads of at "
+                                         r"most 64\)"):
         ops.mamba2_scan(*args)
     assert ops.launch_counts()["mamba2_scan"] == before
 
@@ -265,6 +265,92 @@ def test_mamba2_scan_widths_within_the_limits_reach_the_device_check():
     args = [t.to("meta") for t in _scan_args(48, 128, torch.bfloat16, "cpu")]
     with pytest.raises(ValueError, match="expected a CUDA tensor"):
         ops.mamba2_scan(*args)
+
+
+@pytest.mark.parametrize("P,N", [(128, 128), (96, 64), (80, 32), (256, 16)])
+def test_mamba2_scan_wide_heads_reach_the_device_check(P, N):
+    """Heads wider than the tiles are taken (as sub-heads): the widths the
+    first port took, P = N = 128 among them."""
+    args = [t.to("meta") for t in _scan_args(P, N, torch.bfloat16, "cpu")]
+    with pytest.raises(ValueError, match="expected a CUDA tensor"):
+        ops.mamba2_scan(*args)
+
+
+@pytest.mark.parametrize("P,d", [(16, 16), (64, 64), (80, 16), (96, 48),
+                                 (128, 64), (144, 48), (192, 64)])
+def test_mamba2_scan_sub_heads_are_the_widest_tile_that_divides(P, d):
+    from repro_torch.kernels import mamba2_scan as m2
+    assert m2.sub_heads(P) == (d, P // d)
+    assert d <= m2.MAX_P and d % 16 == 0 and P % d == 0
+
+
+def _sub_head_run(P, N):
+    """The plain version on (B, T, H, P) and on its view as H P / d heads
+    of width d with the decay repeated, as the wrapper launches it."""
+    from repro_torch.kernels import mamba2_scan as m2
+    xh, a, b, c = _scan_args(P, N, torch.float32, "cpu", B=2, T=150, H=3)
+    B, T, H, _ = xh.shape
+    d, n = m2.sub_heads(P)
+    split = ref.mamba2_scan_ref(xh.view(B, T, H * n, d),
+                                a.repeat_interleave(n, -1), b, c)
+    return (xh, a, b, c), ref.mamba2_scan_ref(xh, a, b, c), \
+        split.reshape(B, T, H, P)
+
+
+@pytest.mark.parametrize("P,N", [(128, 128), (96, 64), (80, 32)])
+def test_mamba2_scan_sub_heads_equal_the_whole_head(P, N):
+    _, whole, split = _sub_head_run(P, N)
+    torch.testing.assert_close(split, whole, atol=1e-5, rtol=1e-5)
+
+
+@needs_jax
+@pytest.mark.parametrize("P,N", [(128, 128), (96, 64), (80, 32)])
+def test_mamba2_scan_sub_heads_equal_the_jax_oracle(P, N):
+    args, _, split = _sub_head_run(P, N)
+    want = jref.mamba2_scan_ref(*(jnp.asarray(t.numpy()) for t in args))[0]
+    np.testing.assert_allclose(split.numpy(), np.asarray(want), atol=2e-3,
+                               rtol=2e-3)
+
+
+def _mlstm_args(K, P, dtype=torch.bfloat16, B=1, T=70, H=2):
+    g = torch.Generator().manual_seed(K * 1000 + P)
+    return [torch.randn(B, T, H, K, generator=g).to(dtype),
+            (0.3 * torch.randn(B, T, H, K, generator=g)).to(dtype),
+            torch.randn(B, T, H, P, generator=g).to(dtype),
+            0.7 + 0.3 * torch.rand(B, T, H, generator=g),
+            0.1 + 0.9 * torch.rand(B, T, H, generator=g)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("K", [1025, 2048])
+def test_mlstm_refuses_widths_its_kernels_do_not_take(K, dtype):
+    """K > MAX_K is refused before the device is looked at (a ``meta``
+    tensor stands in for a CUDA one), with the limits in the message."""
+    args = [t.to("meta") for t in _mlstm_args(K, 64, getattr(torch, dtype))]
+    before = ops.launch_counts()["mlstm_chunked"]
+    with pytest.raises(ValueError, match="K <= 1024 and any P"):
+        ops.mlstm_chunked(*args)
+    assert ops.launch_counts()["mlstm_chunked"] == before
+
+
+@pytest.mark.parametrize("K,P", [(1024, 1024), (512, 512), (72, 80),
+                                 (37, 45), (1, 1), (1024, 3000)])
+def test_mlstm_widths_the_first_port_took_reach_the_device_check(K, P):
+    args = [t.to("meta") for t in _mlstm_args(K, P)]
+    with pytest.raises(ValueError, match="expected a CUDA tensor"):
+        ops.mlstm_chunked(*args)
+
+
+def test_mlstm_width_limit_is_the_librarys():
+    """The wrapper's MAX_K is the CUDA source's kMaxK."""
+    import pathlib
+    import re
+
+    from repro_torch.kernels import mlstm
+    src = (pathlib.Path(mlstm.__file__).parent / "csrc" /
+           "mlstm.cu").read_text()
+    assert re.findall(r"constexpr int kMaxK = (\d+);", src) == [
+        str(mlstm.MAX_K)]
 
 
 @pytest.mark.gpu
