@@ -4,7 +4,9 @@
     python3 chip_smoke.py
 
 Drives the port's three paths end to end on the card — the batched
-buffer-pool simulator (LRU / PBM / OPT lanes, event-horizon stepper), the
+buffer-pool simulator (LRU / PBM / OPT / array-CScan lanes in one call,
+the event-horizon and the fixed-dt stepper, held to the port's event
+engine inside the JAX package's error bars), the
 paged-KV serving path (page pool, policy driver, continuous-batching
 engine, ``PagedTinyLM`` decoding through paged attention) and the model
 stack's serving path (dense LM, Mamba2 hybrid and xLSTM at full width
@@ -44,8 +46,9 @@ One JSON object per phase, one per line:
                       their plain versions on their fuzz cases, f32 and bf16
                       (their bf16 also as in 4, each block a CTA's tile:
                       for the scans a 128-step chunk of one head)
-6. ``sim_small``      a tiny sweep on ``cuda`` and, asked for explicitly, on
-                      ``cpu``: the two must agree
+6. ``sim_small``      a tiny sweep of the four policies on ``cuda`` and,
+                      asked for explicitly, on ``cpu``, under both
+                      steppers: the two must agree
 7. ``serve_small``    ``TinyConfig()`` with the same weights on ``cuda`` and,
                       asked for explicitly, on ``cpu``, at the serving
                       benchmark's default point under all four policies:
@@ -56,27 +59,38 @@ One JSON object per phase, one per line:
                       weights from seed 0): prefill of 4 x 4,096 tokens (and
                       1 x 32,768 for the attention families), 32 decode steps
                       at B = 8; then decode-vs-prefill in f32 on 16 tokens
-9. ``sim_calibrated`` micro workload, scale 0.25, 18 lanes = {lru, pbm, opt} x
-                      buffer fractions {0.1 .. 1.0}, to completion
-10. ``serve_full``    ``PagedTinyLM`` at Qwen2-1.5B's attention widths and
+9. ``sim_calibrated`` micro workload, scale 0.25, 24 lanes = {lru, pbm, opt,
+                      cscan} x buffer fractions {0.1 .. 1.0}, horizon
+                      stepper, to completion; its 12 lanes at 0.1 / 0.2 /
+                      0.4 held to the port's event engine (run on the
+                      host in worker processes meanwhile) within
+                      ``validate.ERROR_BARS``
+10. ``sim_fixed``     the fixed-dt stepper on the card at the same scale: the
+                      lanes of those 12 that fit its time budget (cscan at
+                      0.2 and 0.4 always), held to the same event runs
+                      within the same bars; the line names the lanes left
+                      out and why
+11. ``serve_full``    ``PagedTinyLM`` at Qwen2-1.5B's attention widths and
                       depth (28 layers, d 1536, 12 query / 2 KV heads of 128,
                       vocabulary 151,936; random weights from a seed) at the
                       default point under ``pbm``, to completion
-11. ``sim_full``      the same sweep at scale 1.0 (the paper's size: 180 M
+12. ``sim_full``      the same sweep at scale 1.0 (the paper's size: 180 M
                       tuples, P = 3072); to completion if the time limit
                       allows, else cut at a stated ``max_slices`` and
                       reported as truncated
-12. ``tpch_probe``    a few slices of the TPC-H workload (P = 8832), only to
+13. ``tpch_probe``    a few slices of the TPC-H workload (P = 8832), only to
                       give the kernels that shape with real keys and sizes
-13. ``kernels``       every kernel against its plain version on inputs
-                      captured from phases 8-12, and its time per call
+14. ``kernels``       every kernel against its plain version on inputs
+                      captured from phases 8-13, and its time per call
                       (``ms``: CUDA events around one call, median of up to
                       30) beside the plain version's, a PyTorch yardstick
                       and its bound; also ``device_ms`` and ``host_ms``
                       (``_queued_ms``: launches queued behind a sleep, the
                       device's time and the host's time to issue one);
                       the buffer-pool kernels with the lanes of the
-                      captured inputs that took each path; the Mamba2 scan
+                      captured inputs that took each path, by policy, and
+                      the cooperative (cscan) lanes' rows also held to
+                      the plain version on their own; the Mamba2 scan
                       and the mLSTM with the CUDA kernels one call launches
                       (profiler; each of their passes once, else the phase
                       fails); paged attention also at a deployment's batch
@@ -154,7 +168,7 @@ MODEL_DECODE = dict(batch=8, steps=32, cache=4096)
 DECODE_PREFILL_TOKENS, DECODE_PREFILL_TOL = 16, 2e-2
 BF16_OPS_PER_S = 989e12        # H100 SXM dense bf16 tensor-core rate
 SIM_KERNELS = ("batched_evict", "fifo_grant", "wake_solve")
-POLICIES = ("lru", "pbm", "opt")
+POLICIES = ("lru", "pbm", "opt", "cscan")
 SERVING_POLICIES = ("lru", "cscan", "pbm", "opt")
 #: benchmarks/serving_bench.py DEFAULT_POINT (copied: that module imports the
 #: JAX package): the pool holds ~60 % of peak demand, half the requests share
@@ -172,6 +186,17 @@ QWEN2_1_5B_WIDTHS = dict(
     head_dim=128, page_size=16, n_pages=28,
 )
 FRACS = (0.1, 0.2, 0.4, 0.6, 0.8, 1.0)
+#: the policy of each lane of every recorded sweep (``sweep_configs``)
+LANE_POLICIES = tuple(p for p in POLICIES for _f in FRACS)
+#: the buffer points held to the event engine (validate.DEFAULT_FRACS)
+VALIDATED_FRACS = (0.1, 0.2, 0.4)
+#: sim_fixed: lanes that always run, and the card time it aims at
+FIXED_MUST = (("cscan", 0.2), ("cscan", 0.4))
+FIXED_BUDGET_S = 60.0
+#: worker processes for the event engine's reference runs (host, pure
+#: Python, while the card runs the sweep)
+EVENT_WORKERS = 4
+CALIBRATED_SCALE = 0.25
 T0 = time.time()
 
 
@@ -342,6 +367,29 @@ def path_counts(name, inputs) -> dict:
     return counts
 
 
+def path_counts_by_policy(name, inputs) -> dict:
+    """``path_counts`` split by the policy of each lane: every recorded
+    sweep has the lanes of ``sweep_configs`` (``LANE_POLICIES``)."""
+    from repro_torch.kernels.pbm_timeline import PATHS, lane_paths
+    counts = {p: {f"{path}_lanes": 0 for path in PATHS[name]}
+              for p in POLICIES}
+    for args, static in inputs:
+        if args[0].shape[0] != len(LANE_POLICIES):
+            raise ValueError(f"{name}: a captured input has "
+                             f"{args[0].shape[0]} lanes, not a sweep's "
+                             f"{len(LANE_POLICIES)}")
+        for pol, path in zip(LANE_POLICIES, lane_paths(name, args, static)):
+            counts[pol][f"{path}_lanes"] += 1
+    return counts
+
+
+def lanes_of(args, lanes):
+    """A captured input cut to ``lanes``: every tensor but the shared
+    ``(P,)`` size row (the second argument of each buffer-pool kernel)."""
+    return [a if i == 1 and a.dim() == 1 else a[lanes]
+            for i, a in enumerate(args)]
+
+
 def phase_kernels_fuzz(dev) -> None:
     from repro_torch.kernels import cases
     fns = kernel_fns()
@@ -380,13 +428,19 @@ class Recorder:
     captured.  Every ``STRIDE``-th call is cloned, keyed by the kernel and
     its second input dimension (the page count of a simulator kernel);
     ``seconds`` is the host time that took, which the run's wall time
-    includes."""
+    includes.  With ``focus`` (lane indices of a sweep), a sampled call in
+    which one of those lanes has work (``pbm_timeline.lane_paths``: not
+    idle) is also kept in ``busy``: a sweep's cooperative lanes finish
+    long before its slowest lane, and a sample spread over the whole run
+    finds them idle."""
 
     STRIDE, CAP = 97, 12
 
-    def __init__(self, names=SIM_KERNELS):
+    def __init__(self, names=SIM_KERNELS, focus=None):
         self.names = tuple(names)
         self.samples = {}      # (kernel, dim) -> [(args, static), ...]
+        self.busy = {}         # the same, the focus lanes at work
+        self.focus = focus
         self._calls = {}
         self.seconds = 0.0
 
@@ -407,13 +461,24 @@ class Recorder:
             i = self._calls[name] = self._calls.get(name, 0) + 1
             if i % self.STRIDE == 0:
                 t0 = time.perf_counter()
-                got = self.samples.setdefault((name, args[0].shape[1]), [])
-                if len(got) >= self.CAP:    # keep the run covered: thin out
-                    del got[::2]
-                got.append(([a.clone() for a in args], dict(static)))
+                key = (name, args[0].shape[1])
+                sample = ([a.clone() for a in args], dict(static))
+                self._keep(self.samples.setdefault(key, []), sample)
+                if self.focus is not None and self._focus_busy(name, sample):
+                    self._keep(self.busy.setdefault(key, []), sample)
                 self.seconds += time.perf_counter() - t0
             return fn(*args, **static)
         return wrapped
+
+    def _keep(self, got, sample):
+        if len(got) >= self.CAP:    # keep the run covered: thin out
+            del got[::2]
+        got.append(sample)
+
+    def _focus_busy(self, name, sample) -> bool:
+        from repro_torch.kernels.pbm_timeline import lane_paths
+        paths = lane_paths(name, *sample)
+        return any(paths[i] != "idle" for i in self.focus)
 
 
 def _work(name, args) -> int:
@@ -503,11 +568,12 @@ def _bound_ms(name, args, outs):
 
 
 def sim_kernel_entries(dev, recorder: Recorder, launches: dict,
-                       main_p: int) -> list:
+                       main_p: int, by_phase: dict) -> list:
     """Buffer-pool kernels against their plain versions on the captured
     simulator inputs, and the timings.  ``main_p`` is the page count of the
-    main path whose numbers go into the top-level keys of each kernel's
-    entry."""
+    main path (``launches``: its counts) whose numbers go into the
+    top-level keys of each kernel's entry; ``by_phase`` holds every
+    simulator phase's counts."""
     import torch
     fns = kernel_fns()
     entries = []
@@ -542,6 +608,7 @@ def sim_kernel_entries(dev, recorder: Recorder, launches: dict,
         entry = {
             "name": name, "route": "cuda", "source": SOURCE[name],
             "replaces": REPLACES[name], "launches": launches[name],
+            "launches_by_phase": {ph: c[name] for ph, c in by_phase.items()},
             "max_abs_err": err, "mismatches": bad, "inputs_compared": n_inputs,
             "ms": main["ms"], "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
@@ -550,9 +617,32 @@ def sim_kernel_entries(dev, recorder: Recorder, launches: dict,
             "library_device_ms": main["library_device_ms"],
             "shapes": list(by_p.values()),
         }
-        entry.update(path_counts(name, [    # every captured input, every P
-            s for (kname, _), samples in recorder.samples.items()
-            if kname == name for s in samples]))
+        busy = [s for (kname, _), samples in recorder.busy.items()
+                if kname == name for s in samples]
+        for args, static in busy:     # the cooperative lanes at work
+            b, e = _compare(kernel(*args, **static), plain(*args, **static))
+            bad, err = bad + b, max(err, e)
+        entry["inputs_compared"] += len(busy)
+        entry["max_abs_err"] = err
+        captured = [s for (kname, _), samples in recorder.samples.items()
+                    if kname == name for s in samples] + busy
+        entry["cscan_busy_inputs"] = len(busy)
+        entry.update(path_counts(name, captured))   # every input, every P
+        entry["lanes_by_policy"] = path_counts_by_policy(name, captured)
+        # the cooperative lanes' rows alone: array-CScan's keys (interest
+        # counts, heavily tied), its chunk queue and its Keep < Load mask
+        coop = [i for i, p in enumerate(LANE_POLICIES) if p == "cscan"]
+        lanes = torch.tensor(coop, device=dev)
+        cb, ce = 0, 0.0
+        for args, static in captured:
+            sub = lanes_of(args, lanes)
+            b, e = _compare(kernel(*sub, **static), plain(*sub, **static))
+            cb, ce = cb + b, max(ce, e)
+        entry["cscan_lanes"] = {"lanes": len(coop),
+                                "inputs_compared": len(captured),
+                                "mismatches": cb, "max_abs_err": ce}
+        bad += cb
+        entry["mismatches"] = bad
         if name == "batched_evict":
             # the integer-key instantiation: the simulator's policies all
             # give f32 scores, so it is timed on the main path's input with
@@ -1628,9 +1718,10 @@ def micro_workload(scale: float, n_streams: int, queries: int, seed: int = 3):
     return compile_workload(db, streams), micro_accessed_bytes(db)
 
 
-def sweep_configs(spec, ws, fracs, dev, bandwidth=700e6):
+def sweep_configs(spec, ws, fracs, dev, bandwidth=700e6, lanes=None):
     from repro_torch.core.array_sim import make_config, stack_configs
-    lanes = [(p, f) for p in POLICIES for f in fracs]
+    if lanes is None:
+        lanes = [(p, f) for p in POLICIES for f in fracs]
     cfgs = stack_configs([
         make_config(spec, int(f * ws), bandwidth, p, device=dev)
         for p, f in lanes])
@@ -1650,7 +1741,8 @@ def lane_rows(lanes, results):
 
 def run_sweep_counted(spec, cfgs, dev, **runner_kw):
     """One stacked call through the port's entry points, with the kernels'
-    launch counts set to 0 just before and read just after."""
+    launch counts set to 0 just before and read just after.  The caller
+    names the stepper."""
     from repro_torch.core.array_sim import make_runner, run_sweep
     from repro_torch.kernels import ops
     runner = make_runner(spec, policies=POLICIES, device=dev, **runner_kw)
@@ -1668,39 +1760,106 @@ def phase_sim_small(dev) -> None:
     import torch
     scale, fracs = 0.03, (0.2, 0.4, 0.8)
     spec, ws = micro_workload(scale, 3, 3)
-    kw = dict(time_slice=0.1 * scale)
     lanes, cfgs = sweep_configs(spec, ws, fracs, dev)
-    on_dev, wall, launches, steps, _ = run_sweep_counted(spec, cfgs, dev, **kw)
     cpu = torch.device("cpu")   # asked for explicitly: a comparison
     _, cfgs_cpu = sweep_configs(spec, ws, fracs, cpu)
-    on_cpu, _, _, _, _ = run_sweep_counted(spec, cfgs_cpu, cpu, **kw)
-    rows, ok, all_equal = [], True, True
-    for (p, f), a, b in zip(lanes, on_dev, on_cpu):
-        tol = 0.12 if f < 0.4 else 0.05
-        rel = {
-            "avg_stream_time": a.avg_stream_time / b.avg_stream_time - 1.0,
-            "total_io_bytes": a.total_io_bytes / b.total_io_bytes - 1.0,
-            "total_loads": a.total_loads / b.total_loads - 1.0,
-        }
-        equal = all(v == 0.0 for v in rel.values()) and a.steps == b.steps
-        all_equal &= equal
-        lane_ok = (not a.extras["truncated"] and not b.extras["truncated"]
-                   and all(abs(v) <= tol for v in rel.values()))
-        ok &= lane_ok
-        rows.append({"policy": p, "frac": f, "tolerance": tol, "rel": rel,
-                     "equal": equal, "ok": lane_ok})
-    emit({"phase": "sim_small", "P": spec.n_pages, "lanes": rows,
-          "device_equals_cpu": all_equal, "wall_s": wall,
-          "batched_steps": steps, "launches": launches, "ok": ok})
-    if not ok:
+    out = {"phase": "sim_small", "P": spec.n_pages, "ok": True}
+    for stepper in ("fixed", "horizon"):
+        kw = dict(time_slice=0.1 * scale, stepper=stepper)
+        on_dev, wall, launches, steps, _ = run_sweep_counted(
+            spec, cfgs, dev, **kw)
+        on_cpu, _, _, _, _ = run_sweep_counted(spec, cfgs_cpu, cpu, **kw)
+        rows, ok, all_equal = [], True, True
+        for (p, f), a, b in zip(lanes, on_dev, on_cpu):
+            tol = 0.12 if f < 0.4 else 0.05
+            rel = {
+                "avg_stream_time": a.avg_stream_time / b.avg_stream_time - 1.0,
+                "total_io_bytes": a.total_io_bytes / b.total_io_bytes - 1.0,
+                "total_loads": a.total_loads / b.total_loads - 1.0,
+            }
+            equal = all(v == 0.0 for v in rel.values()) and a.steps == b.steps
+            all_equal &= equal
+            lane_ok = (not a.extras["truncated"] and not b.extras["truncated"]
+                       and all(abs(v) <= tol for v in rel.values()))
+            ok &= lane_ok
+            rows.append({"policy": p, "frac": f, "tolerance": tol,
+                         "rel": rel, "equal": equal, "ok": lane_ok})
+        out[stepper] = {"lanes": rows, "device_equals_cpu": all_equal,
+                        "wall_s": wall, "batched_steps": steps,
+                        "launches": launches, "ok": ok}
+        out["ok"] &= ok
+    emit(out)
+    if not out["ok"]:
         fail("sim_small", "the card and the CPU disagree beyond tolerance")
 
 
+class EventRuns:
+    """The event engine's reference runs of the calibrated micro workload
+    at the validated points (``VALIDATED_FRACS`` x ``POLICIES``), on the
+    host in ``EVENT_WORKERS`` worker processes, started before the card's
+    sweep so that they run beside it.  ``results()`` waits for them;
+    ``close()`` stops the workers."""
+
+    def __init__(self, scale: float):
+        import multiprocessing
+        from concurrent.futures import ProcessPoolExecutor
+        self.t0 = time.time()
+        self.pool = ProcessPoolExecutor(
+            EVENT_WORKERS, mp_context=multiprocessing.get_context("spawn"))
+        self.futures = {
+            (p, f): self.pool.submit(event_point, scale, p, f)
+            for f in VALIDATED_FRACS for p in POLICIES}
+        self._results = None
+
+    def results(self) -> dict:
+        if self._results is None:
+            self._results = {k: f.result() for k, f in self.futures.items()}
+            self.seconds = time.time() - self.t0
+            self.close()
+        return self._results
+
+    def close(self) -> None:
+        self.pool.shutdown(wait=True, cancel_futures=True)
+
+
+def event_point(scale: float, policy: str, frac: float):
+    """One reference point on the host: ``(EngineResult, wall seconds)``
+    of the port's event engine, at the lane's own capacity."""
+    from repro_torch.core.array_sim.validate import event_run
+    from repro_torch.core.workload import (
+        make_lineitem_db, micro_accessed_bytes, micro_streams)
+    db = make_lineitem_db(scale_tuples=int(180_000_000 * scale))
+    streams = micro_streams(db, n_streams=8, queries_per_stream=16, seed=3)
+    cap = int(frac * micro_accessed_bytes(db))
+    return event_run(db, streams, policy, cap, 700e6, 0.1 * scale, 2.0)
+
+
+def held_to_events(lanes, results, events: dict, stepper: str) -> list:
+    """Rows of ``validate.compare_row`` for the lanes at a validated
+    point, each with its bar and verdict."""
+    from repro_torch.core.array_sim import validate
+    rows = []
+    for (p, f), ar in zip(lanes, results):
+        if (p, f) not in events:
+            continue
+        ev, ev_wall = events[(p, f)]
+        row = validate.compare_row("micro", p, stepper, f, ev, ev_wall, ar)
+        row["bar"] = validate.bar_of(row)
+        row["ok"] = bool(not row["truncated"]
+                         and validate.worst_error(row) <= row["bar"])
+        rows.append(row)
+    return rows
+
+
 def phase_sim_micro(phase: str, scale: float, dev, recorder: Recorder,
-                    max_slices=None):
+                    max_slices=None, events=None):
+    """The micro sweep at ``scale`` with the horizon stepper, recorded for
+    the kernels phase; with ``events`` (an :class:`EventRuns` of the same
+    scale) its lanes at the validated points are held to the event
+    engine within ``validate.ERROR_BARS``."""
     spec, ws = micro_workload(scale, n_streams=8, queries=16)
     lanes, cfgs = sweep_configs(spec, ws, FRACS, dev)
-    kw = dict(time_slice=0.1 * scale, bandwidth_ref=700e6)
+    kw = dict(time_slice=0.1 * scale, bandwidth_ref=700e6, stepper="horizon")
     if max_slices is not None:
         kw["max_slices"] = max_slices
     captured = recorder.seconds
@@ -1724,10 +1883,77 @@ def phase_sim_micro(phase: str, scale: float, dev, recorder: Recorder,
     out["ok"] = all(v > 0 for v in launches.values())
     if max_slices is None:
         out["ok"] = out["ok"] and not truncated
+    if events is not None:
+        t0 = time.time()
+        held = held_to_events(lanes, results, events.results(), "horizon")
+        out["event_engine"] = {
+            "rows": held, "wait_s": time.time() - t0,
+            "pool_s": events.seconds, "workers": EVENT_WORKERS,
+            "wall_s_each": {f"{r['policy']}@{r['buffer_frac']}":
+                            r["event_wall_s"] for r in held},
+            "host_s": sum(r["event_wall_s"] for r in held)}
+        out["within_error_bars"] = all(r["ok"] for r in held)
+        out["ok"] = out["ok"] and out["within_error_bars"] and \
+            len(held) == len(VALIDATED_FRACS) * len(POLICIES)
     emit(out)
     if not out["ok"]:
-        fail(phase, "a lane ended truncated or a kernel was never launched")
+        fail(phase, "a lane ended truncated, a kernel was never launched, "
+                    "or a lane is outside its bar of the event engine")
     return out
+
+
+def phase_sim_fixed(dev, events: "EventRuns", ms_per_step: float) -> dict:
+    """The fixed-dt stepper on the card at the calibrated scale, held to
+    the event engine within the same bars.  Every fine step is a full
+    eager step, so a lane's run costs its stream time over dt steps: the
+    lanes run are ``FIXED_MUST`` and every other validated point whose
+    event run ends within what ``FIXED_BUDGET_S`` of the card's time
+    covers at ``ms_per_step`` (sim_calibrated's time a step)."""
+    from repro_torch.core.array_sim import validate
+    scale = CALIBRATED_SCALE
+    spec, ws = micro_workload(scale, n_streams=8, queries=16)
+    ev = events.results()
+    dt = float(spec.page_size.max()) / 700e6
+    budget_sim_s = FIXED_BUDGET_S * 1e3 / ms_per_step * dt
+    reach = max(budget_sim_s, max(ev[k][0].sim_time for k in FIXED_MUST))
+    lanes, left_out = [], []
+    for f in VALIDATED_FRACS:
+        for p in POLICIES:
+            t_end = ev[(p, f)][0].sim_time
+            if (p, f) in FIXED_MUST or t_end <= reach:
+                lanes.append((p, f))
+            else:
+                left_out.append({
+                    "policy": p, "frac": f, "event_sim_s": t_end,
+                    "why": f"its event run ends at {t_end:.2f} s of "
+                           f"simulated time, beyond the {reach:.2f} s "
+                           f"that {FIXED_BUDGET_S:.0f} s of the card "
+                           f"covers at {ms_per_step:.2f} ms a fine step"})
+    _, cfgs = sweep_configs(spec, ws, None, dev, lanes=lanes)
+    # the livelock guard at twice the longest event run: a lane that needs
+    # more is not comparable and fails the phase as truncated
+    max_slices = int(2.0 * reach / (0.1 * scale)) + 8
+    results, wall, launches, steps, stats = run_sweep_counted(
+        spec, cfgs, dev, time_slice=0.1 * scale, bandwidth_ref=700e6,
+        stepper="fixed", max_slices=max_slices)
+    held = held_to_events(lanes, results, ev, "fixed")
+    out = {"phase": "sim_fixed", "scale": scale, "P": spec.n_pages,
+           "L": len(lanes), "rows": held, "left_out": left_out,
+           "wall_s": wall, "fine_steps": steps, **stats,
+           "ms_per_fine_step": wall / max(1, steps) * 1e3,
+           "launches": launches, "max_slices": max_slices,
+           "budget_s": FIXED_BUDGET_S, "dt": dt,
+           "within_error_bars": all(r["ok"] for r in held),
+           "bars": {f"{r['policy']}@{r['buffer_frac']}": validate.bar_of(r)
+                    for r in held}}
+    out["ok"] = (out["within_error_bars"] and len(held) == len(lanes)
+                 and all(m in lanes for m in FIXED_MUST)
+                 and launches["batched_evict"] > 0)
+    emit(out)
+    if not out["ok"]:
+        fail("sim_fixed", "a lane of the fixed stepper is outside its bar "
+                          "of the event engine, truncated, or missing")
+    return launches
 
 
 def phase_tpch_probe(dev, recorder: Recorder, max_slices: int = 16) -> None:
@@ -1745,13 +1971,14 @@ def phase_tpch_probe(dev, recorder: Recorder, max_slices: int = 16) -> None:
     with recorder:
         results, wall, launches, steps, _ = run_sweep_counted(
             spec, cfgs, dev, time_slice=0.1, bandwidth_ref=600e6,
-            max_slices=max_slices)
+            stepper="horizon", max_slices=max_slices)
     emit({"phase": "tpch_probe", "P": spec.n_pages, "C": spec.n_cols,
           "Q": spec.n_queries, "max_slices": max_slices, "truncated": True,
           "wall_s": wall, "batched_steps": steps,
           "ms_per_macro_step": wall / max(1, steps) * 1e3,
           "sim_seconds_covered": max(r.sim_time for r in results),
           "launches": launches, "ok": True})
+    return launches
 
 
 # ------------------------------------------------------------------ main ----
@@ -1779,7 +2006,8 @@ def main() -> int:
 
     all_phases = ["env", "build", "kernels_fuzz", "paged_fuzz", "model_fuzz",
                   "sim_small", "serve_small", "model_serve", "sim_calibrated",
-                  "serve_full", "sim_full", "tpch_probe", "kernels"]
+                  "sim_fixed", "serve_full", "sim_full", "tpch_probe",
+                  "kernels"]
     phases = [p for p in args.phases.split(",") if p] or all_phases
     unknown = set(phases) - set(all_phases)
     if unknown:
@@ -1835,12 +2063,30 @@ def main() -> int:
     if "model_serve" in phases:
         model_serve = phase_model_serve(dev, model_calls)
 
-    recorder = Recorder(SIM_KERNELS)
+    recorder = Recorder(SIM_KERNELS, focus=[
+        i for i, p in enumerate(LANE_POLICIES) if p == "cscan"])
     serve_recorder = Recorder(("paged_attention",))
     launches, main_p, calibrated, serve_full = None, None, None, None
-    if "sim_calibrated" in phases:
-        calibrated = phase_sim_micro("sim_calibrated", 0.25, dev, recorder)
-        launches, main_p = calibrated["launches"], calibrated["P"]
+    # every simulator phase's launch counts; the main path is the
+    # calibrated sweep (run to completion and held to the event engine),
+    # else the first simulator phase run
+    by_phase = {}
+    events = None
+    if "sim_calibrated" in phases or "sim_fixed" in phases:
+        events = EventRuns(CALIBRATED_SCALE)
+    try:
+        if "sim_calibrated" in phases:
+            calibrated = phase_sim_micro("sim_calibrated", CALIBRATED_SCALE,
+                                         dev, recorder, events=events)
+            launches, main_p = calibrated["launches"], calibrated["P"]
+            by_phase["sim_calibrated"] = launches
+        if "sim_fixed" in phases:
+            ms = (calibrated["ms_per_macro_step"] if calibrated is not None
+                  else 10.0)
+            by_phase["sim_fixed"] = phase_sim_fixed(dev, events, ms)
+    finally:
+        if events is not None:
+            events.close()
     if "serve_full" in phases:
         serve_full = phase_serve_full(dev, serve_recorder)
     if "sim_full" in phases:
@@ -1859,9 +2105,11 @@ def main() -> int:
                 max_slices = max(8, int(budget * 1e3 / (ms * 4.0 * per_slice)))
         full = phase_sim_micro("sim_full", 1.0, dev, recorder,
                                max_slices=max_slices)
-        launches, main_p = full["launches"], full["P"]
+        by_phase["sim_full"] = full["launches"]
+        if launches is None:
+            launches, main_p = full["launches"], full["P"]
     if "tpch_probe" in phases:
-        phase_tpch_probe(dev, recorder)
+        by_phase["tpch_probe"] = phase_tpch_probe(dev, recorder)
 
     kernels_line = None
     if "kernels" in phases:
@@ -1870,7 +2118,8 @@ def main() -> int:
                             "model_serve in the same run")
         entries = []
         if launches is not None:
-            entries += sim_kernel_entries(dev, recorder, launches, main_p)
+            entries += sim_kernel_entries(dev, recorder, launches, main_p,
+                                          by_phase)
         if serve_full is not None:
             entries.append(paged_kernel_entry(dev, serve_recorder, serve_full))
         if model_serve is not None:

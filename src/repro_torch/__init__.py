@@ -6,9 +6,11 @@ package imports ``torch`` and ``numpy`` only — never ``jax``, never
 anything of ``repro`` — and mirrors its layout so a reader finds the
 counterpart of each module:
 
-* ``repro_torch.core`` — storage model, scan specs, workloads, the policy
-  registry (array side) and ``array_sim``, the batched buffer-pool
-  simulator (LRU / PBM / OPT, event-horizon stepper);
+* ``repro_torch.core`` — storage model, scan operators, workloads, the
+  policy registry, the event engine (the dict/heapq machine the simulator
+  is held to) and ``array_sim``, the batched buffer-pool simulator (LRU /
+  PBM / OPT / array-CScan in one call; fixed-dt and event-horizon
+  steppers; ``validate`` against the event engine);
 * ``repro_torch.serving`` — the paged-KV serving engine and its model;
 * ``repro_torch.configs`` / ``repro_torch.models`` — the architecture
   configurations and the model stack's serving path (dense LM, Mamba2

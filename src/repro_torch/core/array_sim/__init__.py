@@ -3,12 +3,15 @@
 Re-implements ``repro.core.array_sim`` of the JAX package on PyTorch
 tensors: ``compile_workload`` lowers a multi-stream scan workload to a
 ``SimSpec``, ``make_runner`` steps every (policy x buffer size) lane of a
-sweep at once with the event-horizon time engine until all streams
-finish, and ``result_from_state`` / ``run_sweep`` turn the final state
-into the paper's metrics.  Eviction, the I/O server's grant and the
-wake solve run as hand-written CUDA kernels on the card
+sweep at once — LRU, PBM, OPT and array-CScan (the cooperative
+substrate, ``coop``) in one batched call — with the fixed-``dt`` or the
+event-horizon time engine until all streams finish, and
+``result_from_state`` / ``run_sweep`` turn the final state into the
+paper's metrics; ``validate`` holds a run to the port's event engine
+inside the JAX package's error bars.  Eviction, the I/O server's
+grant and the wake solve run as hand-written CUDA kernels on the card
 (``repro_torch.kernels``) and as their plain PyTorch versions on CPU
-tensors.  LRU, PBM and OPT are ported; array-CScan (``coop``) is not yet.
+tensors.
 """
 
 from .spec import SimSpec, build_spec
@@ -36,6 +39,7 @@ from .sim import (
     stack_configs,
 )
 from .policies import (
+    ArrayCScan,
     ArrayLRU,
     ArrayOPT,
     ArrayPBM,
@@ -48,21 +52,39 @@ from .policies import (
     time_to_bucket,
 )
 
+from .validate import (
+    DEFAULT_FRACS,
+    ERROR_BARS,
+    TPCH_ERROR_BARS,
+    cross_validate,
+    cross_validate_sweep,
+    cross_validate_tpch,
+    cross_validate_tpch_sweep,
+)
+
 __all__ = [
+    "ArrayCScan",
     "ArrayLRU",
     "ArrayOPT",
     "ArrayPBM",
     "ArrayPolicy",
     "ArrayResult",
+    "DEFAULT_FRACS",
+    "ERROR_BARS",
     "ArraySimConfig",
     "HorizonView",
     "SimSpec",
     "SimState",
     "StepCtx",
+    "TPCH_ERROR_BARS",
     "build_spec",
     "carry_from_numpy",
     "carry_to_numpy",
     "compile_workload",
+    "cross_validate",
+    "cross_validate_sweep",
+    "cross_validate_tpch",
+    "cross_validate_tpch_sweep",
     "init_state",
     "make_config",
     "make_runner",

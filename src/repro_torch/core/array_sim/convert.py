@@ -6,13 +6,15 @@
 * :func:`spec_to_torch` — the numpy fields of a :class:`SimSpec` as
   device tensors (indices as int64, the rest in their own width).
 * :func:`carry_from_numpy` / :func:`carry_to_numpy` (and the ``state_*``
-  pair for a bare :class:`SimState`) — turn the horizon runner's carry
-  ``(state, view, win, adv_lim, pend, rem, next_h)`` of the JAX package,
-  given as numpy arrays with or without a leading lane axis, into the
-  port's ``(L, ...)`` carry and back, policy-private state included
-  (PBM's bucket array, OPT's cached key).  Any object with the same field
-  names works; nothing of the JAX package is imported.  The parity tests
-  use this to start both packages from the same mid-run state.
+  pair for a bare :class:`SimState`) — turn a runner's carry of the JAX
+  package (the horizon stepper's ``(state, view, win, adv_lim, pend, rem,
+  next_h)`` or the fixed stepper's ``(state, view)``), given as numpy
+  arrays with or without a leading lane axis, into the port's
+  ``(L, ...)`` carry and back, policy-private state included (PBM's
+  bucket array, OPT's cached key, array-CScan's ``CoopState``).  Any
+  object with the same field names works; nothing of the JAX package is
+  imported.  The parity tests use this to start both packages from the
+  same mid-run state.
 """
 
 from __future__ import annotations
@@ -26,7 +28,8 @@ from .spec import SimSpec
 
 #: leaves the port keeps as int64 because it indexes with them; the JAX
 #: package keeps them as int32
-_INDEX_FIELDS = frozenset({"qidx", "frontier", "fpidx"})
+_INDEX_FIELDS = frozenset({"qidx", "frontier", "fpidx", "cur_chunk",
+                           "inflight"})
 
 
 def resolve_device(device="cuda") -> torch.device:
@@ -110,12 +113,17 @@ def _leaf_out(t: torch.Tensor, drop_lane: bool) -> np.ndarray:
 
 
 def _tree_in(x, device, add_lane, index=False):
+    if type(x).__name__ == "CoopState":    # array-CScan's policy state
+        from .coop import CoopState
+        return _fields_in(CoopState, x, device, add_lane)
     if isinstance(x, (tuple, list)):
         return tuple(_tree_in(v, device, add_lane, index) for v in x)
     return _leaf_in(x, device, add_lane, index)
 
 
 def _tree_out(x, drop_lane):
+    if hasattr(x, "_fields"):
+        return type(x)(*(_tree_out(v, drop_lane) for v in x))
     if isinstance(x, tuple):
         return tuple(_tree_out(v, drop_lane) for v in x)
     return _leaf_out(x, drop_lane)
@@ -146,17 +154,22 @@ def state_to_numpy(state, drop_lane: bool = False):
 
 
 def carry_from_numpy(carry, device="cuda"):
-    """The horizon carry ``(state, view, win, adv_lim, pend, rem,
-    next_h)`` of numpy arrays as the port's carry."""
+    """A carry of numpy arrays as the port's carry: the horizon
+    stepper's ``(state, view, win, adv_lim, pend, rem, next_h)`` or the
+    fixed stepper's ``(state, view)``."""
     from .sim import _View
 
     dev = resolve_device(device)
-    state, view, win, adv_lim, pend, rem, next_h = carry
+    state, view, *rest = carry
     add_lane = np.asarray(state.t).ndim == 0
+    head = (state_from_numpy(state, dev),
+            _fields_in(_View, view, dev, add_lane))
+    if not rest:
+        return head
+    win, adv_lim, pend, rem, next_h = rest
     w_pidx, w_trig, w_need, w_dist = win
     return (
-        state_from_numpy(state, dev),
-        _fields_in(_View, view, dev, add_lane),
+        *head,
         (_leaf_in(w_pidx, dev, add_lane, index=True),
          _leaf_in(w_trig, dev, add_lane),
          _leaf_in(w_need, dev, add_lane),

@@ -21,7 +21,9 @@ The protocol:
   ``repro_torch.kernels.ops.batched_evict``;
 * :meth:`ArrayPolicy.scan_horizon` — per stream, the seconds until the
   policy's own state next needs attention (``None``: no own clock);
-* static knobs: ``request_window``, ``fifo_tie``, ``cooperative``.
+* static knobs: ``request_window``, ``fifo_tie``, ``cooperative`` (the
+  policy schedules loads itself: the step then runs the chunk-granular
+  substrate of ``array_sim.coop`` against this policy's state).
 
 The numeric cores the policies are built from live here too:
 :func:`time_to_bucket` (paper Fig. 10), :func:`next_consumption`
@@ -176,7 +178,7 @@ class StepCtx:
                  last_used, load_mask, cross_pidx, crossed, active, cols,
                  cur, end, start, eps, rate, speed_push,
                  slices_done=None, slices_elapsed=None, slices_max=None,
-                 upd_pages=None, upd_on=None):
+                 upd_pages=None, upd_on=None, coop=None):
         self.spec = spec
         self.refresh = refresh
         self.time_slice = time_slice
@@ -206,6 +208,7 @@ class StepCtx:
         self.eps = eps
         self.rate = rate                # true current query rate
         self.speed_push = speed_push    # estimator with the engine's dips
+        self.coop = coop                # coop.CoopIo (cooperative step)
         self._eta_estimate = None
         self._eta_exact = None
 
@@ -245,15 +248,18 @@ class StepCtx:
 class HorizonView:
     """What the event-horizon stepper hands to
     :meth:`ArrayPolicy.scan_horizon`: the post-advance per-stream scan
-    view plus the fine step length."""
+    view plus the fine step length (and the cooperative substrate's
+    constants, when the step compiles it)."""
 
-    def __init__(self, *, spec, active, start, end, rate, dt_ref):
+    def __init__(self, *, spec, active, start, end, rate, dt_ref,
+                 coop=None):
         self.spec = spec
         self.active = active
         self.start = start
         self.end = end
         self.rate = rate
         self.dt_ref = dt_ref
+        self.coop = coop                # coop.CoopConsts or None
 
 
 class ArrayPolicy:
@@ -263,7 +269,7 @@ class ArrayPolicy:
     #: registry name (also the event-engine counterpart's name)
     name: str = "?"
     #: the policy schedules loads itself (ABM) through the cooperative
-    #: substrate — not ported yet
+    #: substrate (``array_sim.coop``)
     cooperative: bool = False
     #: request-cohort service order: "stream" = per-stream blocks,
     #: "plan" = plan-deterministic page order
@@ -420,3 +426,38 @@ class ArrayOPT(ArrayPolicy):
 
     def score_victims(self, key, ctx: StepCtx) -> torch.Tensor:
         return key
+
+
+class ArrayCScan(ArrayPolicy):
+    """Cooperative Scans' ABM as an array policy (paper §2).
+
+    CScan inverts buffer-management control flow — the ABM decides loads
+    globally and delivers chunks out of order — so it is not an eviction
+    score over the in-order substrate: ``cooperative`` makes the step run
+    the chunk-granular substrate (``array_sim.coop``) against this
+    policy's state.  The policy contributes the KeepRelevance eviction
+    score the substrate computed (chunks the fewest scans want go first);
+    the paper's "evict only if KeepRelevance < LoadRelevance" rule is the
+    substrate's evictable mask."""
+
+    name = "cscan"
+    cooperative = True
+    fifo_tie = "plan"
+
+    def init_state(self, spec, lanes: int, device):
+        from .coop import init_coop_state
+        return init_coop_state(spec, lanes, device)
+
+    def score_victims(self, pstate, ctx: StepCtx) -> torch.Tensor:
+        if ctx.coop is None:
+            raise RuntimeError(
+                "ArrayCScan needs the cooperative substrate: compile the "
+                "step with this policy in its policies tuple")
+        return ctx.coop.keep_key
+
+    def scan_horizon(self, pstate, hz: HorizonView):
+        # the chunk is CScan's clock: nothing happens for a consuming scan
+        # before its current chunk completes; an idle scan needs a fine
+        # step to run the pick loop
+        from .coop import chunk_horizon
+        return chunk_horizon(hz.coop, pstate, hz)

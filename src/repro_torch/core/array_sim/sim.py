@@ -6,9 +6,14 @@ per-stream state (query index, cursor, speed estimate) as dense tensors,
 scans that consume tuples with per-page plan-trigger semantics, a
 bandwidth-budgeted serial I/O server popping a stamp-FIFO request queue,
 eviction dispatched on the score arrays the compiled policies provide,
-the PBM timeline refreshed once per ``time_slice`` — stepped by the
-event-horizon time engine (variable-length macro-steps, wake-exact jumps
-at supersaturated points).
+the PBM timeline refreshed once per ``time_slice``.  A cooperative policy
+(array-CScan) adds the chunk-granular ABM substrate (``array_sim.coop``),
+blended per lane by the lane's policy id, so one batched call mixes all
+four of the paper's policies.  Time is modelled two ways
+(``make_runner(stepper=...)``): ``"fixed"`` steps every fine ``dt``
+(the default, as in the JAX package), ``"horizon"`` jumps variable-length
+macro-steps to the next event (wake-exact jumps at supersaturated
+points).
 
 What differs from the JAX package is the shape of the program, not the
 machine:
@@ -18,9 +23,9 @@ machine:
   size, bandwidth) point of a sweep), and the three kernels take
   ``(L, P)`` rows.  The runner's loop nest reproduces a batched
   ``while``: the outer loop runs while ANY lane is unfinished, the inner
-  loop while any live lane still has macro-steps to take in its slice,
-  and a lane whose own condition is false is frozen with ``torch.where``
-  on every carry leaf, never skipped — a finished lane's state is
+  loop while any live lane still has steps to take in its slice, and a
+  lane whose own condition is false is frozen with ``torch.where`` on
+  every carry leaf, never skipped — a finished lane's state is
   bit-stable while slower lanes continue.
 * **Eager PyTorch**, no tracing: ``refresh`` stays a static Python flag
   (two step functions, cheap and slice-boundary); every entry point takes
@@ -31,10 +36,9 @@ machine:
   device reduces in: a CPU run and a CUDA run of one config see the same
   byte counts.
 
-Not here yet: the cooperative policy (array-CScan) and its substrate,
-the fixed-``dt`` stepper, telemetry, lane/page sharding and the sanitize
-mode.  Policy names resolve through
-``repro_torch.core.policy_registry`` with the JAX package's stable ids.
+Not here yet: telemetry, lane/page sharding and the sanitize mode.
+Policy names resolve through ``repro_torch.core.policy_registry`` with
+the JAX package's stable ids.
 """
 
 from __future__ import annotations
@@ -48,6 +52,7 @@ import torch
 
 from ...kernels import ops as kops
 from .. import policy_registry
+from . import coop as coop_mod
 from .convert import resolve_device, spec_to_torch
 from .policies import BIG_CUT, ArrayPolicy, HorizonView, StepCtx
 from .spec import SimSpec
@@ -133,17 +138,16 @@ def resolve_policies(
     policies: Optional[Sequence] = None,
 ) -> Tuple[ArrayPolicy, ...]:
     """Resolve a policy list (names and/or :class:`ArrayPolicy` objects)
-    through the registry; ``None`` means every registered array policy
-    whose substrate is ported (the cooperative one is not, yet)."""
+    through the registry; ``None`` means every registered array policy.
+    At most one cooperative policy may be compiled into one step."""
     if policies is None:
-        policies = [n for n in policy_registry.names(backend="array")
-                    if not policy_registry.get(n).cooperative]
+        policies = policy_registry.names(backend="array")
     out = [policy_registry.array_policy(p) if isinstance(p, str) else p
            for p in policies]
-    if any(p.cooperative for p in out):
-        raise NotImplementedError(
-            "cooperative policies need the array-CScan substrate, which is "
-            "not ported yet")
+    if sum(p.cooperative for p in out) > 1:
+        raise ValueError(
+            "at most one cooperative policy per compiled step, got "
+            f"{[p.name for p in out if p.cooperative]}")
     return tuple(out)
 
 
@@ -296,6 +300,7 @@ class _LaneConsts(NamedTuple):
 
     ok_id: torch.Tensor      # (L,) bool: policy id is in the compiled set
     pol_local: torch.Tensor  # (L,) i64 index into the compiled policy tuple
+    is_coop: torch.Tensor    # (L,) bool: the lane runs the cooperative model
     sat: torch.Tensor        # (L,) bool: supersaturated lane
     k_win: torch.Tensor      # (L, 1, 1, 1) i64 readahead width
     plan_tie: torch.Tensor   # (L, 1) bool: plan-order cohort ties
@@ -310,7 +315,7 @@ class _LaneConsts(NamedTuple):
 def make_step(spec: SimSpec, dt: float, time_slice: float,
               prefetch_pages: int = 8, refresh: bool = False,
               policies: Sequence = ("lru", "pbm"),
-              vmax: Optional[int] = None, stepper: str = "horizon",
+              vmax: Optional[int] = None, stepper: str = "fixed",
               h_max: float = 8.0, h_io: float = 3.0,
               wake_exact: bool = True, device="cuda"):
     """Build ``step(carry, cfg, live=None, lc=None) -> carry`` for a
@@ -322,19 +327,27 @@ def make_step(spec: SimSpec, dt: float, time_slice: float,
     and the step drops dead request-queue entries).  ``policies`` are the
     lanes this step can serve: a lane's ``cfg.policy`` selects between the
     policy-provided score / readahead / tie arrays — the step itself
-    contains no per-policy branch.
+    contains no per-policy branch.  With a cooperative policy among them
+    the step also runs the chunk-granular substrate (``array_sim.coop``)
+    and blends per lane between the in-order and cooperative models.
 
-    The carry is ``(state, view, win, adv_lim, pend, rem, next_h)``: each
-    step closes by computing the NEXT step's event horizon (the earliest
-    interesting time over the trigger-arrival / io-credit / completion
-    candidates) together with the trigger window of the post-advance
-    view, and threads both forward.  ``rem`` is the whole-fine-step budget
-    left in the current PBM slice; the cheap step jumps
-    ``min(next_h, rem - 1)`` fine steps and the refresh step absorbs the
-    final jump.  ``h_io`` bounds the jump, in fine steps, while requests
-    are pending.
+    ``stepper`` picks the time model:
 
-    ``wake_exact`` replaces the supersaturated never-jump rule with the
+    * ``"fixed"`` — every step advances the fine ``dt``; the carry is
+      ``(state, view)``, and the I/O server pops the FIFO head
+      ``_LOAD_MAX`` times a step (first maximum of the queue key, plain
+      PyTorch, as the JAX package's unrolled arg-max);
+    * ``"horizon"`` — the carry is ``(state, view, win, adv_lim, pend,
+      rem, next_h)``: each step closes by computing the NEXT step's event
+      horizon (the earliest interesting time over the trigger-arrival /
+      chunk-completion / io-credit / completion candidates) together with
+      the trigger window of the post-advance view, and threads both
+      forward.  ``rem`` is the whole-fine-step budget left in the current
+      PBM slice; the cheap step jumps ``min(next_h, rem - 1)`` fine steps
+      and the refresh step absorbs the final jump.  ``h_io`` bounds the
+      jump, in fine steps, while requests are pending.
+
+    ``wake_exact`` (horizon only) replaces the supersaturated never-jump rule with the
     exact serial-server wake computation: with the request queue frozen at
     the end of a step, each queued page's grant step is solved
     (``kernels.ops.wake_solve``) and a supersaturated lane jumps straight
@@ -346,10 +359,9 @@ def make_step(spec: SimSpec, dt: float, time_slice: float,
     unchanged (``None`` = every lane steps).  ``lc`` is the cached
     ``step.lane_consts(cfg)``.
     """
-    if stepper != "horizon":
-        raise NotImplementedError(
-            f"stepper {stepper!r}: only the event-horizon stepper is "
-            "ported (the fixed-dt stepper is queued)")
+    if stepper not in ("fixed", "horizon"):
+        raise ValueError(f"unknown stepper {stepper!r}: fixed | horizon")
+    horizon = stepper == "horizon"
     dev = resolve_device(device)
     policies = resolve_policies(policies)
     P, S, Q, C = spec.n_pages, spec.n_streams, spec.n_queries, spec.n_cols
@@ -363,20 +375,26 @@ def make_step(spec: SimSpec, dt: float, time_slice: float,
     # points the churn spiral is cliff-sensitive even to sub-ulp
     # step-length drift, so time is quantised, not accumulated
     n_inner = max(1, int(round(time_slice / float(dt))))
-    h_max_i = max(1, int(round(h_max)))
-    dt_long = float(dt) * min(h_max_i, n_inner)
-    # static per-column trigger lookahead, sized for the longest jump
-    W = spec.trigger_window(max(float(dt), dt_long), tight=True)
-    n_rounds_io = max(_LOAD_MAX, int(round(h_io)) + 2)
-    if wake_exact:
-        # a wake-exact jump spans at most the slice budget plus the
-        # absorbed slices (and never more than 64 fine steps); the grant's
-        # candidate window must cover every pop such a jump stands in for
-        wake_cap_i = min(64, max(h_max_i, (1 + _MAX_ABSORB) * n_inner))
-        n_rounds = max(n_rounds_io, wake_cap_i * _LOAD_MAX)
+    if horizon:
+        h_max_i = max(1, int(round(h_max)))
+        dt_long = float(dt) * min(h_max_i, n_inner)
+        # static per-column trigger lookahead, sized for the longest jump
+        W = spec.trigger_window(max(float(dt), dt_long), tight=True)
+        n_rounds_io = max(_LOAD_MAX, int(round(h_io)) + 2)
+        if wake_exact:
+            # a wake-exact jump spans at most the slice budget plus the
+            # absorbed slices (and never more than 64 fine steps); the
+            # grant's candidate window must cover every pop such a jump
+            # stands in for
+            wake_cap_i = min(64, max(h_max_i, (1 + _MAX_ABSORB) * n_inner))
+            n_rounds = max(n_rounds_io, wake_cap_i * _LOAD_MAX)
+        else:
+            wake_cap_i = h_max_i
+            n_rounds = n_rounds_io
     else:
-        wake_cap_i = h_max_i
-        n_rounds = n_rounds_io
+        h_max_i = wake_cap_i = 1
+        W = spec.trigger_window(float(dt))
+        n_rounds = n_rounds_io = _LOAD_MAX
     f32 = np.float32
     dt_ref = float(f32(dt))
     time_slice_f = float(f32(time_slice))
@@ -446,6 +464,33 @@ def make_step(spec: SimSpec, dt: float, time_slice: float,
         [p.request_window(spec, K) for p in policies], device=dev)
     plan_flags = torch.as_tensor(
         [p.fifo_tie == "plan" for p in policies], device=dev)
+    coop_idx = next((j for j, p in enumerate(policies) if p.cooperative),
+                    None)
+    has_coop = coop_idx is not None
+    coop_flags = torch.as_tensor([p.cooperative for p in policies],
+                                 device=dev)
+    if has_coop:
+        if spec.q_table is None:
+            raise ValueError(
+                "cooperative policy needs the multitable query-table map; "
+                "lower the workload with compiler.compile_workload")
+        cc = coop_mod.coop_consts(spec, dev)
+        q_table = torch.as_tensor(spec.q_table, device=dev).long()
+    else:
+        cc = None
+    p_ids = torch.arange(P, device=dev)
+
+    def sel(is_coop, coop_val, inorder_val):
+        """Per-lane blend between the cooperative and in-order models:
+        nothing to blend without a cooperative policy, nothing else to
+        blend with it alone."""
+        if not has_coop:
+            return inorder_val
+        if n_pol == 1:
+            return coop_val
+        return torch.where(
+            is_coop.view((-1,) + (1,) * (inorder_val.dim() - 1)),
+            coop_val, inorder_val)
 
     def lane_consts(cfg: ArraySimConfig) -> _LaneConsts:
         cfg = _lanes(cfg)
@@ -460,6 +505,7 @@ def make_step(spec: SimSpec, dt: float, time_slice: float,
         return _LaneConsts(
             ok_id=ok_id,
             pol_local=pol_local,
+            is_coop=coop_flags[pol_local],
             sat=sat,
             k_win=k_wins[pol_local].view(-1, 1, 1, 1),
             plan_tie=plan_flags[pol_local].view(-1, 1),
@@ -578,17 +624,44 @@ def make_step(spec: SimSpec, dt: float, time_slice: float,
         ids_u = order[:, :U]
         return ids_u, mask.gather(1, ids_u)
 
+    def fifo_pop(key: torch.Tensor, budget: torch.Tensor):
+        """The fixed stepper's I/O server: pop the FIFO head ``_LOAD_MAX``
+        times, strict head-of-line (the first head that does not fit, or
+        is not wanted, closes the queue for the step).  The head is the
+        FIRST page with the largest key: the lowest index among equal
+        keys, the JAX package's ``argmax`` rule, stated here as a minimum
+        over the tied indices."""
+        L = key.shape[0]
+        kcur = key
+        taken = torch.zeros(L, dtype=torch.float32, device=dev)
+        open_ = torch.ones(L, dtype=torch.bool, device=dev)
+        hit = torch.zeros_like(key, dtype=torch.bool)
+        n_load = torch.zeros(L, dtype=torch.int32, device=dev)
+        for _ in range(_LOAD_MAX):
+            kmax = kcur.amax(dim=1, keepdim=True)
+            j = torch.where(kcur == kmax, p_ids, P).amin(dim=1, keepdim=True)
+            size_j = page_size[j].squeeze(1)
+            ok = open_ & (kmax.squeeze(1) >= 0) & (taken + size_j <= budget)
+            open_ = ok
+            is_j = p_ids == j
+            hit = hit | (is_j & ok.unsqueeze(1))
+            taken = taken + torch.where(ok, size_j, zero_f)
+            kcur = torch.where(is_j, neg1_i, kcur)
+            n_load = n_load + ok.to(torch.int32)
+        return hit, taken, n_load
+
     def core(state: SimState, view: _View, win, cfg: ArraySimConfig,
              lc: _LaneConsts, h_u, adv_lim, pend_in, slices_u=None):
         """One macro-step standing in for ``h_u`` (an ``(L,)`` i32) fine
-        steps.  ``adv_lim`` is the advance limit the previous step's
-        horizon computed against this step's residency, ``pend_in`` the
-        queue bytes it saw."""
+        steps (all ones under the fixed stepper).  ``adv_lim`` is the
+        advance limit against this step's residency (the previous step's
+        horizon computed it), ``pend_in`` the queue bytes that horizon saw
+        (``None`` under the fixed stepper)."""
         L = h_u.shape[0]
         h_f = h_u.float()
         dt = h_f * dt_ref                                   # (L,)
         dt1 = dt.unsqueeze(1)
-        ok_id, sat = lc.ok_id, lc.sat
+        ok_id, sat, is_coop = lc.ok_id, lc.sat, lc.is_coop
         t2 = state.t + torch.where(ok_id, dt, lc.dt_bad)
         t2c = t2.unsqueeze(1)
         steps1 = state.steps.unsqueeze(1)
@@ -599,7 +672,7 @@ def make_step(spec: SimSpec, dt: float, time_slice: float,
         u3 = h3.float() * 2.0 ** -24
 
         # ============ CPU: consume up to the first absent trigger =========
-        (active, length, rate, _cols, _start, cur, _end, eps, _frontier,
+        (active, length, rate, cols, start, cur, end, eps, _frontier,
          _fpidx, _ftrig, _fneed) = view
         # tie-break jitter for the LRU clock: every touch/load in one step
         # would otherwise share the timestamp t2 and eviction would break
@@ -621,11 +694,23 @@ def make_step(spec: SimSpec, dt: float, time_slice: float,
             zero_f,
         ).clamp(min=0.0)
         margin = torch.clamp(3e-5 * length, min=0.5)
-        finished = runnable & (remaining - adv_io <= margin)
+        finished_io = runnable & (remaining - adv_io <= margin)
+        if has_coop:
+            # the cooperative CPU model: chunk-granular, out of order
+            cstate = state.pstate[coop_idx]
+            q_tab = q_table[s_idx, state.qidx.clamp(0, Q - 1)]
+            coop_cpu = coop_mod.cpu_phase(
+                cc, cstate, active=active, start=start, end=end, cols=cols,
+                q_tab=q_tab, rate_j=rate_j, dt=dt1, credit_cap=rate_j * dt1,
+                resident=state.resident, page_valid=page_valid)
+            adv = sel(is_coop, coop_cpu.adv, adv_io)
+            finished = sel(is_coop, coop_cpu.finished, finished_io)
+        else:
+            adv, finished = adv_io, finished_io
         # invalid-lane freeze: no consumption, no completions — the lane
         # must end truncated, not half-run
         ok1 = ok_id.unsqueeze(1)
-        adv = torch.where(ok1, adv_io, zero_f)
+        adv = torch.where(ok1, adv, zero_f)
         finished = finished & ok1
         cur2_pre = cur + adv_io
 
@@ -670,11 +755,16 @@ def make_step(spec: SimSpec, dt: float, time_slice: float,
             & gather_w(state.resident, cross_flat)
             & (w_trig[..., :W] < (cur2_pre - eps).view(L, S, 1, 1))
         )
+        if has_coop:
+            crossed = crossed & ~is_coop.view(L, 1, 1, 1)
         # the LRU clock ticks when a page is consumed
         touch = torch.where(
             crossed, t2.view(L, 1, 1, 1) + gather_w(jit_p, cross_flat), ninf_f)
         last_used2 = state.last_used.scatter_reduce(
             1, cross_flat, touch.view(L, -1), "amax", include_self=True)
+        if has_coop:
+            touched_coop = is_coop.unsqueeze(1) & coop_cpu.consumed_pages
+            last_used2 = torch.where(touched_coop, t2c + jit_p, last_used2)
 
         # ================= I/O demand of the post-advance view ===========
         # request set = the engine's plan window: the blocking page plus
@@ -707,11 +797,12 @@ def make_step(spec: SimSpec, dt: float, time_slice: float,
         duty_g = torch.clamp(
             (state.consumed / t_pos) / torch.clamp(rate, min=1.0), 0.0, 1.0)
         gate_p = gate_base * (1.0 - duty_g)
-        # a macro-step fires the per-fine-step process with the compounded
-        # probability; h_u == 1 keeps gate_p exactly
-        gate_p = torch.where(
-            one_step.unsqueeze(1), gate_p,
-            1.0 - torch.pow(1.0 - gate_p, h_f.unsqueeze(1)))
+        if horizon:
+            # a macro-step fires the per-fine-step process with the
+            # compounded probability; h_u == 1 keeps gate_p exactly
+            gate_p = torch.where(
+                one_step.unsqueeze(1), gate_p,
+                1.0 - torch.pow(1.0 - gate_p, h_f.unsqueeze(1)))
         gate = (adv_io > 0.0) | (steps1 == 0) | finished | (ug < gate_p)
         # per-policy readahead width; the blocking demand is exempt from
         # the gate
@@ -771,35 +862,69 @@ def make_step(spec: SimSpec, dt: float, time_slice: float,
             1, b_pidx.reshape(L, -1), burst.view(L, -1).to(torch.int32),
             "amax", include_self=True)
         evictable = state.resident & (pin == 0) & page_valid
+        wanted_q = wanted
+        if has_coop:
+            # the cooperative I/O model: one chunk at a time, Keep < Load
+            done3 = coop_mod.clear_on_query_change(
+                coop_cpu.done, coop_cpu.finished)
+            coop_io = coop_mod.io_phase(
+                cc, done=done3, cur_chunk=coop_cpu.cur_chunk,
+                inflight=cstate.inflight, pin_pages=coop_cpu.pin_pages,
+                active=active2, start=start2, end=end2, cols=cols2,
+                q_tab=q_table[s_idx, qidx2.clamp(0, Q - 1)],
+                resident=state.resident, free=free, page_size=page_size,
+                page_valid=page_valid)
+            load_key = sel(is_coop, coop_io.load_key, load_key)
+            wanted_q = sel(is_coop, coop_io.wanted, wanted)
+            evictable = sel(is_coop, coop_io.evictable, evictable)
         evictable_bytes = pool_bytes(evictable)
         headroom = free + evictable_bytes
-        credit = state.io_credit + cfg.bandwidth * dt
-        # an invalid lane's server grants nothing.  Serial-server causality
-        # over a macro-step: credit accrued while the queue was EMPTY must
-        # not fund requests that only appear at the end of the jump, so the
-        # serviceable bytes are capped at the queue content present when
-        # the jump began plus one fine step's credit.
+        # one rounding, as the JAX package's compiled step takes it (XLA
+        # contracts this multiply-add on the CPU): the f64 product of two
+        # f32 values is exact
+        credit = (state.io_credit.double()
+                  + cfg.bandwidth.double() * dt.double()).float()
+        # an invalid lane's server grants nothing
         budget = torch.where(ok_id, torch.minimum(credit, headroom), zero_f)
-        budget = torch.minimum(
-            budget, state.io_credit + pend_in + lc.inc_ref)
-        # budgeted FIFO pop as ONE batched grant: strict head-of-line,
-        # _LOAD_MAX pops per fine step stood in for
-        pops = torch.minimum(h_u * _LOAD_MAX, lc.pop_cap)
-        load_mask, load_bytes, n_load = kops.fifo_grant(
-            load_key, page_size, budget, pops, vmax=n_rounds)
+        if horizon:
+            # serial-server causality over a macro-step: credit accrued
+            # while the queue was EMPTY must not fund requests that only
+            # appear at the end of the jump, so the serviceable bytes are
+            # capped at the queue content present when the jump began
+            # plus one fine step's credit
+            pend0 = pend_in
+            if has_coop:
+                infl0 = cstate.inflight
+                pend_c0 = (
+                    (cc.page_chunk == infl0.clamp(0, cc.n_chunks - 1)
+                     .unsqueeze(1))
+                    & (infl0 >= 0).unsqueeze(1) & not_res)
+                pend0 = sel(is_coop, pool_bytes(pend_c0), pend_in)
+            budget = torch.minimum(
+                budget, state.io_credit + pend0 + lc.inc_ref)
+            # budgeted FIFO pop as ONE batched grant: strict head-of-line,
+            # _LOAD_MAX pops per fine step stood in for
+            pops = torch.minimum(h_u * _LOAD_MAX, lc.pop_cap)
+            load_mask, load_bytes, n_load = kops.fifo_grant(
+                load_key, page_size, budget, pops, vmax=n_rounds)
+        else:
+            load_mask, load_bytes, n_load = fifo_pop(load_key, budget)
 
         # bank leftover credit: 4 pages while requests remain unserved,
         # one page-time with an empty queue
         leftover = credit - load_bytes
-        starved_io = (wanted & ~load_mask).any(dim=1)
+        starved_io = (wanted_q & ~load_mask).any(dim=1)
         io_credit2 = torch.minimum(
             leftover, torch.where(starved_io, cap4_f, cap1_f))
 
         # engine speed-estimate DIPS, sampled per (stream, step) with the
         # probability compounded over the fine steps of a macro-step
         eff_rate = torch.clamp(state.consumed / t_pos, min=1.0)
-        dip_p = torch.where(
-            one_step, dip_p0_f, 1.0 - torch.pow(dip_q0_f, h_f))
+        if horizon:
+            dip_p = torch.where(
+                one_step, dip_p0_f, 1.0 - torch.pow(dip_q0_f, h_f))
+        else:
+            dip_p = dip_p0_f.expand(L)
         speed_push = torch.where(
             u3[:, 2] < dip_p.unsqueeze(1),
             torch.minimum(_DIP_DEPTH * eff_rate, speed2), speed2)
@@ -809,14 +934,21 @@ def make_step(spec: SimSpec, dt: float, time_slice: float,
         was_crossed.scatter_reduce_(
             1, cross_flat, crossed.view(L, -1).to(torch.int32), "amax",
             include_self=True)
-        was_crossed = was_crossed > 0
+        crossed_io = was_crossed = was_crossed > 0
+        if has_coop:
+            was_crossed = sel(is_coop, coop_cpu.consumed_pages, crossed_io)
         # compacted within-slice update set: the pages whose consumption
-        # state changed this step (loads + crossings)
+        # state changed this step (loads + crossings).  The JAX package's
+        # fixed stepper hands PBM the padded grant and in-order cross
+        # windows instead (no chunk consumption): the update is a min over
+        # the same set of pages with one value a page, so the result is
+        # the same.
         if refresh:
             upd_pages = upd_on = None
         else:
             upd_pages, upd_on = compact(
-                (was_crossed | load_mask) & page_valid)
+                ((was_crossed if horizon else crossed_io) | load_mask)
+                & page_valid)
         ctx = StepCtx(
             spec=spec, refresh=refresh, time_slice=time_slice_f, now=t2,
             steps=state.steps, slices_done=state.slices_done,
@@ -828,9 +960,14 @@ def make_step(spec: SimSpec, dt: float, time_slice: float,
             upd_pages=upd_pages, upd_on=upd_on,
             active=active2, cols=cols2, cur=cur2, end=end2, start=start2,
             eps=eps2, rate=rate2, speed_push=speed_push,
+            coop=coop_io if has_coop else None,
         )
         pstate2 = tuple(
-            p.on_consume(p.on_request(ps, ctx), ctx)
+            coop_mod.CoopState(
+                done=done3, cur_chunk=coop_cpu.cur_chunk,
+                chunk_pos=coop_cpu.chunk_pos, credit=coop_cpu.credit,
+                inflight=coop_io.inflight)
+            if p.cooperative else p.on_consume(p.on_request(ps, ctx), ctx)
             for p, ps in zip(policies, state.pstate))
         keys = [p.score_victims(ps, ctx) for p, ps in zip(policies, pstate2)]
         if n_pol == 1:
@@ -848,13 +985,20 @@ def make_step(spec: SimSpec, dt: float, time_slice: float,
         else:
             slices_done2 = state.slices_done
 
-        # evictions are amortised in batches (>= 16 pages)
+        # evictions are amortised in batches (>= 16 pages); the
+        # cooperative server evicts exactly what its chunk needs
+        over = load_bytes > free
         need_free = torch.where(
-            load_bytes > free,
+            over,
             torch.minimum(torch.maximum(load_bytes, lc.batch) - free,
                           evictable_bytes),
             zero_f,
         )
+        if has_coop:
+            need_coop = torch.where(
+                over, torch.minimum(load_bytes - free, evictable_bytes),
+                zero_f)
+            need_free = sel(is_coop, need_coop, need_free)
         evict = kops.batched_evict(key, page_size, evictable, need_free,
                                    vmax=vmax)
 
@@ -868,6 +1012,8 @@ def make_step(spec: SimSpec, dt: float, time_slice: float,
             dim=1, dtype=torch.int32)
         req_step3 = torch.where(load_mask, none_i, req_step2)
         demand_hit = load_mask & (bonus == 31)
+        if has_coop:
+            demand_hit = demand_hit & ~is_coop.unsqueeze(1)
 
         new_state = SimState(
             resident=resident2,
@@ -892,6 +1038,8 @@ def make_step(spec: SimSpec, dt: float, time_slice: float,
             churn=churn2,
             pstate=pstate2,
         )
+        if not horizon:
+            return new_state, view2
 
         # ================= event horizon of the NEXT step =================
         # The earliest "interesting" time ahead: the post-advance trigger
@@ -947,12 +1095,24 @@ def make_step(spec: SimSpec, dt: float, time_slice: float,
         else:
             t_io_pend = torch.where(sat, zero_f, t_io_base_f)
         t_io = torch.where(pend2, t_io_pend, inf_f)
+        if has_coop:
+            # cooperative lanes: consumption is chunk-granular, so the
+            # in-order trigger candidate means nothing; the chunk in flight
+            # plays the pending queue's role (the wake solve models the
+            # in-order queue: cooperative lanes keep the fine cadence
+            # while saturated)
+            t_cpu = sel(is_coop, inf_f.expand(L, S), t_cpu)
+            t_io_coop = (torch.where(sat, zero_f, t_io_base_f)
+                         if wake_exact else t_io_pend)
+            t_io = sel(is_coop,
+                       torch.where(coop_io.inflight >= 0, t_io_coop, inf_f),
+                       t_io)
         next_dt = torch.minimum(t_cpu.amin(dim=1), t_io)
-        # per-policy horizon providers (ArrayPolicy.scan_horizon): none of
-        # the in-order policies has a clock of its own, so this is static
-        # and costs nothing unless a policy overrides the hook
+        # per-policy horizon providers (ArrayPolicy.scan_horizon): the
+        # in-order policies have no clock of their own; array-CScan reports
+        # each stream's current-chunk completion
         hz = HorizonView(spec=spec, active=active2, start=start2, end=end2,
-                         rate=rate2, dt_ref=dt_ref)
+                         rate=rate2, dt_ref=dt_ref, coop=cc)
         t_tab = [p.scan_horizon(ps, hz) for p, ps in zip(policies, pstate2)]
         if any(t is not None for t in t_tab):
             t_tab = [torch.full_like(t_cpu, _INF) if t is None else t
@@ -967,7 +1127,18 @@ def make_step(spec: SimSpec, dt: float, time_slice: float,
         ).to(torch.int32)
         return new_state, view2, win2, adv_lim2, pend_bytes2, next_h
 
-    if refresh:
+    if not horizon:
+        def step(carry, cfg: ArraySimConfig, live=None, lc=None):
+            # one fine step; the refresh flavour closes a slice
+            cfg = _lanes(cfg)
+            lc = lane_consts(cfg) if lc is None else lc
+            state, view = carry
+            win = window(view)
+            h_u = torch.ones_like(cfg.policy)
+            out = core(state, view, win, cfg, lc, h_u,
+                       adv_limit(win, state.resident), None)
+            return out if live is None else _freeze(live, out, carry)
+    elif refresh:
         def step(carry, cfg: ArraySimConfig, live=None, lc=None):
             # slice-boundary step: absorb the slice remainder, then re-arm
             # the slice budget of n_inner fine steps
@@ -1018,6 +1189,7 @@ def make_step(spec: SimSpec, dt: float, time_slice: float,
     step.policies = policies
     step.trigger_w = W
     step.n_inner = n_inner
+    step.stepper = stepper
     step.device = dev
     return step
 
@@ -1031,7 +1203,7 @@ def make_runner(
     policies: Optional[Sequence] = None,
     step_pages: float = 1.0,
     vmax: Optional[int] = None,
-    stepper: str = "horizon",
+    stepper: str = "fixed",
     h_max: float = 8.0,
     h_io: float = 3.0,
     wake_exact: bool = True,
@@ -1042,24 +1214,30 @@ def make_runner(
 
     The fine step length is ``step_pages`` page-transfer times at
     ``bandwidth_ref`` (other bandwidths flow through the per-step byte
-    credit), and the PBM timeline refreshes every ``time_slice``: each
-    slice is a loop of variable-length macro-steps (every step jumps to
-    the event horizon the previous step computed, capped at ``h_max``
-    fine steps and at the slice boundary) closed by the refresh step,
-    which absorbs whatever remains — an uneventful slice is ONE step.
+    credit), and the PBM timeline refreshes every ``time_slice``.
+    ``stepper`` picks the time engine:
+
+    * ``"fixed"`` — every slice is ``round(time_slice / dt)`` fine steps,
+      ``n_inner - 1`` cheap ones and the refresh step;
+    * ``"horizon"`` — each slice is a loop of variable-length macro-steps
+      (every step jumps to the event horizon the previous step computed,
+      capped at ``h_max`` fine steps and at the slice boundary) closed by
+      the refresh step, which absorbs whatever remains: an uneventful
+      slice is ONE step.
 
     The loop nest is a batched ``while`` written out by hand: the outer
     loop runs while any lane is unfinished (and inside its ``max_time`` /
-    ``max_slices`` guard), the inner loop while any live lane has
-    macro-steps left in its slice; lanes whose own condition is false are
-    frozen by a per-lane select, so a finished lane's state is bit-stable.
-    Each loop condition is one number read back from the device, the
-    inner one every macro-step: the eager step is bound by launch latency
-    on the host, so the device queue is short when the read happens.
+    ``max_slices`` guard), the horizon's inner loop while any live lane
+    has macro-steps left in its slice; lanes whose own condition is false
+    are frozen by a per-lane select, so a finished lane's state is
+    bit-stable.  Each loop condition is one number read back from the
+    device: once a slice, and under the horizon stepper once a
+    macro-step (the eager step is bound by launch latency on the host, so
+    the device queue is short when the read happens).
 
     ``policies`` is the set of registry policies the runner's lanes may
-    select (default: every ported array policy); a lane whose id is not
-    in the set ends truncated on its first step.
+    select (default: every array policy, the cooperative one included);
+    a lane whose id is not in the set ends truncated on its first step.
     """
     dev = resolve_device(device)
     pols = resolve_policies(policies)
@@ -1074,6 +1252,8 @@ def make_runner(
         L = cfg.policy.shape[0]
         state = init_state(spec, pols, lanes=L, device=dev)
         view0 = cheap.query_view(state.qidx, state.pos)
+        if stepper == "fixed":
+            return state, view0
         win0 = cheap.window(view0)
         i32 = dict(dtype=torch.int32, device=dev)
         return (state, view0, win0, cheap.adv_limit(win0, state.resident),
@@ -1106,6 +1286,14 @@ def make_runner(
             n_live = int(live.sum())              # one read per slice
             if n_live == 0:
                 break
+            if stepper == "fixed":
+                mask = None if n_live == L else live
+                for _ in range(n_inner - 1):
+                    carry = cheap(carry, cfg, mask, lc)
+                carry = full(carry, cfg, mask, lc)
+                stats["cheap_steps"] += n_inner - 1
+                stats["refresh_steps"] += 1
+                continue
             i = 0
             while True:
                 inner = live & inner_cond(carry)
@@ -1217,7 +1405,7 @@ def run_workload_array(
     max_time: float = 3e5,
     spec: Optional[SimSpec] = None,
     runner=None,
-    stepper: str = "horizon",
+    stepper: str = "fixed",
     wake_exact: bool = True,
     device="cuda",
 ) -> ArrayResult:

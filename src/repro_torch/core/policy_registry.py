@@ -1,19 +1,23 @@
-"""Policy registry of the port: the array and serving sides of the one
-name table.
+"""Policy registry of the port: the one name table of its three
+backends.
 
 The JAX package resolves every buffer policy — event engine, array
 backend, serving path — through ``repro.core.policy_registry``.  The
-port keeps its own copy of the array and serving sides with the **same
-names, the same registration order and the same stable integer ids**
-(result rows and stacked configs carry them): ``lru`` = 0, ``pbm`` = 1,
-``cscan`` = 2, ``opt`` = 3.  ``names(backend="serving")`` is
-``["lru", "cscan", "pbm", "opt"]`` as in the JAX package.
+port keeps its own copy with the **same names, the same registration
+order and the same stable integer ids** (result rows and stacked configs
+carry them): ``lru`` = 0, ``pbm`` = 1, ``cscan`` = 2, ``opt`` = 3.
+``names(backend="serving")`` is ``["lru", "cscan", "pbm", "opt"]`` as in
+the JAX package.
 
-``cscan`` is registered with its id but its array substrate
-(``array_sim.coop``) is not ported yet: resolving its array policy raises
-``NotImplementedError`` so a lane labelled ``cscan`` can never run as
-another policy.  Its serving realisation (``ServingCScan``) needs no
-substrate and resolves.  Event-engine factories arrive with that slice.
+* the **event engine** (``repro_torch.core.engine.run_workload``)
+  instantiates ``entry.event_factory(config)``, or drives the
+  cooperative ABM itself when ``entry.cooperative`` is set;
+* the **array backend** instantiates ``entry.array_factory()`` (array-
+  CScan runs on the cooperative substrate ``array_sim.coop``);
+* the **serving path** instantiates ``entry.serving_factory()``.
+
+The JAX package's event-only entries (``mru``, ``pbm_lru``,
+``attach``) are not registered here yet.
 """
 
 from __future__ import annotations
@@ -22,14 +26,17 @@ from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional
 
 __all__ = [
-    "PolicyEntry", "register", "get", "names", "array_policy",
-    "array_ids", "array_name", "serving_policy",
+    "PolicyEntry", "register", "get", "names", "event_policy",
+    "array_policy", "array_ids", "array_name", "serving_policy",
 ]
 
 
 @dataclass(frozen=True)
 class PolicyEntry:
-    """One policy.  ``array_factory() -> ArrayPolicy`` builds the array
+    """One policy.  ``event_factory(config) -> Policy`` builds the event
+    engine's policy from an :class:`~repro_torch.core.engine.EngineConfig`
+    (``None`` in the cooperative mode, where the engine builds the ABM
+    itself).  ``array_factory() -> ArrayPolicy`` builds the array
     policy; ``array_id`` is the stable integer a config carries.
     ``serving_factory() -> ServingPolicy`` builds the paged-KV-cache
     policy the serving engine's driver consults."""
@@ -38,14 +45,18 @@ class PolicyEntry:
     summary: str
     paper: bool = False
     cooperative: bool = False
+    event_factory: Optional[Callable[..., object]] = None
     array_factory: Optional[Callable[[], object]] = None
     array_id: Optional[int] = None
     serving_factory: Optional[Callable[[], object]] = None
 
     @property
     def backends(self) -> tuple:
-        """Which backends can run this policy ("array", "serving")."""
+        """Which backends can run this policy ("event", "array",
+        "serving")."""
         out = []
+        if self.event_factory is not None or self.cooperative:
+            out.append("event")
         if self.array_factory is not None:
             out.append("array")
         if self.serving_factory is not None:
@@ -91,8 +102,8 @@ def names(backend: Optional[str] = None, paper_only: bool = False,
           ) -> List[str]:
     """Registered policy names, in registration order.
 
-    ``backend="array"|"serving"`` restricts to policies that backend can
-    run; ``paper_only`` restricts to the paper's four-way comparison."""
+    ``backend="event"|"array"|"serving"`` restricts to policies that
+    backend can run; ``paper_only`` restricts to the paper's four-way comparison."""
     out = []
     for e in _REGISTRY.values():
         if backend is not None and backend not in e.backends:
@@ -101,6 +112,21 @@ def names(backend: Optional[str] = None, paper_only: bool = False,
             continue
         out.append(e.name)
     return out
+
+
+def event_policy(name: str, config):
+    """Resolve ``name`` for the event engine: ``(policy, cooperative)``,
+    the instantiated ``Policy`` (``None`` in the cooperative mode, where
+    the engine owns the ABM)."""
+    e = get(name)
+    if "event" not in e.backends:
+        raise KeyError(
+            f"policy {name!r} has no event-engine realisation; event-backend "
+            f"policies: {names(backend='event')}"
+        )
+    if e.cooperative:
+        return None, True
+    return e.event_factory(config), False
 
 
 def array_policy(name: str):
@@ -133,6 +159,21 @@ def array_name(array_id: int) -> Optional[str]:
     return None
 
 
+def _event_lru(config):
+    from .policies.lru import LRUPolicy
+    return LRUPolicy()
+
+
+def _event_pbm(config):
+    from .policies.pbm import PBMPolicy
+    return PBMPolicy(time_slice=config.pbm_time_slice)
+
+
+def _event_opt(config):
+    from .policies.opt import OraclePolicy
+    return OraclePolicy()
+
+
 def _array_lru():
     from .array_sim.policies import ArrayLRU
     return ArrayLRU()
@@ -144,7 +185,8 @@ def _array_pbm():
 
 
 def _array_cscan():
-    raise NotImplementedError("array-CScan: not ported yet")
+    from .array_sim.policies import ArrayCScan
+    return ArrayCScan()
 
 
 def _array_opt():
@@ -175,7 +217,8 @@ def _serving_opt():
 # Registration order and ids mirror the JAX package's registry.
 register(PolicyEntry(
     name="lru", summary="least-recently-used eviction (paper baseline)",
-    paper=True, array_factory=_array_lru, array_id=0,
+    paper=True, event_factory=_event_lru,
+    array_factory=_array_lru, array_id=0,
     serving_factory=_serving_lru,
 ))
 register(PolicyEntry(
@@ -188,12 +231,14 @@ register(PolicyEntry(
     name="pbm",
     summary="Predictive Buffer Manager: bucketed consumption timeline "
             "(paper §3)",
-    paper=True, array_factory=_array_pbm, array_id=1,
+    paper=True, event_factory=_event_pbm,
+    array_factory=_array_pbm, array_id=1,
     serving_factory=_serving_pbm,
 ))
 register(PolicyEntry(
     name="opt",
     summary="Belady bound on exact next-consumption distances (paper §4)",
-    paper=True, array_factory=_array_opt, array_id=3,
+    paper=True, event_factory=_event_opt,
+    array_factory=_array_opt, array_id=3,
     serving_factory=_serving_opt,
 ))

@@ -56,7 +56,15 @@ def test_every_submodule_is_listed():
                  "repro_torch.models.xlstm", "repro_torch.models.transformer",
                  "repro_torch.kernels.flash_attention",
                  "repro_torch.kernels.mamba2_scan",
-                 "repro_torch.kernels.mlstm"):
+                 "repro_torch.kernels.mlstm",
+                 "repro_torch.core.engine", "repro_torch.core.stats",
+                 "repro_torch.core.scans", "repro_torch.core.policies",
+                 "repro_torch.core.policies.base",
+                 "repro_torch.core.policies.lru",
+                 "repro_torch.core.policies.pbm",
+                 "repro_torch.core.policies.opt",
+                 "repro_torch.core.policies.cscan",
+                 "repro_torch.core.array_sim.validate"):
         assert want in MODULES
 
 
@@ -139,23 +147,32 @@ def test_registry_names_and_stable_ids():
         "lru": 0, "pbm": 1, "cscan": 2, "opt": 3}
     assert policy_registry.array_name(3) == "opt"
     assert policy_registry.array_name(9) is None
-    assert [p.name for p in resolve_policies()] == ["lru", "pbm", "opt"]
+    assert [p.name for p in resolve_policies()] == [
+        "lru", "cscan", "pbm", "opt"]
+    assert policy_registry.names(backend="event") == [
+        "lru", "cscan", "pbm", "opt"]
     with pytest.raises(KeyError, match="registered policies"):
         policy_registry.get("mru")
 
 
 def test_cscan_is_registered_but_not_ported():
+    """Since array-CScan's substrate is ported, ``cscan`` resolves on
+    every backend; what stays refused is a second cooperative policy in
+    one step, and the event engine runs the ABM itself."""
     assert policy_registry.get("cscan").array_id == 2
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        policy_registry.array_policy("cscan")
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        resolve_policies(("lru", "cscan"))
+    pol = policy_registry.array_policy("cscan")
+    assert pol.name == "cscan" and pol.cooperative
+    assert [p.name for p in resolve_policies(("lru", "cscan"))] == [
+        "lru", "cscan"]
+    with pytest.raises(ValueError, match="at most one cooperative"):
+        resolve_policies(("cscan", policy_registry.array_policy("cscan")))
+    assert policy_registry.event_policy("cscan", None) == (None, True)
 
 
 def test_unported_options_are_refused_not_ignored():
     spec = _spec()
-    with pytest.raises(NotImplementedError, match="horizon"):
-        make_runner(spec, stepper="fixed", device="cpu")
+    with pytest.raises(ValueError, match="fixed | horizon"):
+        make_runner(spec, stepper="event", device="cpu")
     for opt in ("mesh", "sanitize", "telemetry", "page_axis"):
         with pytest.raises(TypeError):
             make_runner(spec, device="cpu", **{opt: True})

@@ -133,7 +133,8 @@ def test_engine_equals_jax_engine_at_the_default_point(policy):
 def test_registry_serving_names_equal_the_jax_registry():
     assert policy_registry.names(backend="serving") == \
         jregistry.names(backend="serving") == ["lru", "cscan", "pbm", "opt"]
-    assert policy_registry.get("cscan").backends == ("array", "serving")
+    assert policy_registry.get("cscan").backends == \
+        jregistry.get("cscan").backends == ("event", "array", "serving")
     for name in POLICIES:
         pol = policy_registry.serving_policy(name)
         assert pol.name == name

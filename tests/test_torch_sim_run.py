@@ -62,7 +62,8 @@ def _jax_results(wake_exact=True):
 def _torch_run(wake_exact=True):
     spec, _ = _workload()
     runner = T.make_runner(spec, time_slice=0.1 * SCALE, policies=POLICIES,
-                           wake_exact=wake_exact, device="cpu")
+                           stepper="horizon", wake_exact=wake_exact,
+                           device="cpu")
     state = runner(_torch_cfgs())
     results = [T.result_from_state(state, p, dt_ref=runner.dt_ref, lane=i)
                for i, (p, _f) in enumerate(LANES)]
@@ -142,7 +143,7 @@ def test_batched_loop_runs_until_its_slowest_lane_has_finished():
     lane ends with all its streams done."""
     spec, _ = _workload()
     runner = T.make_runner(spec, time_slice=0.1 * SCALE, policies=POLICIES,
-                           device="cpu")
+                           stepper="horizon", device="cpu")
     state = runner(_torch_cfgs())
     stats = runner.stats
     assert stats["cheap_steps"] + stats["refresh_steps"] \
@@ -154,10 +155,12 @@ def test_batched_loop_runs_until_its_slowest_lane_has_finished():
 def test_unknown_or_unported_policy_id_ends_truncated():
     """A lane whose policy id is not in the runner's compiled set must not
     run as another policy: it trips the livelock guard on its first step,
-    as in the JAX runner.  ``cscan`` has its id but no substrate yet."""
+    as in the JAX runner (``cscan`` and ``opt`` here: ids the runner was
+    not built for)."""
     spec, ws = _workload()
     runner = T.make_runner(spec, time_slice=0.1 * SCALE,
-                           policies=("lru", "pbm"), device="cpu")
+                           policies=("lru", "pbm"), stepper="horizon",
+                           device="cpu")
     cfgs = T.stack_configs([
         T.make_config(spec, int(0.5 * ws), 700e6, p, device="cpu")
         for p in ("opt", "cscan", "lru")])
@@ -183,7 +186,8 @@ def test_run_sweep_and_run_workload_array_agree():
     spec, ws = _workload()
     _, _, batched = _torch_run()
     rows = T.run_sweep(spec, _torch_cfgs([LANES[4]]), device="cpu",
-                       time_slice=0.1 * SCALE, policies=POLICIES)
+                       time_slice=0.1 * SCALE, policies=POLICIES,
+                       stepper="horizon")
     assert len(rows) == 1 and rows[0].policy == "pbm"
     assert rows[0].total_loads == batched[4].total_loads
     assert rows[0].stream_times == batched[4].stream_times
@@ -191,7 +195,7 @@ def test_run_sweep_and_run_workload_array_agree():
     streams = micro_streams(db, n_streams=3, queries_per_stream=3, seed=3)
     single = T.run_workload_array(
         db, streams, "pbm", capacity_bytes=int(0.4 * ws),
-        time_slice=0.1 * SCALE, spec=spec, device="cpu")
+        time_slice=0.1 * SCALE, spec=spec, stepper="horizon", device="cpu")
     assert not single.extras["truncated"] and single.policy == "pbm"
     # a one-policy runner has no stacked dispatch but is the same machine
     assert single.total_loads == batched[4].total_loads
@@ -214,6 +218,6 @@ def test_a_policy_with_its_own_clock_bounds_the_jump():
     steps = []
     for pol in ("lru", Ticking()):
         runner = T.make_runner(spec, time_slice=0.1 * SCALE, policies=(pol,),
-                               device="cpu")
+                               stepper="horizon", device="cpu")
         steps.append(int(runner(cfg).steps[0]))
     assert steps[1] > steps[0]

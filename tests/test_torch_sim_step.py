@@ -92,7 +92,8 @@ def _stack(carries):
 def _torch_steps(wake_exact: bool):
     spec, ws = _workload()
     run = T.make_runner(spec, time_slice=0.1 * SCALE, policies=POLICIES,
-                        wake_exact=wake_exact, device="cpu")
+                        stepper="horizon", wake_exact=wake_exact,
+                        device="cpu")
     cfgs = T.stack_configs([
         T.make_config(spec, int(f * ws), 700e6, p, device="cpu")
         for p, f in LANES])

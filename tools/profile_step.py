@@ -1,7 +1,11 @@
-"""Profile the simulator's macro-step on the card: how many device kernels
+"""Profile the simulator's step on the card: how many device kernels
 one step launches, by operator, and what a step costs on the host clock.
 
-    python3 tools/profile_step.py [--scale 0.25] [--steps 40]
+    python3 tools/profile_step.py [--scale 0.25] [--steps 40] [--stepper horizon]
+
+The lanes are ``chip_smoke.py``'s calibrated sweep (every policy, the
+cooperative one included, at every buffer fraction); ``--stepper fixed``
+profiles the fixed-dt step instead of the horizon macro-step.
 
 Prints one JSON object per line: the card, the step's wall time (host
 clock around steps that end in a synchronise), then for one profiled
@@ -28,6 +32,8 @@ def main() -> int:
     ap.add_argument("--scale", type=float, default=0.25)
     ap.add_argument("--steps", type=int, default=40)
     ap.add_argument("--warm", type=int, default=400)
+    ap.add_argument("--stepper", choices=("horizon", "fixed"),
+                    default="horizon")
     args = ap.parse_args()
 
     import torch
@@ -40,15 +46,23 @@ def main() -> int:
     spec, ws = cs.micro_workload(args.scale, 8, 16)
     _, cfgs = cs.sweep_configs(spec, ws, cs.FRACS, dev)
     run = make_runner(spec, policies=cs.POLICIES, device=dev,
-                      time_slice=0.1 * args.scale)
+                      time_slice=0.1 * args.scale, stepper=args.stepper)
     lc = run.cheap.lane_consts(cfgs)
     carry = run.init_carry(cfgs)
     live = torch.ones(cfgs.policy.shape[0], dtype=torch.bool, device=dev)
+    n_inner = run.cheap.n_inner
+    count = [0]
 
     def slice_of_steps(carry, n):
         # the runner's own nest, without its reads: cheap steps while the
-        # slice lasts for any lane, then the refresh step
+        # slice lasts for any lane (the fixed stepper: n_inner - 1 of
+        # them), then the refresh step
         for _ in range(n):
+            count[0] += 1
+            if args.stepper == "fixed":
+                step = run.full if count[0] % n_inner == 0 else run.cheap
+                carry = step(carry, cfgs, None, lc)
+                continue
             inner = live & run.inner_cond(carry)
             if int(inner.sum()) == 0:
                 carry = run.full(carry, cfgs, live, lc)
@@ -57,7 +71,8 @@ def main() -> int:
         return carry
 
     print(json.dumps({"gpu": cs.nvidia_smi_line(), "P": spec.n_pages,
-                      "L": int(live.shape[0])}), flush=True)
+                      "L": int(live.shape[0]), "stepper": args.stepper}),
+          flush=True)
     carry = slice_of_steps(carry, args.warm)
     torch.cuda.synchronize()
     for mode in ("plain", "inference_mode"):
