@@ -6,7 +6,8 @@
 Drives the port's three paths end to end on the card — the batched
 buffer-pool simulator (LRU / PBM / OPT / array-CScan lanes in one call,
 the event-horizon and the fixed-dt stepper, held to the port's event
-engine inside the JAX package's error bars), the
+engine inside the JAX package's error bars; its telemetry tier: carried
+counters, flight recorder, manifest), the
 paged-KV serving path (page pool, policy driver, continuous-batching
 engine, ``PagedTinyLM`` decoding through paged attention) and the model
 stack's serving path (dense LM, Mamba2 hybrid and xLSTM at full width
@@ -70,18 +71,33 @@ One JSON object per phase, one per line:
                       0.2 and 0.4 always), held to the same event runs
                       within the same bars; the line names the lanes left
                       out and why
-11. ``serve_full``    ``PagedTinyLM`` at Qwen2-1.5B's attention widths and
+11. ``sim_telemetry`` the simulator's telemetry (``repro_torch.obs``): (a)
+                      counters off vs on at the tiny point of the
+                      telemetry tests, four policies, both steppers —
+                      every state leaf bit-equal, per lane loads and
+                      macro-steps equal to the counters'; (b) the same
+                      on sim_calibrated's 24 lanes cut at
+                      ``TELEMETRY_SLICES`` slices, with the lanes'
+                      summaries (hit rate, victim-rank and jump
+                      histograms, chunk picks, PBM's bucket occupancy)
+                      and the launches and ms a macro-step off and on;
+                      (c) the flight recorder at the trace CLI's default
+                      point, pbm@0.4: its evictions equal to the
+                      runner's counter and within the error bar of the
+                      event engine (host, a worker process), its Chrome
+                      export, and the run's manifest
+12. ``serve_full``    ``PagedTinyLM`` at Qwen2-1.5B's attention widths and
                       depth (28 layers, d 1536, 12 query / 2 KV heads of 128,
                       vocabulary 151,936; random weights from a seed) at the
                       default point under ``pbm``, to completion
-12. ``sim_full``      the same sweep at scale 1.0 (the paper's size: 180 M
+13. ``sim_full``      the same sweep at scale 1.0 (the paper's size: 180 M
                       tuples, P = 3072); to completion if the time limit
                       allows, else cut at a stated ``max_slices`` and
                       reported as truncated
-13. ``tpch_probe``    a few slices of the TPC-H workload (P = 8832), only to
+14. ``tpch_probe``    a few slices of the TPC-H workload (P = 8832), only to
                       give the kernels that shape with real keys and sizes
-14. ``kernels``       every kernel against its plain version on inputs
-                      captured from phases 8-13, and its time per call
+15. ``kernels``       every kernel against its plain version on inputs
+                      captured from phases 8-14, and its time per call
                       (``ms``: CUDA events around one call, median of up to
                       30) beside the plain version's, a PyTorch yardstick
                       and its bound; also ``device_ms`` and ``host_ms``
@@ -197,6 +213,13 @@ FIXED_BUDGET_S = 60.0
 #: Python, while the card runs the sweep)
 EVENT_WORKERS = 4
 CALIBRATED_SCALE = 0.25
+#: sim_telemetry: the card time it aims at, all three parts; the slices
+#: part (b) cuts the calibrated sweep at; the macro-steps each runner (off,
+#: on) takes before its windows, those of a timed window and those of the
+#: profiled one (the profiler's own processing grows with the events)
+TELEMETRY_BUDGET_S = 90.0
+TELEMETRY_SLICES = 24
+TELEMETRY_WARM, TELEMETRY_WINDOW, TELEMETRY_PROFILED = 100, 50, 20
 T0 = time.time()
 
 
@@ -1956,6 +1979,308 @@ def phase_sim_fixed(dev, events: "EventRuns", ms_per_step: float) -> dict:
     return launches
 
 
+def nest_steps(run, cfgs, lc, live, carry, n: int, taken: int = 0):
+    """``n`` batched steps of a runner's own loop nest, from ``carry``,
+    without its reads of the outer condition: under the horizon stepper a
+    cheap step while the slice lasts for any lane, else the refresh step;
+    under the fixed stepper ``n_inner - 1`` cheap steps and the refresh
+    (``taken``: the steps taken before, which place the slice's end).
+    ``live`` is an all-True ``(L,)`` mask the caller makes once."""
+    n_inner = run.cheap.n_inner
+    for k in range(taken + 1, taken + n + 1):
+        if run.stepper == "fixed":
+            step = run.full if k % n_inner == 0 else run.cheap
+            carry = step(carry, cfgs, None, lc)
+            continue
+        inner = live & run.inner_cond(carry)
+        if int(inner.sum()) == 0:
+            carry = run.full(carry, cfgs, live, lc)
+        else:
+            carry = run.cheap(carry, cfgs, inner, lc)
+    return carry
+
+
+def profile_nest(runs: dict, cfgs, warm: int, n: int, n_prof: int) -> dict:
+    """Host ms and device launches a macro-step of each runner's nest
+    (``runs``: tag -> runner over the same lanes): ``warm`` steps from the
+    start (the profiler loses the first kernels of a long process without
+    a warm-up), then windows of ``n`` steps on the host clock in turns (a,
+    b, b, a: each runner's k-th window covers the same steps of the run),
+    then one window of ``n_prof`` steps each under ``torch.profiler``
+    (device activity only counted)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    lcs = {t: run.cheap.lane_consts(cfgs) for t, run in runs.items()}
+    live = torch.ones(cfgs.policy.shape[0], dtype=torch.bool,
+                      device=cfgs.policy.device)
+    carries = {t: nest_steps(run, cfgs, lcs[t], live, run.init_carry(cfgs),
+                             warm)
+               for t, run in runs.items()}
+    taken = dict.fromkeys(runs, warm)
+    ms = {t: [] for t in runs}
+    for t in list(runs) + list(runs)[::-1]:
+        torch.cuda.synchronize()
+        t0 = time.time()
+        carries[t] = nest_steps(runs[t], cfgs, lcs[t], live, carries[t], n,
+                                taken[t])
+        torch.cuda.synchronize()
+        ms[t].append((time.time() - t0) / n * 1e3)
+        taken[t] += n
+    out = {}
+    for t, run in runs.items():
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            nest_steps(run, cfgs, lcs[t], live, carries[t], n_prof, taken[t])
+            torch.cuda.synchronize()
+        launches, busy_us = 0, 0.0
+        for k in prof.key_averages():
+            if k.device_type == DeviceType.CUDA:
+                launches += k.count
+                busy_us += getattr(k, "self_device_time_total", 0.0) or 0.0
+        out[t] = {"steps_before": warm, "window_steps": n,
+                  "ms_per_step_windows": ms[t],
+                  "ms_per_step": statistics.mean(ms[t]),
+                  "profiled_steps": n_prof,
+                  "device_launches_per_step": launches / n_prof,
+                  "device_busy_ms_per_step": busy_us / n_prof / 1e3}
+    return out
+
+
+def _leaves(tree, prefix=""):
+    import torch
+    if torch.is_tensor(tree):
+        yield prefix, tree
+    elif hasattr(tree, "_fields"):
+        for f, v in zip(tree._fields, tree):
+            yield from _leaves(v, f"{prefix}.{f}")
+    else:
+        for i, v in enumerate(tree):
+            yield from _leaves(v, f"{prefix}[{i}]")
+
+
+def telemetry_identities(state, tele) -> dict:
+    """Per lane: the counters against the state's own counts."""
+    steps = state.steps.cpu()
+    return {
+        "loads_equal": bool((tele.loads.cpu() == state.loads.cpu()).all()),
+        "jump_hist_sums_to_steps": bool(
+            (tele.jump_hist.sum(dim=1).cpu() == steps).all()),
+        "hits_plus_misses_positive": bool(
+            ((tele.hits + tele.misses).cpu() > 0).all()),
+    }
+
+
+def unequal_leaves(a, b) -> list:
+    """Names of the leaves of two states that are not bit-equal."""
+    import torch
+    return [name for (name, x), (_, y) in zip(_leaves(a), _leaves(b))
+            if x.dtype != y.dtype or not torch.equal(x, y)]
+
+
+def telemetry_point():
+    """The trace CLI's default point on the host: (db, streams, cap)."""
+    from repro_torch.core.workload import (
+        make_lineitem_db, micro_accessed_bytes, micro_streams)
+    db = make_lineitem_db(scale_tuples=int(6_001_215 * 0.1))
+    streams = micro_streams(db, n_streams=4, queries_per_stream=4, seed=3)
+    return db, streams, max(1 << 22, int(0.4 * micro_accessed_bytes(db)))
+
+
+def telemetry_event_run():
+    """The port's event engine at the trace CLI's default point, pbm@0.4:
+    ``(total_evictions, wall seconds)`` (runs in a worker process)."""
+    from repro_torch.core import EngineConfig, run_workload
+    db, streams, cap = telemetry_point()
+    t0 = time.time()
+    ev = run_workload(db, streams, "pbm", EngineConfig(
+        bandwidth=700e6, buffer_bytes=cap, sample_interval=2.0,
+        pbm_time_slice=0.1))
+    return ev.total_evictions, time.time() - t0
+
+
+def phase_sim_telemetry(dev) -> dict:
+    """The simulator's telemetry tier on the card (``repro_torch.obs``).
+
+    (a) The tiny point of the telemetry tests (2 M tuples, 2 streams x 1
+        query, seed 3, 16 MiB): the four policies, both steppers, runners
+        with the counters off and on: every state leaf bit-equal, and per
+        lane ``loads`` equal to the state's, ``sum(jump_hist)`` equal to
+        its macro-steps, ``hits + misses > 0``.
+    (b) sim_calibrated's 24 lanes at scale 0.25, horizon stepper, cut at
+        ``TELEMETRY_SLICES`` slices with the counters off and on: the same
+        checks, the buffer-pool kernels' launches of the run with the
+        counters on (counts set to 0 just before), the lanes' summaries,
+        and per runner the launches and host ms a macro-step
+        (``profile_nest``).
+    (c) The flight recorder at the trace CLI's default point (scale 0.1 of
+        SF1 lineitem, 4 x 4 streams, seed 3, 700 MB/s, time slice 0.1),
+        pbm@0.4: its eviction total equal to the telemetry runner's
+        counter with the same final clock, within ``ERROR_BARS[(0.4,
+        "pbm")]`` of the port's event engine (run on the host in a worker
+        meanwhile), the Chrome export's evictions summing to the same and
+        every duration positive; and the run's manifest."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    import torch
+    from repro_torch.core.array_sim import (
+        compile_workload, make_config, make_runner, result_from_state,
+        stack_configs)
+    from repro_torch.core.array_sim.validate import ERROR_BARS
+    from repro_torch.core.workload import make_lineitem_db, micro_streams
+    from repro_torch.kernels import ops
+    from repro_torch.obs import collect_manifest, lane_slice, summarize
+    from repro_torch.obs.trace import TraceSession, _build_point
+
+    t_phase = time.time()
+    pool = ProcessPoolExecutor(
+        1, mp_context=multiprocessing.get_context("spawn"))
+    try:
+        event_future = pool.submit(telemetry_event_run)
+        out = {"phase": "sim_telemetry", "budget_s": TELEMETRY_BUDGET_S}
+        seconds = out["seconds_by_part"] = {}
+
+        # (a) off vs on at the tiny point
+        db = make_lineitem_db(scale_tuples=2_000_000)
+        spec = compile_workload(db, micro_streams(
+            db, n_streams=2, queries_per_stream=1, seed=3))
+        cfgs = stack_configs([make_config(spec, 16 << 20, 700e6, p,
+                                          device=dev) for p in POLICIES])
+        part_a = {"P": spec.n_pages, "policies": list(POLICIES)}
+        for stepper in ("fixed", "horizon"):
+            kw = dict(time_slice=0.01, stepper=stepper, policies=POLICIES,
+                      device=dev)
+            off = make_runner(spec, **kw)(cfgs)
+            on, tele = make_runner(spec, telemetry=True, **kw)(cfgs)
+            part_a[stepper] = {"steps": on.steps.tolist(),
+                               "unequal_leaves": unequal_leaves(off, on),
+                               **telemetry_identities(on, tele)}
+        out["a"] = part_a
+        seconds["a"] = time.time() - t_phase
+
+        # (b) the calibrated sweep, cut, off vs on
+        spec, ws = micro_workload(CALIBRATED_SCALE, n_streams=8, queries=16)
+        lanes, cfgs = sweep_configs(spec, ws, FRACS, dev)
+        kw = dict(time_slice=0.1 * CALIBRATED_SCALE, bandwidth_ref=700e6,
+                  stepper="horizon", policies=POLICIES,
+                  max_slices=TELEMETRY_SLICES, device=dev)
+        part_b = {"scale": CALIBRATED_SCALE, "P": spec.n_pages,
+                  "L": len(lanes), "max_slices": TELEMETRY_SLICES}
+        runs = {}
+        for tag, telemetry in (("off", False), ("on", True)):
+            run = make_runner(spec, telemetry=telemetry, **kw)
+            ops.reset_launch_counts()
+            t0 = time.time()
+            res = run(cfgs)
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+            launches = {k: v for k, v in ops.launch_counts().items()
+                        if k in SIM_KERNELS}
+            steps = run.stats["cheap_steps"] + run.stats["refresh_steps"]
+            runs[tag] = (run, res)
+            part_b[tag] = {"wall_s": wall, "batched_steps": steps,
+                           "ms_per_macro_step": wall / max(1, steps) * 1e3,
+                           "launches": launches}
+        state_off = runs["off"][1]
+        run_on, (state_on, tele) = runs["on"]
+        part_b["unequal_leaves"] = unequal_leaves(state_off, state_on)
+        part_b.update(telemetry_identities(state_on, tele))
+        part_b["lanes"] = []
+        for i, (p, f) in enumerate(lanes):
+            r = result_from_state(state_on, p, dt_ref=run_on.dt_ref, lane=i)
+            t = summarize(lane_slice(tele, i), policies=run_on.policy_names,
+                          steps=r.steps)
+            part_b["lanes"].append({
+                "policy": p, "frac": f, "macro_steps": r.steps,
+                "truncated": r.extras["truncated"],
+                "hit_rate": t["hit_rate"], "loads": t["loads"],
+                "evictions": t["evictions"],
+                "evict_rank_hist": t["evict_rank_hist"],
+                "jump_hist": t["jump_hist"],
+                "chunk_picks": t["chunk_picks"],
+                "ioq_depth_max": t["ioq_depth_max"],
+                "pbm_bucket_occupancy":
+                    t.get("policy_obs", {}).get("pbm")})
+        t_prof = time.time()
+        prof = profile_nest({t: r for t, (r, _) in runs.items()}, cfgs,
+                            TELEMETRY_WARM, TELEMETRY_WINDOW,
+                            TELEMETRY_PROFILED)
+        part_b["profile_s"] = time.time() - t_prof
+        for tag in runs:
+            part_b[tag]["profile"] = prof[tag]
+        prof_off, prof_on = prof["off"], prof["on"]
+        part_b["launches_added_per_step"] = (
+            prof_on["device_launches_per_step"]
+            - prof_off["device_launches_per_step"])
+        part_b["ms_added_per_step"] = (prof_on["ms_per_step"]
+                                       - prof_off["ms_per_step"])
+        out["b"] = part_b
+        seconds["b"] = time.time() - t_phase - seconds["a"]
+
+        # (c) the flight recorder, against the runner and the event engine
+        spec, cap = _build_point(0.1, 4, 4, 3, 0.4)
+        cfg = make_config(spec, cap, 700e6, "pbm", device=dev)
+        t0 = time.time()
+        sess = TraceSession(spec, policies=("pbm",), device=dev)
+        traced = sess.run(cfg)
+        trace_s = time.time() - t0
+        run = make_runner(spec, bandwidth_ref=700e6, time_slice=0.1,
+                          policies=("pbm",), stepper="horizon",
+                          telemetry=True, device=dev)
+        st, tele_c = run(cfg)
+        te = sess.eviction_total()
+        chrome = sess.to_chrome()
+        xs = [e for e in chrome["traceEvents"] if e["ph"] == "X"]
+        t_wait = time.time()
+        ev_total, ev_wall = event_future.result()
+        seconds["event_wait"] = time.time() - t_wait
+        bar = ERROR_BARS[(0.4, "pbm")]
+        out["c"] = {
+            "P": spec.n_pages, "macro_steps": len(sess.events),
+            "trace_s": trace_s, "trace_evictions": te,
+            "runner_evictions": int(tele_c.evictions[0]),
+            "trace_t": float(traced.t[0]), "runner_t": float(st.t[0]),
+            "event_evictions": ev_total, "event_wall_s": ev_wall,
+            "rel_to_event": te / max(1, ev_total) - 1.0, "bar": bar,
+            "chrome_evicted": sum(e["args"]["evicted"] for e in xs),
+            "chrome_durations_positive": all(e["dur"] > 0 for e in xs),
+            "manifest": collect_manifest(
+                spec=spec, runner=run, policy="pbm", buffer_frac=0.4,
+                scale=0.1, macro_steps=len(sess.events), evictions=te,
+                telemetry=summarize(lane_slice(tele_c, 0),
+                                    policies=run.policy_names,
+                                    steps=int(st.steps[0]))),
+        }
+        seconds["c"] = time.time() - t_phase - seconds["a"] - seconds["b"]
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
+    c = out["c"]
+    out["gpu"] = nvidia_smi_line()
+    out["seconds"] = time.time() - t_phase
+    checks = {
+        "a": all(not part_a[s]["unequal_leaves"] and part_a[s]["loads_equal"]
+                 and part_a[s]["jump_hist_sums_to_steps"]
+                 and part_a[s]["hits_plus_misses_positive"]
+                 for s in ("fixed", "horizon")),
+        "b": (not part_b["unequal_leaves"] and part_b["loads_equal"]
+              and part_b["jump_hist_sums_to_steps"]
+              and all(v > 0 for v in part_b["on"]["launches"].values())),
+        "c": (c["trace_evictions"] == c["runner_evictions"] > 0
+              and c["trace_t"] == c["runner_t"]
+              and abs(c["trace_evictions"] - c["event_evictions"])
+              <= max(2, bar * c["event_evictions"])
+              and c["chrome_evicted"] == c["trace_evictions"]
+              and c["chrome_durations_positive"]),
+    }
+    out["checks"] = checks
+    out["ok"] = all(checks.values())
+    emit(out)
+    if not out["ok"]:
+        fail("sim_telemetry", f"a telemetry check failed: {checks}")
+    return part_b["on"]["launches"]
+
+
 def phase_tpch_probe(dev, recorder: Recorder, max_slices: int = 16) -> None:
     """A few slices of the TPC-H throughput workload (8 tables, P = 8832):
     not a result, only real keys and page sizes at that page count for the
@@ -2006,8 +2331,8 @@ def main() -> int:
 
     all_phases = ["env", "build", "kernels_fuzz", "paged_fuzz", "model_fuzz",
                   "sim_small", "serve_small", "model_serve", "sim_calibrated",
-                  "sim_fixed", "serve_full", "sim_full", "tpch_probe",
-                  "kernels"]
+                  "sim_fixed", "sim_telemetry", "serve_full", "sim_full",
+                  "tpch_probe", "kernels"]
     phases = [p for p in args.phases.split(",") if p] or all_phases
     unknown = set(phases) - set(all_phases)
     if unknown:
@@ -2087,6 +2412,8 @@ def main() -> int:
     finally:
         if events is not None:
             events.close()
+    if "sim_telemetry" in phases:
+        by_phase["sim_telemetry"] = phase_sim_telemetry(dev)
     if "serve_full" in phases:
         serve_full = phase_serve_full(dev, serve_recorder)
     if "sim_full" in phases:

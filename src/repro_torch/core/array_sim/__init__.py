@@ -7,7 +7,8 @@ sweep at once — LRU, PBM, OPT and array-CScan (the cooperative
 substrate, ``coop``) in one batched call — with the fixed-``dt`` or the
 event-horizon time engine until all streams finish, and
 ``result_from_state`` / ``run_sweep`` turn the final state into the
-paper's metrics; ``validate`` holds a run to the port's event engine
+paper's metrics (with ``telemetry=True``, also the carried counters of
+``repro_torch.obs``); ``validate`` holds a run to the port's event engine
 inside the JAX package's error bars.  Eviction, the I/O server's
 grant and the wake solve run as hand-written CUDA kernels on the card
 (``repro_torch.kernels``) and as their plain PyTorch versions on CPU

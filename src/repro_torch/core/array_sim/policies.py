@@ -21,6 +21,9 @@ The protocol:
   ``repro_torch.kernels.ops.batched_evict``;
 * :meth:`ArrayPolicy.scan_horizon` — per stream, the seconds until the
   policy's own state next needs attention (``None``: no own clock);
+* :meth:`ArrayPolicy.observe_init` / :meth:`ArrayPolicy.observe` — the
+  policy's own telemetry row (``repro_torch.obs``), consulted only by a
+  step built with ``telemetry=True``;
 * static knobs: ``request_window``, ``fifo_tie``, ``cooperative`` (the
   policy schedules loads itself: the step then runs the chunk-granular
   substrate of ``array_sim.coop`` against this policy's state).
@@ -28,7 +31,6 @@ The protocol:
 The numeric cores the policies are built from live here too:
 :func:`time_to_bucket` (paper Fig. 10), :func:`next_consumption`
 (paper Fig. 9), :func:`target_buckets`, :func:`shift_timeline`.
-The telemetry hooks (``observe*``) arrive with the telemetry slice.
 """
 
 from __future__ import annotations
@@ -299,6 +301,17 @@ class ArrayPolicy:
         or ``None`` for no policy-specific constraint."""
         return None
 
+    def observe_init(self, spec, lanes: int, device):
+        """Zeros prototype ``(L, n)`` f32 of this policy's telemetry row
+        (``None`` = no policy-specific counters)."""
+        return None
+
+    def observe(self, pstate, ctx: StepCtx):
+        """This step's ``(L, n)`` telemetry row, added into the carried
+        ``Telemetry.pol_obs`` entry (lanes of another policy are masked
+        out by the step)."""
+        return None
+
     def __repr__(self) -> str:  # pragma: no cover
         return f"{type(self).__name__}({self.name})"
 
@@ -321,6 +334,20 @@ class ArrayLRU(ArrayPolicy):
 
     def score_victims(self, pstate, ctx: StepCtx) -> torch.Tensor:
         return _lru_age(ctx)
+
+    def observe_init(self, spec, lanes: int, device):
+        # [resident-page age mass (s), resident-page count] per step:
+        # mean resident age = row[0] / row[1] over the run
+        return torch.zeros((lanes, 2), dtype=torch.float32, device=device)
+
+    def observe(self, pstate, ctx: StepCtx):
+        # the age mass is summed in float64 and rounded once, so it does
+        # not depend on the order a device reduces in
+        res = ctx.resident & ctx.page_valid
+        age = torch.where(res, _lru_age(ctx), _const(0.0, torch.float32,
+                                                     res.device))
+        return torch.stack([age.sum(dim=1, dtype=torch.float64).float(),
+                            res.sum(dim=1, dtype=torch.float32)], dim=1)
 
 
 def pbm_tie_hash(now: torch.Tensor, n_pages: int) -> torch.Tensor:
@@ -394,6 +421,19 @@ class ArrayPBM(ArrayPolicy):
         tb = torch.where(bucket == nb, age / (age + 1.0), tie)
         return bucket.float() + 0.5 * tb
 
+    def observe_init(self, spec, lanes: int, device):
+        # resident-page occupancy per timeline bucket (paper Fig. 10),
+        # step-integrated; the last slot is the not-requested level
+        return torch.zeros((lanes, spec.nb + 1), dtype=torch.float32,
+                           device=device)
+
+    def observe(self, bucket, ctx: StepCtx):
+        nb = ctx.spec.nb
+        res = (ctx.resident & ctx.page_valid).float()
+        return torch.zeros((bucket.shape[0], nb + 1), dtype=torch.float32,
+                           device=bucket.device).scatter_add_(
+            1, bucket.clamp(0, nb).long(), res)
+
 
 class ArrayOPT(ArrayPolicy):
     """OPT / Belady on exact plan distances (paper §3, §4).
@@ -426,6 +466,17 @@ class ArrayOPT(ArrayPolicy):
 
     def score_victims(self, key, ctx: StepCtx) -> torch.Tensor:
         return key
+
+    def observe_init(self, spec, lanes: int, device):
+        # [unreferenced resident pages, referenced resident pages] per
+        # step (the oracle's two score bands)
+        return torch.zeros((lanes, 2), dtype=torch.float32, device=device)
+
+    def observe(self, key, ctx: StepCtx):
+        res = ctx.resident & ctx.page_valid
+        return torch.stack([
+            (res & (key >= 2.0)).sum(dim=1, dtype=torch.float32),
+            (res & (key < 2.0)).sum(dim=1, dtype=torch.float32)], dim=1)
 
 
 class ArrayCScan(ArrayPolicy):
@@ -461,3 +512,13 @@ class ArrayCScan(ArrayPolicy):
         # step to run the pick loop
         from .coop import chunk_horizon
         return chunk_horizon(hz.coop, pstate, hz)
+
+    def observe_init(self, spec, lanes: int, device):
+        # [chunks-done flags summed over streams, scans consuming a chunk]
+        # per step (chunk picks are counted by the step itself)
+        return torch.zeros((lanes, 2), dtype=torch.float32, device=device)
+
+    def observe(self, pstate, ctx: StepCtx):
+        return torch.stack([
+            pstate.done.flatten(1).sum(dim=1, dtype=torch.float32),
+            (pstate.cur_chunk >= 0).sum(dim=1, dtype=torch.float32)], dim=1)

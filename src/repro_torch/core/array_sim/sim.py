@@ -36,9 +36,11 @@ machine:
   device reduces in: a CPU run and a CUDA run of one config see the same
   byte counts.
 
-Not here yet: telemetry, lane/page sharding and the sanitize mode.
-Policy names resolve through ``repro_torch.core.policy_registry`` with
-the JAX package's stable ids.
+``make_runner(telemetry=True)`` threads the carried counters of
+``repro_torch.obs`` through the loop nest (with it off, the step runs
+not one operator more).  Not here yet: lane / page sharding (ROADMAP
+A.5) and the sanitize mode (A.9).  Policy names resolve through
+``repro_torch.core.policy_registry`` with the JAX package's stable ids.
 """
 
 from __future__ import annotations
@@ -51,6 +53,7 @@ import numpy as np
 import torch
 
 from ...kernels import ops as kops
+from ...obs import counters as obs
 from .. import policy_registry
 from . import coop as coop_mod
 from .convert import resolve_device, spec_to_torch
@@ -317,7 +320,8 @@ def make_step(spec: SimSpec, dt: float, time_slice: float,
               policies: Sequence = ("lru", "pbm"),
               vmax: Optional[int] = None, stepper: str = "fixed",
               h_max: float = 8.0, h_io: float = 3.0,
-              wake_exact: bool = True, device="cuda"):
+              wake_exact: bool = True, telemetry: bool = False,
+              device="cuda"):
     """Build ``step(carry, cfg, live=None, lc=None) -> carry`` for a
     policy set, over a lane axis.
 
@@ -355,9 +359,14 @@ def make_step(spec: SimSpec, dt: float, time_slice: float,
     boundaries when the refresh step absorbs up to ``_MAX_ABSORB`` whole
     slices.  Non-saturated lanes behave identically either way.
 
+    ``telemetry`` (``repro_torch.obs``): with it on, the carry ends in a
+    :class:`~repro_torch.obs.counters.Telemetry` the step accumulates from
+    values it computes anyway; with it off (the default) the carry, the
+    operators run and the results are exactly those without telemetry.
+
     ``live`` is an ``(L,)`` bool mask: lanes where it is False come back
-    unchanged (``None`` = every lane steps).  ``lc`` is the cached
-    ``step.lane_consts(cfg)``.
+    unchanged (``None`` = every lane steps), the telemetry included.
+    ``lc`` is the cached ``step.lane_consts(cfg)``.
     """
     if stepper not in ("fixed", "horizon"):
         raise ValueError(f"unknown stepper {stepper!r}: fixed | horizon")
@@ -651,12 +660,15 @@ def make_step(spec: SimSpec, dt: float, time_slice: float,
         return hit, taken, n_load
 
     def core(state: SimState, view: _View, win, cfg: ArraySimConfig,
-             lc: _LaneConsts, h_u, adv_lim, pend_in, slices_u=None):
+             lc: _LaneConsts, h_u, adv_lim, pend_in, slices_u=None,
+             tele=None):
         """One macro-step standing in for ``h_u`` (an ``(L,)`` i32) fine
         steps (all ones under the fixed stepper).  ``adv_lim`` is the
         advance limit against this step's residency (the previous step's
         horizon computed it), ``pend_in`` the queue bytes that horizon saw
-        (``None`` under the fixed stepper)."""
+        (``None`` under the fixed stepper).  Returns the stepper's carry
+        (without telemetry) and the updated ``tele`` (``None`` stays
+        ``None``)."""
         L = h_u.shape[0]
         h_f = h_u.float()
         dt = h_f * dt_ref                                   # (L,)
@@ -1038,8 +1050,54 @@ def make_step(spec: SimSpec, dt: float, time_slice: float,
             churn=churn2,
             pstate=pstate2,
         )
+
+        # ============ telemetry: carried counters (repro_torch.obs) =======
+        # Every source is a value the step computed above; with telemetry
+        # off (tele is None) not one operator of this block runs.
+        if tele is None:
+            tele2 = None
+        else:
+            hits = obs.count(tele.hits, crossed)
+            chunk_picks = tele.chunk_picks
+            if has_coop:
+                hits = obs.count(hits, touched_coop)
+                chunk_picks = obs.count(chunk_picks, coop_mod.chunk_pick(
+                    cstate.inflight, coop_io.inflight) & is_coop)
+            depth = ((req_step3 != _REQ_NONE) & page_valid).sum(
+                dim=1, dtype=torch.int32)
+            # victim rank in the policy's score order (0 = top victim):
+            # one stable sort of the negated masked score (ties by page
+            # index, as the JAX package's double argsort) and its inverse
+            order = torch.sort(-torch.where(evictable, key, ninf_f), dim=1,
+                               stable=True)[1]
+            vrank = torch.empty_like(order).scatter_(1, order,
+                                                     p_ids.expand(L, P))
+            pol_rows = []
+            for j, (p, ps) in enumerate(zip(policies, pstate2)):
+                row = tele.pol_obs[j]
+                if row.shape[1]:
+                    o = p.observe(ps, ctx)
+                    if n_pol > 1:
+                        o = torch.where((lc.pol_local == j).unsqueeze(1), o,
+                                        zero_f)
+                    row = row + o
+                pol_rows.append(row)
+            tele2 = obs.Telemetry(
+                hits=hits,
+                misses=obs.count(tele.misses, demand_hit),
+                loads=obs.count(tele.loads, n_load),
+                evictions=obs.count(tele.evictions, evict),
+                evict_rank=obs.hist(tele.evict_rank,
+                                    obs.log2_bin(vrank + 1), evict),
+                jump_hist=obs.hist(tele.jump_hist, obs.log2_bin(h_u), 1),
+                ioq_depth_sum=obs.count(tele.ioq_depth_sum, depth),
+                ioq_depth_max=torch.maximum(tele.ioq_depth_max, depth),
+                chunk_picks=chunk_picks,
+                pol_obs=tuple(pol_rows),
+            )
+
         if not horizon:
-            return new_state, view2
+            return (new_state, view2), tele2
 
         # ================= event horizon of the NEXT step =================
         # The earliest "interesting" time ahead: the post-advance trigger
@@ -1125,18 +1183,23 @@ def make_step(spec: SimSpec, dt: float, time_slice: float,
         next_h = torch.minimum(
             torch.floor(next_dt / dt_ref).clamp(min=1.0), lc.h_cap,
         ).to(torch.int32)
-        return new_state, view2, win2, adv_lim2, pend_bytes2, next_h
+        return (new_state, view2, win2, adv_lim2, pend_bytes2, next_h), tele2
 
+    # the telemetry rides at the END of the carry, so the runner's loop
+    # conditions read the same positions with the knob on or off
     if not horizon:
         def step(carry, cfg: ArraySimConfig, live=None, lc=None):
             # one fine step; the refresh flavour closes a slice
             cfg = _lanes(cfg)
             lc = lane_consts(cfg) if lc is None else lc
-            state, view = carry
+            state, view = carry[:2]
             win = window(view)
             h_u = torch.ones_like(cfg.policy)
-            out = core(state, view, win, cfg, lc, h_u,
-                       adv_limit(win, state.resident), None)
+            out, tele2 = core(state, view, win, cfg, lc, h_u,
+                              adv_limit(win, state.resident), None,
+                              tele=carry[2] if telemetry else None)
+            if telemetry:
+                out = (*out, tele2)
             return out if live is None else _freeze(live, out, carry)
     elif refresh:
         def step(carry, cfg: ArraySimConfig, live=None, lc=None):
@@ -1144,7 +1207,7 @@ def make_step(spec: SimSpec, dt: float, time_slice: float,
             # the slice budget of n_inner fine steps
             cfg = _lanes(cfg)
             lc = lane_consts(cfg) if lc is None else lc
-            state, view, win, adv_lim, pend, rem_u, next_h = carry
+            state, view, win, adv_lim, pend, rem_u, next_h = carry[:7]
             if wake_exact:
                 # a wake-exact supersaturated jump may clear whole slices
                 # beyond this one's tail: absorb up to _MAX_ABSORB of them
@@ -1162,11 +1225,13 @@ def make_step(spec: SimSpec, dt: float, time_slice: float,
                 slices_u = 1 + extra
             else:
                 h_u, slices_u = rem_u, None
-            new_state, view2, win2, adv_lim2, pend2, next_h2 = core(
+            (new_state, view2, win2, adv_lim2, pend2, next_h2), tele2 = core(
                 state, view, win, cfg, lc, h_u, adv_lim, pend,
-                slices_u=slices_u)
+                slices_u=slices_u, tele=carry[7] if telemetry else None)
             out = (new_state, view2, win2, adv_lim2, pend2,
                    torch.full_like(rem_u, n_inner), next_h2)
+            if telemetry:
+                out = (*out, tele2)
             return out if live is None else _freeze(live, out, carry)
     else:
         def step(carry, cfg: ArraySimConfig, live=None, lc=None):
@@ -1174,12 +1239,15 @@ def make_step(spec: SimSpec, dt: float, time_slice: float,
             # at least one fine step of slice for the refresh to absorb
             cfg = _lanes(cfg)
             lc = lane_consts(cfg) if lc is None else lc
-            state, view, win, adv_lim, pend, rem_u, next_h = carry
+            state, view, win, adv_lim, pend, rem_u, next_h = carry[:7]
             h = torch.minimum(next_h, rem_u - 1)
-            new_state, view2, win2, adv_lim2, pend2, next_h2 = core(
-                state, view, win, cfg, lc, h, adv_lim, pend)
+            (new_state, view2, win2, adv_lim2, pend2, next_h2), tele2 = core(
+                state, view, win, cfg, lc, h, adv_lim, pend,
+                tele=carry[7] if telemetry else None)
             out = (new_state, view2, win2, adv_lim2, pend2, rem_u - h,
                    next_h2)
+            if telemetry:
+                out = (*out, tele2)
             return out if live is None else _freeze(live, out, carry)
 
     step.adv_limit = adv_limit
@@ -1207,6 +1275,7 @@ def make_runner(
     h_max: float = 8.0,
     h_io: float = 3.0,
     wake_exact: bool = True,
+    telemetry: bool = False,
     device="cuda",
 ):
     """``run(cfg) -> SimState``: steps every lane of a stacked config
@@ -1238,12 +1307,19 @@ def make_runner(
     ``policies`` is the set of registry policies the runner's lanes may
     select (default: every array policy, the cooperative one included);
     a lane whose id is not in the set ends truncated on its first step.
+
+    ``telemetry=True`` threads the carried counters of ``repro_torch.obs``
+    through the loop nest (frozen per lane like every other leaf): the
+    runner then returns ``(state, telemetry)`` instead of the bare state.
+    Off (the default), the steps run exactly the operators they run
+    without it.
     """
     dev = resolve_device(device)
     pols = resolve_policies(policies)
     dt = float(step_pages) * float(np.max(spec.page_size)) / float(bandwidth_ref)
     kw = dict(policies=pols, vmax=vmax, stepper=stepper, h_max=h_max,
-              h_io=h_io, wake_exact=wake_exact, device=dev)
+              h_io=h_io, wake_exact=wake_exact, telemetry=telemetry,
+              device=dev)
     cheap = make_step(spec, dt, time_slice, prefetch_pages, refresh=False, **kw)
     full = make_step(spec, dt, time_slice, prefetch_pages, refresh=True, **kw)
     n_inner = cheap.n_inner
@@ -1253,12 +1329,17 @@ def make_runner(
         state = init_state(spec, pols, lanes=L, device=dev)
         view0 = cheap.query_view(state.qidx, state.pos)
         if stepper == "fixed":
-            return state, view0
-        win0 = cheap.window(view0)
-        i32 = dict(dtype=torch.int32, device=dev)
-        return (state, view0, win0, cheap.adv_limit(win0, state.resident),
-                torch.zeros(L, dtype=torch.float32, device=dev),
-                torch.full((L,), n_inner, **i32), torch.ones(L, **i32))
+            carry = (state, view0)
+        else:
+            win0 = cheap.window(view0)
+            i32 = dict(dtype=torch.int32, device=dev)
+            carry = (state, view0, win0,
+                     cheap.adv_limit(win0, state.resident),
+                     torch.zeros(L, dtype=torch.float32, device=dev),
+                     torch.full((L,), n_inner, **i32), torch.ones(L, **i32))
+        if telemetry:
+            carry = (*carry, obs.init_telemetry(pols, spec, L, dev))
+        return carry
 
     def cond(carry, cfg):
         st = carry[0]
@@ -1272,7 +1353,7 @@ def make_runner(
         rem_u, next_h = carry[5], carry[6]
         return (rem_u > 1) & (next_h < rem_u)
 
-    def run(cfg: ArraySimConfig) -> SimState:
+    def run(cfg: ArraySimConfig):
         cfg = _lanes(cfg)
         if cfg.policy.device != dev:
             raise ValueError(
@@ -1305,13 +1386,14 @@ def make_runner(
             carry = full(carry, cfg, None if n_live == L else live, lc)
             stats["cheap_steps"] += i
             stats["refresh_steps"] += 1
-        return carry[0]
+        return (carry[0], carry[-1]) if telemetry else carry[0]
 
     #: batched step calls of the last run (each launches every kernel once)
     run.stats = {"cheap_steps": 0, "refresh_steps": 0}
     run.dt_ref = dt
     run.stepper = stepper
     run.wake_exact = wake_exact
+    run.telemetry = telemetry
     run.policy_names = tuple(p.name for p in pols)
     run.device = dev
     run.cheap, run.full = cheap, full
@@ -1407,10 +1489,13 @@ def run_workload_array(
     runner=None,
     stepper: str = "fixed",
     wake_exact: bool = True,
+    telemetry: bool = False,
     device="cuda",
 ) -> ArrayResult:
     """One policy, one buffer size: compile the workload (multi-table
-    streams included), run it to completion, return the paper's metrics.
+    streams included), run it to completion, return the paper's metrics
+    (and, with ``telemetry``, the counters' summary in
+    ``extras["telemetry"]``).
     Check ``result.extras["truncated"]`` when lowering ``max_time``: a run
     cut short by the livelock guard reports lower bounds, not results."""
     from .compiler import compile_workload
@@ -1423,12 +1508,19 @@ def run_workload_array(
                              time_slice=time_slice,
                              prefetch_pages=prefetch_pages,
                              policies=(policy_name,), stepper=stepper,
-                             wake_exact=wake_exact, device=dev)
+                             wake_exact=wake_exact, telemetry=telemetry,
+                             device=dev)
     cfg = make_config(spec, capacity_bytes, bandwidth, policy_name,
                       max_time=max_time, device=dev)
     t0 = _time.time()
-    state = runner(cfg)
+    out = runner(cfg)
     _synchronize(dev)
-    return result_from_state(state, policy_name,
-                             sim_wall=_time.time() - t0,
-                             dt_ref=runner.dt_ref)
+    state, tele = out if runner.telemetry else (out, None)
+    result = result_from_state(state, policy_name,
+                               sim_wall=_time.time() - t0,
+                               dt_ref=runner.dt_ref)
+    if tele is not None:
+        result.extras["telemetry"] = obs.summarize(
+            obs.lane_slice(tele, 0), policies=runner.policy_names,
+            steps=result.steps)
+    return result

@@ -2,7 +2,8 @@
 dict/heapq machine: ``core/engine.py``, ``scans.py``, ``stats.py`` and
 ``policies/``) against the JAX package's ``run_workload``: the same
 workload, built by each package from the same seed, under LRU, PBM, OPT
-and CScan (the ABM) at two buffer points.  Both are plain Python over
+and CScan (the ABM), and the registry's event-only MRU, PBM/LRU and
+Attach&Throttle, at two buffer points.  Both are plain Python over
 equal inputs, so every metric must be EQUAL, not close."""
 
 import functools
@@ -17,7 +18,8 @@ from repro_torch.core import stats as TS
 from repro_torch.core import workload as TW
 
 SCALE = 0.05
-POLICIES = ("lru", "pbm", "opt", "cscan")
+POLICIES = ("lru", "pbm", "opt", "cscan", "mru", "pbm_lru", "attach")
+PAPER = ("lru", "pbm", "opt", "cscan")
 FRACS = (0.2, 0.5)
 
 
@@ -90,6 +92,6 @@ def test_sharing_potential_and_belady_replay_equal():
 
 def test_the_paper_ordering_holds_in_the_port_engine():
     """CScan loads the least at a small pool, OPT no more than LRU."""
-    io = {p: _run("torch", p, 0.2).total_io_bytes for p in POLICIES}
+    io = {p: _run("torch", p, 0.2).total_io_bytes for p in PAPER}
     assert io["cscan"] < min(io["lru"], io["pbm"], io["opt"])
     assert io["opt"] <= io["lru"]

@@ -16,9 +16,10 @@ import repro_torch
 from repro_torch.core import policy_registry
 from repro_torch.core.array_sim import (
     compile_workload, init_state, make_config, make_runner, resolve_device,
-    resolve_policies, run_sweep, spec_to_torch,
+    resolve_policies, run_sweep, run_workload_array, spec_to_torch,
 )
 from repro_torch.core.workload import make_lineitem_db, micro_streams
+from repro_torch.obs.trace import TraceSession
 from repro_torch.configs import get_config
 from repro_torch.launch import serve
 from repro_torch.models import build_model, init_params, load_jax_params
@@ -32,6 +33,12 @@ MODULES = sorted(
 def _spec():
     db = make_lineitem_db(scale_tuples=2_000_000)
     return compile_workload(db, micro_streams(db, 2, 2, seed=1))
+
+
+def _telemetry_run(spec):
+    db = make_lineitem_db(scale_tuples=2_000_000)
+    return run_workload_array(db, micro_streams(db, 2, 2, seed=1), "lru",
+                              capacity_bytes=1e6, spec=spec, telemetry=True)
 
 
 def test_every_submodule_is_listed():
@@ -64,7 +71,12 @@ def test_every_submodule_is_listed():
                  "repro_torch.core.policies.pbm",
                  "repro_torch.core.policies.opt",
                  "repro_torch.core.policies.cscan",
-                 "repro_torch.core.array_sim.validate"):
+                 "repro_torch.core.array_sim.validate",
+                 "repro_torch.core.pdt", "repro_torch.core.snapshots",
+                 "repro_torch.core.policies.pbm_lru",
+                 "repro_torch.core.policies.attach_throttle",
+                 "repro_torch.obs", "repro_torch.obs.counters",
+                 "repro_torch.obs.trace", "repro_torch.obs.manifest"):
         assert want in MODULES
 
 
@@ -119,9 +131,12 @@ def _no_gpu():
         build_model(get_config("qwen2_1_5b", smoke=True)).param_specs, 0,
         torch.float32),
     lambda spec: load_jax_params({"w": np.zeros((2, 2), np.float32)}),
+    lambda spec: TraceSession(spec),
+    _telemetry_run,
 ], ids=["make_runner", "init_state", "make_config", "spec_to_torch",
         "resolve_device", "run_sweep", "PagedTinyLM", "launch.serve",
-        "models.init_params", "models.load_jax_params"])
+        "models.init_params", "models.load_jax_params", "obs.TraceSession",
+        "run_workload_array_telemetry"])
 def test_entry_points_default_to_cuda_and_raise_without_a_gpu(call):
     if not _no_gpu():
         pytest.skip("a GPU is present: the default device works here")
@@ -141,6 +156,8 @@ def test_cpu_runs_only_when_asked_for():
 
 
 def test_registry_names_and_stable_ids():
+    """Since the event side's last policies are ported, the registry holds
+    the JAX package's seven entries; the array ids are unchanged."""
     assert policy_registry.names(backend="array") == [
         "lru", "cscan", "pbm", "opt"]
     assert policy_registry.array_ids() == {
@@ -150,9 +167,11 @@ def test_registry_names_and_stable_ids():
     assert [p.name for p in resolve_policies()] == [
         "lru", "cscan", "pbm", "opt"]
     assert policy_registry.names(backend="event") == [
-        "lru", "cscan", "pbm", "opt"]
+        "lru", "cscan", "pbm", "opt", "mru", "pbm_lru", "attach"]
+    assert policy_registry.names() == policy_registry.names(backend="event")
+    assert policy_registry.get("mru").backends == ("event",)
     with pytest.raises(KeyError, match="registered policies"):
-        policy_registry.get("mru")
+        policy_registry.get("clock")
 
 
 def test_cscan_is_registered_but_not_ported():
@@ -173,6 +192,6 @@ def test_unported_options_are_refused_not_ignored():
     spec = _spec()
     with pytest.raises(ValueError, match="fixed | horizon"):
         make_runner(spec, stepper="event", device="cpu")
-    for opt in ("mesh", "sanitize", "telemetry", "page_axis"):
+    for opt in ("mesh", "sanitize", "page_axis"):
         with pytest.raises(TypeError):
             make_runner(spec, device="cpu", **{opt: True})

@@ -2,10 +2,13 @@
 one step launches, by operator, and what a step costs on the host clock.
 
     python3 tools/profile_step.py [--scale 0.25] [--steps 40] [--stepper horizon]
+                                  [--telemetry]
 
 The lanes are ``chip_smoke.py``'s calibrated sweep (every policy, the
 cooperative one included, at every buffer fraction); ``--stepper fixed``
-profiles the fixed-dt step instead of the horizon macro-step.
+profiles the fixed-dt step instead of the horizon macro-step, and
+``--telemetry`` the step with the carried counters of ``repro_torch.obs``
+on (without it the runner is built as before: telemetry off).
 
 Prints one JSON object per line: the card, the step's wall time (host
 clock around steps that end in a synchronise), then for one profiled
@@ -34,6 +37,8 @@ def main() -> int:
     ap.add_argument("--warm", type=int, default=400)
     ap.add_argument("--stepper", choices=("horizon", "fixed"),
                     default="horizon")
+    ap.add_argument("--telemetry", action="store_true",
+                    help="build the runner with telemetry=True")
     args = ap.parse_args()
 
     import torch
@@ -46,32 +51,23 @@ def main() -> int:
     spec, ws = cs.micro_workload(args.scale, 8, 16)
     _, cfgs = cs.sweep_configs(spec, ws, cs.FRACS, dev)
     run = make_runner(spec, policies=cs.POLICIES, device=dev,
-                      time_slice=0.1 * args.scale, stepper=args.stepper)
+                      time_slice=0.1 * args.scale, stepper=args.stepper,
+                      telemetry=args.telemetry)
     lc = run.cheap.lane_consts(cfgs)
     carry = run.init_carry(cfgs)
     live = torch.ones(cfgs.policy.shape[0], dtype=torch.bool, device=dev)
-    n_inner = run.cheap.n_inner
     count = [0]
 
     def slice_of_steps(carry, n):
-        # the runner's own nest, without its reads: cheap steps while the
-        # slice lasts for any lane (the fixed stepper: n_inner - 1 of
-        # them), then the refresh step
-        for _ in range(n):
-            count[0] += 1
-            if args.stepper == "fixed":
-                step = run.full if count[0] % n_inner == 0 else run.cheap
-                carry = step(carry, cfgs, None, lc)
-                continue
-            inner = live & run.inner_cond(carry)
-            if int(inner.sum()) == 0:
-                carry = run.full(carry, cfgs, live, lc)
-            else:
-                carry = run.cheap(carry, cfgs, inner, lc)
+        # the runner's own nest, without its reads (chip_smoke.nest_steps);
+        # every step counts towards the fixed stepper's slice ends
+        carry = cs.nest_steps(run, cfgs, lc, live, carry, n, count[0])
+        count[0] += n
         return carry
 
     print(json.dumps({"gpu": cs.nvidia_smi_line(), "P": spec.n_pages,
-                      "L": int(live.shape[0]), "stepper": args.stepper}),
+                      "L": int(live.shape[0]), "stepper": args.stepper,
+                      "telemetry": args.telemetry}),
           flush=True)
     carry = slice_of_steps(carry, args.warm)
     torch.cuda.synchronize()
