@@ -10,7 +10,8 @@ engine inside the JAX package's error bars; its telemetry tier: carried
 counters, flight recorder, manifest), the
 paged-KV serving path (page pool, policy driver, continuous-batching
 engine, ``PagedTinyLM`` decoding through paged attention) and the model
-stack's serving path (dense LM, Mamba2 hybrid and xLSTM at full width
+stack's serving path (dense LM, Mamba2 hybrid, xLSTM, MoE, the 5:1
+local:global ring, the vision stub and the encoder-decoder at full width
 through flash attention, the Mamba2 scan and the mLSTM) — builds the
 hand-written CUDA kernels from the sources in this checkout, and holds
 each kernel to its plain PyTorch version on the card.  It imports nothing
@@ -56,10 +57,15 @@ One JSON object per phase, one per line:
                       equal stats, token gaps and finish order, every
                       forward's logits within 1e-4
 8. ``model_serve``    the model stack's serving path at the full widths of
-                      qwen2_1_5b, zamba2_2_7b and xlstm_350m in bf16 (random
-                      weights from seed 0): prefill of 4 x 4,096 tokens (and
-                      1 x 32,768 for the attention families), 32 decode steps
-                      at B = 8; then decode-vs-prefill in f32 on 16 tokens
+                      qwen2_1_5b, zamba2_2_7b, xlstm_350m,
+                      granite_moe_1b_a400m, gemma3_12b, internvl2_26b,
+                      seamless_m4t_large_v2 and llama4_scout_17b_a16e
+                      (4 of its 48 layers) in bf16 (random weights from
+                      seed 0), one family in memory at a time: prefill of
+                      4 x 4,096 positions (and 1 x 32,768 for qwen2, zamba2
+                      and gemma3), 32 decode steps at B = 8; after each
+                      family, decode-vs-prefill in f32 on 16 tokens over
+                      one period of its layers
 9. ``sim_calibrated`` micro workload, scale 0.25, 24 lanes = {lru, pbm, opt,
                       cscan} x buffer fractions {0.1 .. 1.0}, horizon
                       stepper, to completion; its 12 lanes at 0.1 / 0.2 /
@@ -96,8 +102,19 @@ One JSON object per phase, one per line:
                       reported as truncated
 14. ``tpch_probe``    a few slices of the TPC-H workload (P = 8832), only to
                       give the kernels that shape with real keys and sizes
-15. ``kernels``       every kernel against its plain version on inputs
-                      captured from phases 8-14, and its time per call
+15. ``page_split``    page-split candidate selection: (a) B1 and B2 with
+                      ``page_shards`` 2, 4 and 8 against the single-stage
+                      kernel on the inputs captured at P = 768, 3,072 and
+                      8,832 and on seeded and fuzz cases, and B1-B3 at
+                      P = 20,000 against their plain versions (0
+                      mismatches); (b) ``tpch_big``, TPC-H at scale 4.0
+                      (P = 35,328, beyond one block a lane), 16 slices of
+                      the horizon stepper, its inputs kept for ``kernels``;
+                      (c) ``make_runner(mesh=)`` with a ('lanes', 'page')
+                      mesh of shape (1, 4) on the card at sim_small's
+                      point, both steppers, bit-equal to ``mesh=None``
+16. ``kernels``       every kernel against its plain version on inputs
+                      captured from phases 8-15, and its time per call
                       (``ms``: CUDA events around one call, median of up to
                       30) beside the plain version's, a PyTorch yardstick
                       and its bound; also ``device_ms`` and ``host_ms``
@@ -139,13 +156,15 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(HERE, "src"))
 
 TIME_LIMIT_S = 1200.0          # the whole script, kernel build included
-#: what the whole script aims at: the serving phases take ~100 s before
-#: sim_full, so this is the first slice's 560 s plus that, to leave sim_full
-#: the budget it had before them
-TARGET_S = 680.0
-#: kept for the phases after sim_full (tpch_probe, kernels), and for the
-#: kernels phase's timing of the model-stack kernels
-TAIL_S, MODEL_KERNELS_S = 60.0, 40.0
+#: what the whole script aims at, to stay under 900 s: sim_full is cut to
+#: what is left of it (never below 8 slices, where the 24-lane calibrated
+#: sweep's ~300 s keeps it); eight model families and the page split's
+#: phase add ~150 s to the earlier phases' ~690 s, so the aim sits that
+#: much above the 680 s it was before them
+TARGET_S = 840.0
+#: kept for the phases after sim_full (tpch_probe, page_split, kernels),
+#: and for the kernels phase's timing of the model-stack kernels
+TAIL_S, MODEL_KERNELS_S = 120.0, 100.0
 #: a scale-1.0 macro-step (P = 3072) over a scale-0.25 one (P = 768): 7.40
 #: against 4.94 ms on an H100 80GB HBM3 at 700 W (sim_full and
 #: sim_calibrated of one run of this script); sim_full's budget reads it
@@ -171,16 +190,32 @@ REPLACES = {
     "mlstm_chunked": "src/repro/kernels/mlstm.py:84",
 }
 MODEL_KERNELS = ("flash_attention", "mamba2_scan", "mlstm_chunked")
-#: the model stack's serving path: three families at their full published
-#: widths (src/repro_torch/configs), bf16, weights drawn on the card
-MODEL_ARCHS = ("qwen2_1_5b", "zamba2_2_7b", "xlstm_350m")
-#: prefill: B = 4 prompts of 4,096 tokens; the attention families also take
-#: one sequence of prefill_32k's 32,768 tokens (one chip's share of it)
+#: the model stack's serving path: eight families at their full published
+#: widths (src/repro_torch/configs), bf16, weights drawn on the card, one
+#: family in memory at a time
+MODEL_ARCHS = ("qwen2_1_5b", "zamba2_2_7b", "xlstm_350m",
+               "granite_moe_1b_a400m", "gemma3_12b", "internvl2_26b",
+               "seamless_m4t_large_v2", "llama4_scout_17b_a16e")
+#: depth cuts, named on the family's row as ``reduced``: llama4's 48 layers
+#: of 16 experts are about 200 GB in bf16, more than one card holds
+MODEL_CUTS = {"llama4_scout_17b_a16e": {"n_layers": 4}}
+#: prefill: B = 4 prompts of 4,096 tokens; qwen2, zamba2 and gemma3 (whose
+#: 1,024-token window matters there) also take one sequence of
+#: prefill_32k's 32,768 tokens (one chip's share of it).  The other new
+#: families take no 32k prefill: the first cut of the time budget, named on
+#: model_serve's line (``cuts``).  internvl2's prompt is 256 random patch
+#: embeddings and 3,840 tokens; seamless's is 4,096 random frame
+#: embeddings and 1,024 target tokens (its cross-attention's T != S)
 MODEL_PREFILL = ((4, 4096), (1, 32_768))
-LONG_PREFILL_ARCHS = ("qwen2_1_5b", "zamba2_2_7b")
+LONG_PREFILL_ARCHS = ("qwen2_1_5b", "zamba2_2_7b", "gemma3_12b")
+ENC_TARGET_DIV = 4
+#: layers of one pattern period, the f32 decode-vs-prefill check's depth
+#: (1 elsewhere; seamless: one encoder and one decoder layer)
+MODEL_PERIOD = {"zamba2_2_7b": 6, "xlstm_350m": 8, "gemma3_12b": 6}
 #: decode: 32 tokens at B = 8 from an empty cache of 4,096 positions
 MODEL_DECODE = dict(batch=8, steps=32, cache=4096)
-#: decode-vs-prefill in f32 at full width: the JAX model test's bar
+#: decode-vs-prefill in f32 at full width, one period: the JAX model test's
+#: bar
 DECODE_PREFILL_TOKENS, DECODE_PREFILL_TOL = 16, 2e-2
 BF16_OPS_PER_S = 989e12        # H100 SXM dense bf16 tensor-core rate
 SIM_KERNELS = ("batched_evict", "fifo_grant", "wake_solve")
@@ -260,7 +295,14 @@ SASS_FORBIDDEN = {"pbm_timeline": ("HGMMA", "HMMA")}
 #: SASS_REQUIRED library is); in mlstm the f32 and the bf16 path's kernels
 NO_LOCAL_KERNELS = {"pbm_timeline": {"fifo_grant_kernel": 1,
                                      "wake_solve_kernel": 1,
-                                     "batched_evict_kernel": 2},
+                                     "batched_evict_kernel": 2,
+                                     "split_evict_cand": 2,
+                                     "split_queue_cand": 2,
+                                     "split_sort_slices": 3,
+                                     "split_rank": 1,
+                                     "split_evict_finish": 1,
+                                     "split_grant_finish": 1,
+                                     "split_wake_finish": 1},
                     "mlstm": {"mlstm_ffma": 1, "mlstm_scores_bf16": 1,
                               "mlstm_recur_bf16": 2}}
 
@@ -366,14 +408,33 @@ def _compare(got, want):
     return bad, err
 
 
+def _plain_split(unsplit, split):
+    """A buffer-pool kernel's plain version that takes ``page_shards`` as
+    the simulator's step passes it: the sharded plain version for a split
+    into more than one shard, else the unsplit one."""
+    def plain(*args, page_shards=1, **static):
+        if page_shards > 1:
+            return split(*args, page_shards, **static)
+        return unsplit(*args, **static)
+    return plain
+
+
 def kernel_fns():
     from repro_torch.kernels import ops, ref
     return {
-        "batched_evict": (ops.batched_evict, ref.batched_evict_ref),
-        "fifo_grant": (ops.fifo_grant, ref.fifo_grant_ref),
+        "batched_evict": (ops.batched_evict, _plain_split(
+            ref.batched_evict_ref, ref.evict_page_sharded)),
+        "fifo_grant": (ops.fifo_grant, _plain_split(
+            ref.fifo_grant_ref, ref.grant_page_sharded)),
         "wake_solve": (ops.wake_solve, ref.wake_solve_ref),
         "paged_attention": (ops.paged_attention, ref.paged_attention_ref),
     }
+
+
+def _split(args, static) -> bool:
+    """Whether a captured call took the page-split path."""
+    from repro_torch.kernels.pbm_timeline import splits
+    return splits(args[0].shape[1], static.get("page_shards", 1))
 
 
 def path_counts(name, inputs) -> dict:
@@ -382,8 +443,11 @@ def path_counts(name, inputs) -> dict:
     the head of the service order selected and sorted alone, the whole row
     sorted, and for batched_evict every page a candidate), computed on the
     host from the inputs as the kernel decides on the device."""
-    from repro_torch.kernels.pbm_timeline import PATHS, lane_paths
+    from repro_torch.kernels.pbm_timeline import (
+        PATHS, SPLIT_PATHS, lane_paths)
     counts = {f"{path}_lanes": 0 for path in PATHS[name]}
+    if any(_split(args, static) for args, static in inputs):
+        counts.update({f"{path}_lanes": 0 for path in SPLIT_PATHS})
     for args, static in inputs:
         for path in lane_paths(name, args, static):
             counts[f"{path}_lanes"] += 1
@@ -393,9 +457,11 @@ def path_counts(name, inputs) -> dict:
 def path_counts_by_policy(name, inputs) -> dict:
     """``path_counts`` split by the policy of each lane: every recorded
     sweep has the lanes of ``sweep_configs`` (``LANE_POLICIES``)."""
-    from repro_torch.kernels.pbm_timeline import PATHS, lane_paths
-    counts = {p: {f"{path}_lanes": 0 for path in PATHS[name]}
-              for p in POLICIES}
+    from repro_torch.kernels.pbm_timeline import (
+        PATHS, SPLIT_PATHS, lane_paths)
+    paths = PATHS[name] + SPLIT_PATHS[1:] if any(
+        _split(args, static) for args, static in inputs) else PATHS[name]
+    counts = {p: {f"{path}_lanes": 0 for path in paths} for p in POLICIES}
     for args, static in inputs:
         if args[0].shape[0] != len(LANE_POLICIES):
             raise ValueError(f"{name}: a captured input has "
@@ -625,6 +691,25 @@ def sim_kernel_entries(dev, recorder: Recorder, launches: dict,
                 "bound_ms": bound, "bound_by": bound_by,
             }
             by_p[P]["paths"] = path_counts(name, samples)   # every input at P
+            if _split(args, static):     # each launch of the split's stages
+                by_p[P]["cuda_kernels"] = cuda_kernel_times(
+                    lambda: kernel(*args, **static))
+                if name == "batched_evict":
+                    # the same keys with every lane freeing: the split's
+                    # head path in every lane
+                    busy = [*args[:3], torch.full_like(args[3], 1e12)]
+                    b, e = _compare(kernel(*busy, **static),
+                                    plain(*busy, **static))
+                    bad, err = bad + b, max(err, e)
+                    by_p[P]["every_lane_freeing"] = {
+                        "mismatches": b, "paths": path_counts(
+                            name, [(busy, static)]),
+                        "ms": _time_ms(lambda: kernel(*busy, **static), dev),
+                        "plain_ms": _time_ms(
+                            lambda: plain(*busy, **static), dev),
+                        **_queued_row(lambda: kernel(*busy, **static)),
+                        "cuda_kernels": cuda_kernel_times(
+                            lambda: kernel(*busy, **static))}
         if main_p not in by_p:
             fail("kernels", f"{name}: no input captured at P={main_p}")
         main = by_p[main_p]
@@ -1041,7 +1126,9 @@ def phase_model_fuzz(dev) -> None:
 
 class FirstCalls(Recorder):
     """A :class:`Recorder` of the model-stack kernels that keeps the
-    arguments of the first call at each input shape, labelled with the
+    arguments of the first call at each input shape and keyword arguments
+    (gemma3's local and global layers, seamless's encoder and
+    cross-attention), labelled with the
     configuration that made it: ``samples`` is kernel -> [(label, args,
     static), ...]."""
 
@@ -1053,7 +1140,8 @@ class FirstCalls(Recorder):
         def wrapped(*args, **static):
             got = self.samples.setdefault(name, [])
             shape = tuple(a.shape for a in args)
-            if all(tuple(x.shape for x in s[1]) != shape for s in got):
+            if all(tuple(x.shape for x in s[1]) != shape or s[2] != static
+                   for s in got):
                 t0 = time.perf_counter()
                 got.append((self.label, [a.clone() for a in args],
                             dict(static)))
@@ -1072,9 +1160,14 @@ def _sync_time(fn):
 
 
 def _zero_cache(specs, dev, dtype=None):
+    """A zero cache of the specs' tree; float leaves in ``dtype`` if
+    given."""
     import torch
-    return {k: torch.zeros(s.shape, dtype=dtype or s.dtype, device=dev)
-            for k, s in specs.items()}
+    if isinstance(specs, dict):
+        return {k: _zero_cache(v, dev, dtype) for k, v in specs.items()}
+    dt = dtype if dtype is not None and specs.dtype.is_floating_point \
+        else specs.dtype
+    return torch.zeros(specs.shape, dtype=dt, device=dev)
 
 
 def _decode(model, params, cache, first, steps: int):
@@ -1090,25 +1183,91 @@ def _decode(model, params, cache, first, steps: int):
     return bool(finite)
 
 
+def prefill_batch(cfg, B: int, T: int, g, dev, dtype, patches=None):
+    """The family's prefill batch of B prompts of T positions: tokens; for
+    the vision stub ``patches`` random patch embeddings (default the
+    config's 256) and T - patches tokens; for the encoder-decoder T random
+    frame embeddings and T / ENC_TARGET_DIV target tokens."""
+    import torch
+    if cfg.is_encdec:
+        tgt = max(1, T // ENC_TARGET_DIV)
+        return {"src_embeds": torch.randn((B, T, cfg.d_model), generator=g,
+                                          device=dev, dtype=dtype),
+                "tgt_tokens": torch.randint(0, cfg.vocab_size, (B, tgt),
+                                            generator=g, device=dev,
+                                            dtype=torch.int32)}
+    n = 0 if cfg.frontend != "vision" else (
+        cfg.frontend_tokens if patches is None else patches)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, T - n),
+                                     generator=g, device=dev,
+                                     dtype=torch.int32)}
+    if cfg.frontend == "vision":
+        batch["patch_embeds"] = torch.randn((B, n, cfg.d_model), generator=g,
+                                            device=dev, dtype=dtype)
+    return batch
+
+
+def fill_cross(model, params, cache, src):
+    """The encoder-decoder's cross cache from the encoder's output on the
+    frames ``src`` (``ENC_FRAMES`` of them), as serving fills it."""
+    from repro_torch.models.transformer import encdec_cross_kv
+    ck, cv = encdec_cross_kv(params, model.encode(params, src), model.cfg)
+    cache["cross"]["k"].copy_(ck)
+    cache["cross"]["v"].copy_(cv)
+    cache["enc_done"].fill_(1)
+
+
+def one_period(cfg, params):
+    """The family cut to one pattern period at full width, its weights the
+    first period of ``params`` in f32, and for an MoE a capacity with no
+    drop (decode, one token a row, never drops; a prefill may): ``(model,
+    params32, what was cut)``."""
+    import dataclasses
+    from repro_torch.models import build_model
+    from repro_torch.models.layers import tree_paths, unflatten
+    cut = {"n_layers": min(MODEL_PERIOD.get(cfg.name, 1), cfg.n_layers)}
+    if cfg.is_encdec:
+        cut["encoder_layers"] = 1
+    if cfg.moe:
+        cut["capacity_factor"] = cfg.n_experts / cfg.top_k
+    model = build_model(dataclasses.replace(cfg, **cut))
+    specs = tree_paths(model.param_specs)
+    full = tree_paths(params)
+    params32 = unflatten({
+        path: full[path][tuple(slice(0, d) for d in spec.shape)].float()
+        for path, spec in specs.items()})
+    return model, params32, cut
+
+
 def decode_matches_prefill(model, params, dev, seed: int = 3):
     """The last logits of one prompt of DECODE_PREFILL_TOKENS tokens, in
     f32, by prefill and decoded token by token from a zero f32 cache
     (xLSTM's with its sLSTM stabiliser ``sm`` at -1e9, where
     ``slstm_block`` starts it; a zero cache is a fault of the reference,
-    ROADMAP §C): ``(max |difference|, largest excess over atol = rtol =
-    DECODE_PREFILL_TOL (0 when all within), max |prefill logit|)``."""
+    ROADMAP §C; internvl2's prompt with no patch position, decode having
+    no frontend; seamless's cross cache filled from the encoder on the
+    prefill's ``ENC_FRAMES`` frames): ``(max |difference|, largest excess
+    over atol = rtol = DECODE_PREFILL_TOL (0 when all within), max
+    |prefill logit|)``."""
     import torch
+    from repro_torch.models.transformer import ENC_FRAMES
     cfg = model.cfg
     g = torch.Generator(device=dev).manual_seed(seed)
-    toks = torch.randint(0, cfg.vocab_size, (1, DECODE_PREFILL_TOKENS),
-                         generator=g, device=dev, dtype=torch.int32)
-    pre = model.prefill_logits(params, {"tokens": toks})[0, -1].float()
-    cache = _zero_cache(model.cache_specs(1, DECODE_PREFILL_TOKENS), dev,
-                        torch.float32)
+    n = DECODE_PREFILL_TOKENS
+    batch = prefill_batch(cfg, 1, ENC_FRAMES if cfg.is_encdec else n, g, dev,
+                          torch.float32, patches=0)
+    toks = batch["tgt_tokens"] if cfg.is_encdec else batch["tokens"]
+    toks = toks[:, :n]
+    if cfg.is_encdec:
+        batch["tgt_tokens"] = toks
+    pre = model.prefill_logits(params, batch)[0, -1].float()
+    cache = _zero_cache(model.cache_specs(1, n), dev, torch.float32)
     if "sm" in cache:
         cache["sm"].fill_(-1e9)
+    if cfg.is_encdec:
+        fill_cross(model, params, cache, batch["src_embeds"])
     logits = None
-    for pos in range(DECODE_PREFILL_TOKENS):
+    for pos in range(n):
         logits, cache = model.serve_step(
             params, cache, {"token": toks[:, pos:pos + 1], "pos": pos})
     diff = (logits[0, -1].float() - pre).abs()
@@ -1118,44 +1277,53 @@ def decode_matches_prefill(model, params, dev, seed: int = 3):
 
 
 def phase_model_serve(dev, calls: FirstCalls) -> dict:
-    """The model stack's serving path at three families' full widths in
-    bf16: ``build_model`` -> ``init_params`` (seed 0, on the card, stacked
-    matrices rescaled by ``fan_in_rescale``) ->
-    ``prefill_logits`` (B = 4 x 4,096 tokens; one 32,768-token sequence for
-    the attention families) -> ``serve_step`` (32 tokens at B = 8 from an
-    empty 4,096-position cache).  Launch counts are set to 0 just before
-    and read just after; then each model's f32 decode-vs-prefill check."""
+    """The model stack's serving path at eight families' full widths in
+    bf16 (llama4 cut in depth, ``MODEL_CUTS``): ``build_model`` ->
+    ``init_params`` (seed 0, on the card, stacked matrices rescaled by
+    ``fan_in_rescale``) -> ``prefill_logits`` (B = 4 x 4,096 positions;
+    one 32,768-token sequence for ``LONG_PREFILL_ARCHS``) -> ``serve_step``
+    (32 tokens at B = 8 from an empty 4,096-position cache).  Launch counts
+    are set to 0 just before and read after each family's path; right
+    after it (its launches not counted), the family's f32
+    decode-vs-prefill check on one period, then its weights are freed."""
     import torch
     from repro_torch.kernels import ops
-    from repro_torch.models.layers import tree_paths, unflatten
-    rows, kept = [], {}
-    ops.reset_launch_counts()
-    t_path = time.time()
-    with calls:
-        for arch in MODEL_ARCHS:
-            rows.append(_serve_arch(arch, dev, calls, kept))
-    launches = {k: v for k, v in ops.launch_counts().items()
-                if k in MODEL_KERNELS}
-    path_s = time.time() - t_path
-    ok = all(r["logits_finite"] and r["launches"] for r in rows)
-    # the f32 decode-vs-prefill check, after the counts were read
-    for row in rows:
-        model, params = kept.pop(row["arch"])
-        params32 = unflatten({k: t.float()
-                              for k, t in tree_paths(params).items()})
+    rows = []
+    launches = {k: 0 for k in MODEL_KERNELS}
+    t_path = 0.0
+    ok = True
+    for arch in MODEL_ARCHS:
+        ops.reset_launch_counts()
+        t0 = time.time()
+        with calls:
+            row, model, params = _serve_arch(arch, dev, calls)
+        t_path += time.time() - t0
+        for k in MODEL_KERNELS:
+            launches[k] += row["launches"].get(k, 0)
+        ok &= row["logits_finite"] and bool(row["launches"])
+        cfg = model.cfg
+        del model
+        model32, params32, cut = one_period(cfg, params)
         del params
         torch.cuda.empty_cache()
-        diff, excess, scale = decode_matches_prefill(model, params32, dev)
+        diff, excess, scale = decode_matches_prefill(model32, params32, dev)
         row["decode_vs_prefill_f32"] = {
-            "tokens": DECODE_PREFILL_TOKENS, "max_abs_diff": diff,
-            "logit_scale": scale, "tolerance": DECODE_PREFILL_TOL,
-            "excess_over_tolerance": excess}
+            "tokens": DECODE_PREFILL_TOKENS, "one_period": cut,
+            "max_abs_diff": diff, "logit_scale": scale,
+            "tolerance": DECODE_PREFILL_TOL, "excess_over_tolerance": excess}
         ok &= excess == 0.0
-        del params32
+        del model32, params32
         torch.cuda.empty_cache()
+        rows.append(row)
+        emit({"phase": "model_serve_family", **row})
+    cuts = {"32k_prefill_not_run": [a for a in MODEL_ARCHS
+                                    if a not in LONG_PREFILL_ARCHS],
+            "depth": MODEL_CUTS}
     out = {"phase": "model_serve", "archs": rows, "launches": launches,
-           "path_s": path_s, "capture_s": calls.seconds}
-    out["ok"] = ok and all(launches[k] > 0 for k in MODEL_KERNELS)
+           "cuts": cuts, "path_s": t_path, "capture_s": calls.seconds}
+    out["ok"] = ok and all(launches[k] > 0 for k in MODEL_KERNELS) and all(
+        r["launches"].get("flash_attention", 0) > 0 for r in rows
+        if r["arch"] != "xlstm_350m")       # every family but xLSTM has B5
     emit(out)
     if not out["ok"]:
         fail("model_serve", "non-finite logits, a kernel never launched or "
@@ -1163,17 +1331,23 @@ def phase_model_serve(dev, calls: FirstCalls) -> dict:
     return out
 
 
-def _serve_arch(arch, dev, calls: FirstCalls, kept: dict) -> dict:
-    """One family of ``phase_model_serve``'s main path; keeps the model
-    and its weights in ``kept`` for the f32 check."""
+def _serve_arch(arch, dev, calls: FirstCalls):
+    """One family of ``phase_model_serve``'s main path: ``(row, model,
+    params)``."""
+    import dataclasses
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.models import build_model, init_params, tree_paths
     from repro_torch.models.layers import fan_in_rescale
+    from repro_torch.models.transformer import ENC_FRAMES
     cfg = get_config(arch)
+    reduced = {k: [getattr(cfg, k), v] for k, v in
+               MODEL_CUTS.get(arch, {}).items()}
+    cfg = dataclasses.replace(cfg, **MODEL_CUTS.get(arch, {}))
     model = build_model(cfg)
     torch.cuda.reset_peak_memory_stats()
+    dtype = getattr(torch, cfg.dtype)
     # the reference's draw is too ill-conditioned at full width for the f32
     # decode-vs-prefill check (ROADMAP §C): each stacked matrix is rescaled
     # to its own fan-in; with that draw Zamba2's and xLSTM's f32 decode left
@@ -1181,31 +1355,42 @@ def _serve_arch(arch, dev, calls: FirstCalls, kept: dict) -> dict:
     params, init_s = _sync_time(lambda: fan_in_rescale(
         model.param_specs, init_params(
             model.param_specs, torch.Generator(device=dev).manual_seed(0),
-            getattr(torch, cfg.dtype), dev)))
+            dtype, dev)))
     n_params = sum(t.numel() for t in tree_paths(params).values())
     g = torch.Generator(device=dev).manual_seed(1)
     row = {"arch": arch, "dtype": cfg.dtype, "params": n_params,
            "init_s": init_s, "prefill": [], "launches": {}}
+    if reduced:
+        row["reduced"] = reduced
     before = ops.launch_counts()
     finite = True
     for B, T in MODEL_PREFILL:
         if T > 4096 and arch not in LONG_PREFILL_ARCHS:
             continue
-        toks = torch.randint(0, cfg.vocab_size, (B, T), generator=g,
-                             device=dev, dtype=torch.int32)
+        batch = prefill_batch(cfg, B, T, g, dev, dtype)
         calls.label = f"{arch} prefill B={B} T={T}"
-        logits, secs = _sync_time(lambda: model.prefill_logits(
-            params, {"tokens": toks}))
+        logits, secs = _sync_time(lambda: model.prefill_logits(params, batch))
         fin = bool(torch.isfinite(logits).all())
         finite &= fin and tuple(logits.shape) == (B, 1, cfg.padded_vocab)
         row["prefill"].append({"B": B, "T": T, "seconds": secs,
                                "tokens_per_s": B * T / secs,
-                               "logits_finite": fin})
-        del logits, toks
+                               "logits_finite": fin,
+                               "inputs": {k: list(v.shape)
+                                          for k, v in batch.items()}})
+        del logits, batch
+    mid = ops.launch_counts()
     D = MODEL_DECODE
     cache = _zero_cache(model.cache_specs(D["batch"], D["cache"]), dev)
+    enc_s = None
+    if cfg.is_encdec:           # the encoder's K/V, as serving fills them
+        src = torch.randn((D["batch"], ENC_FRAMES, cfg.d_model), generator=g,
+                          device=dev, dtype=dtype)
+        calls.label = f"{arch} encode B={D['batch']} frames={ENC_FRAMES}"
+        _, enc_s = _sync_time(lambda: fill_cross(model, params, cache, src))
+        del src
     first = torch.randint(0, cfg.vocab_size, (D["batch"], 1), generator=g,
                           device=dev, dtype=torch.int32)
+    calls.label = f"{arch} decode B={D['batch']}"
     dec_finite, secs = _sync_time(lambda: _decode(
         model, params, cache, first, D["steps"]))
     finite &= dec_finite
@@ -1214,17 +1399,18 @@ def _serve_arch(arch, dev, calls: FirstCalls, kept: dict) -> dict:
                      "tokens_per_s": D["batch"] * D["steps"] / secs,
                      "ms_per_step": secs / D["steps"] * 1e3,
                      "logits_finite": dec_finite}
+    if enc_s is not None:
+        row["decode"]["encode_cross_s"] = enc_s
     after = ops.launch_counts()
     row["launches"] = {k: after[k] - before[k] for k in MODEL_KERNELS
                        if after[k] != before[k]}
     n_prefills = sum(1 for _, T in MODEL_PREFILL
                      if T <= 4096 or arch in LONG_PREFILL_ARCHS)
-    row["launches_per_forward"] = {k: v // n_prefills
-                                   for k, v in row["launches"].items()}
+    row["launches_per_forward"] = {k: (mid[k] - before[k]) // n_prefills
+                                   for k in row["launches"]}
     row["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
     row["logits_finite"] = finite
-    kept[arch] = (model, params)
-    return row
+    return row, model, params
 
 
 def _model_work(kernel, args, static):
@@ -1283,16 +1469,32 @@ def _time_budget_ms(fn, dev, budget_s: float = 1.5) -> float:
 
 def _sdpa_call(q, k, v, static):
     """One ``scaled_dot_product_attention`` on the same q/k/v with KV
-    expanded to H heads beforehand, causal from the top-left corner (T = S
-    on the model path): the yardstick; the port never calls it."""
+    expanded to H heads beforehand: causal from the top-left corner (T = S
+    on the model path), a sliding window as a boolean mask of the same
+    positions (query t, key s kept while 0 <= t - s + offset < window):
+    the yardstick; the port never calls it."""
+    import torch
     import torch.nn.functional as F
     g = q.shape[2] // k.shape[2]
     qt = q.transpose(1, 2)
     kt = k.repeat_interleave(g, dim=2).transpose(1, 2)
     vt = v.repeat_interleave(g, dim=2).transpose(1, 2)
     causal = static.get("causal", True)
+    window = static.get("window")
+    mask = None
+    if window is not None:
+        T, S = q.shape[1], k.shape[1]
+        off = static.get("offset")
+        off = S - T if off is None else off
+        rel = (torch.arange(T, device=q.device)[:, None]
+               - torch.arange(S, device=q.device)[None, :] + off)
+        mask = rel < window
+        if causal:
+            mask &= rel >= 0
 
     def call():
+        if mask is not None:
+            return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
         return F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
     return call
 
@@ -1319,7 +1521,13 @@ CUDA_PASSES = {"mamba2_scan": ("chunk_state", "state_pass", "chunk_scan"),
 
 def cuda_kernels_per_call(fn, reps: int = 20) -> dict:
     """The CUDA kernels one call of ``fn`` launches, by name, each with its
-    launches per call, counted by ``torch.profiler`` (device activity only,
+    launches per call (:func:`cuda_kernel_times`)."""
+    return {k: v["per_call"] for k, v in cuda_kernel_times(fn, reps).items()}
+
+
+def cuda_kernel_times(fn, reps: int = 20) -> dict:
+    """The CUDA kernels one call of ``fn`` launches, by name, each with its
+    launches and device ms per call, by ``torch.profiler`` (device activity only,
     as ``tools/time_ssd_passes.py`` reads it) over ``reps`` calls.  A
     warm-up step of as many calls comes first: late in a long process the
     device activity started recording some milliseconds after the profiler
@@ -1344,8 +1552,11 @@ def cuda_kernels_per_call(fn, reps: int = 20) -> dict:
             return False
         return k.device_type == DeviceType.CUDA \
             or (getattr(k, "self_device_time_total", 0.0) or 0.0) > 0
-    return {k.key: k.count / reps for k in prof.key_averages()
-            if is_kernel(k)}
+    return {k.key: {"per_call": k.count / reps,
+                    "device_ms_per_call": (getattr(k, "self_device_time_total",
+                                                   0.0) or 0.0)
+                    / reps / 1e3}
+            for k in prof.key_averages() if is_kernel(k)}
 
 
 def _pass_launches(name: str, kernels: dict) -> dict:
@@ -1402,6 +1613,7 @@ def model_kernel_entries(dev, calls: FirstCalls, serve: dict) -> list:
                                  n=int(min(20, max(3, 1000.0 / ms))))
             row = {"shape": label, "dtype": _dtype_name(args[0]),
                    "inputs": [list(a.shape) for a in args],
+                   "static": dict(static),
                    **held, "float32": held32, "ms": ms, **queued,
                    "tflops": _model_work(name, args, static)[0]
                    / (queued["device_ms"] * 1e-3) / 1e12,
@@ -2306,6 +2518,168 @@ def phase_tpch_probe(dev, recorder: Recorder, max_slices: int = 16) -> None:
     return launches
 
 
+# ------------------------------------------------------------ page split ----
+
+#: page shards the split path is held to the single-stage kernel at
+SPLIT_SHARDS = (2, 4, 8)
+#: the TPC-H deployment beyond one block a lane: scale 4.0 (P = 35,328)
+TPCH_BIG = dict(scale=4.0, n_streams=8, seed=7, max_slices=16)
+
+
+def seeded_split_cases(dev):
+    """The JAX package's seeded cases of its page-sharded ops test
+    (``tests/test_time_engine.py`` 238-264: P = 1024, four trials), the
+    trials as four lanes: ``{kernel: [(args, static), ...]}``."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(5)
+    Pn, keys, sizes, evs, fkeys = 1024, [], [], [], []
+    for _ in range(4):
+        keys.append(rng.integers(-1, 1 << 28, Pn).astype(np.int32))
+        sizes.append(rng.choice([524288.0, 4096.0], Pn).astype(np.float32))
+        evs.append(rng.random(Pn) < 0.7)
+        fkeys.append(rng.random(Pn).astype(np.float32))
+    t = lambda a: torch.from_numpy(np.stack(a)).to(dev)  # noqa: E731
+    full = lambda v, dt: torch.full((4,), v, dtype=dt, device=dev)  # noqa
+    return {
+        "fifo_grant": [([t(keys), t(sizes), full(4e6, torch.float32),
+                         full(9, torch.int32)], {"vmax": 16})],
+        "batched_evict": [([t(fkeys), t(sizes), t(evs),
+                            full(3e6, torch.float32)], {"vmax": 64})],
+    }
+
+
+def split_against_unsplit(dev, recorder: Recorder) -> dict:
+    """Part (a) of ``page_split``: B1 and B2 with ``page_shards`` in
+    SPLIT_SHARDS (those that divide P) against the single-stage kernel on
+    the inputs captured at P = 768, 3,072 and 8,832, the seeded cases,
+    the fuzz cases and the split cases at P = 8,832 with vmax = 2,048
+    (the whole-row kernels): mismatches in the mask, the bytes and the
+    count; and B1-B3 at P = 20,000 against their plain versions."""
+    from repro_torch.kernels import cases as kcases
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.pbm_timeline import lane_paths
+    inputs = seeded_split_cases(dev)
+    for (name, P), samples in recorder.samples.items():
+        if name in inputs and P <= 8832:
+            inputs[name] += samples
+    split = kcases.split_cases()
+    for name in inputs:
+        for case in kcases.CASES[name]() + [
+                c for c in split[name] if c["shards"]]:
+            inputs[name].append(
+                (_to_dev(case, kcases.TENSOR_FIELDS[name], dev),
+                 dict(case["static"])))
+    out = {}
+    for name, calls in inputs.items():
+        fn = getattr(ops, name)
+        bad, by_p, paths = 0, {}, {}
+        for args, static in calls:
+            want = fn(*args, **static)
+            P = int(args[0].shape[1])
+            for n in SPLIT_SHARDS:
+                if P % n:
+                    continue
+                st = {**static, "page_shards": n}
+                got = fn(*args, **st)
+                bad += _compare(got, want)[0]
+                by_p[P] = by_p.get(P, 0) + 1
+                for path in lane_paths(name, args, st):
+                    paths[path] = paths.get(path, 0) + 1
+        out[name] = {"comparisons": sum(by_p.values()), "mismatches": bad,
+                     "shards": list(SPLIT_SHARDS), "lane_paths": paths,
+                     "comparisons_by_P": {str(k): v for k, v in
+                                          sorted(by_p.items())}}
+    fns = kernel_fns()
+    for name, cs in split.items():
+        kernel, plain = fns[name]
+        bad, paths = 0, {}
+        for case in [c for c in cs if not c["shards"]]:
+            args = _to_dev(case, kcases.TENSOR_FIELDS[name], dev)
+            bad += _compare(kernel(*args, **case["static"]),
+                            plain(*args, **case["static"]))[0]
+            for path in lane_paths(name, args, case["static"]):
+                paths[path] = paths.get(path, 0) + 1
+        out[f"{name}_beyond_one_block"] = {"P": 20_000, "mismatches": bad,
+                                           "lane_paths": paths}
+    return out
+
+
+def tpch_big_run(dev, recorder: Recorder) -> dict:
+    """Part (b) of ``page_split``: TPC-H at scale 4.0 (P = 35,328), the
+    horizon stepper with ``wake_exact`` over ``tpch_probe``'s lanes, cut
+    at 16 slices; B1-B3 take only the page-split kernels here, and the
+    kernels line holds their captured inputs to the plain versions."""
+    from repro_torch.core.array_sim import compile_workload
+    from repro_torch.core.workload import (
+        make_tpch_db, tpch_accessed_bytes, tpch_streams)
+    from repro_torch.kernels.pbm_timeline import split_shards, splits
+    cfg = TPCH_BIG
+    db = make_tpch_db(scale=cfg["scale"])
+    streams = tpch_streams(db, n_streams=cfg["n_streams"], seed=cfg["seed"])
+    spec = compile_workload(db, streams)
+    if not splits(spec.n_pages):
+        fail("page_split", f"tpch_big: P={spec.n_pages} fits one block")
+    ws = tpch_accessed_bytes(db, streams)
+    _, cfgs = sweep_configs(spec, ws, FRACS, dev, bandwidth=600e6)
+    with recorder:
+        results, wall, launches, steps, _ = run_sweep_counted(
+            spec, cfgs, dev, time_slice=0.1, bandwidth_ref=600e6,
+            stepper="horizon", wake_exact=True,
+            max_slices=cfg["max_slices"])
+    return {"P": spec.n_pages, "shards": split_shards(spec.n_pages),
+            "C": spec.n_cols, "Q": spec.n_queries, **cfg,
+            "truncated": True, "wall_s": wall, "batched_steps": steps,
+            "ms_per_macro_step": wall / max(1, steps) * 1e3,
+            "sim_seconds_covered": max(r.sim_time for r in results),
+            "finite": all(r.sim_time == r.sim_time for r in results),
+            "launches": launches}
+
+
+def mesh_runner_check(dev) -> dict:
+    """Part (c) of ``page_split``: ``make_runner(mesh=)`` with a
+    ``('lanes', 'page')`` mesh of shape (1, 4) on the card at
+    ``sim_small``'s point under both steppers, every state leaf against
+    ``mesh=None``."""
+    import torch
+    from repro_torch.core.array_sim import Mesh, make_runner
+    scale, fracs = 0.03, (0.2, 0.4, 0.8)
+    spec, ws = micro_workload(scale, 3, 3)
+    _, cfgs = sweep_configs(spec, ws, fracs, dev)
+    mesh = Mesh([[dev] * 4], ("lanes", "page"))
+    out = {"P": spec.n_pages, "mesh": mesh.shape}
+    for stepper in ("fixed", "horizon"):
+        kw = dict(time_slice=0.1 * scale, stepper=stepper, policies=POLICIES)
+        plain = make_runner(spec, device=dev, **kw)(cfgs)
+        runner = make_runner(spec, mesh=mesh, **kw)
+        split = runner(cfgs)
+        torch.cuda.synchronize()
+        a, b = dict(_leaves(plain)), dict(_leaves(split))
+        unequal = [k for k in a if not torch.equal(a[k], b[k])]
+        out[stepper] = {"leaves": len(a), "unequal": unequal,
+                        "page_axis": runner.page_axis}
+    return out
+
+
+def phase_page_split(dev, recorder: Recorder) -> dict:
+    """Page-split candidate selection on the card: (a) split against
+    unsplit, (b) ``tpch_big``, (c) the mesh runner."""
+    out = {"phase": "page_split"}
+    out["split_vs_unsplit"] = split_against_unsplit(dev, recorder)
+    out["tpch_big"] = tpch_big_run(dev, recorder)
+    out["mesh_runner"] = mesh_runner_check(dev)
+    out["ok"] = (
+        all(v["mismatches"] == 0 for v in out["split_vs_unsplit"].values())
+        and out["tpch_big"]["finite"]
+        and all(out["mesh_runner"][s]["unequal"] == []
+                for s in ("fixed", "horizon")))
+    emit(out)
+    if not out["ok"]:
+        fail("page_split", "a split kernel disagrees with the single-stage "
+                           "one, or the mesh runner with mesh=None")
+    return out["tpch_big"]["launches"]
+
+
 # ------------------------------------------------------------------ main ----
 
 def main() -> int:
@@ -2332,7 +2706,7 @@ def main() -> int:
     all_phases = ["env", "build", "kernels_fuzz", "paged_fuzz", "model_fuzz",
                   "sim_small", "serve_small", "model_serve", "sim_calibrated",
                   "sim_fixed", "sim_telemetry", "serve_full", "sim_full",
-                  "tpch_probe", "kernels"]
+                  "tpch_probe", "page_split", "kernels"]
     phases = [p for p in args.phases.split(",") if p] or all_phases
     unknown = set(phases) - set(all_phases)
     if unknown:
@@ -2437,6 +2811,8 @@ def main() -> int:
             launches, main_p = full["launches"], full["P"]
     if "tpch_probe" in phases:
         by_phase["tpch_probe"] = phase_tpch_probe(dev, recorder)
+    if "page_split" in phases:
+        by_phase["tpch_big"] = phase_page_split(dev, recorder)
 
     kernels_line = None
     if "kernels" in phases:

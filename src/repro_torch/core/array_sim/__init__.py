@@ -25,6 +25,7 @@ from .convert import (
     state_from_numpy,
     state_to_numpy,
 )
+from .mesh import Mesh
 from .sim import (
     ArrayResult,
     ArraySimConfig,
@@ -64,6 +65,7 @@ from .validate import (
 )
 
 __all__ = [
+    "Mesh",
     "ArrayCScan",
     "ArrayLRU",
     "ArrayOPT",

@@ -38,8 +38,10 @@ machine:
 
 ``make_runner(telemetry=True)`` threads the carried counters of
 ``repro_torch.obs`` through the loop nest (with it off, the step runs
-not one operator more).  Not here yet: lane / page sharding (ROADMAP
-A.5) and the sanitize mode (A.9).  Policy names resolve through
+not one operator more); ``make_runner(mesh=)`` splits the lanes over the
+devices of a :class:`~repro_torch.core.array_sim.mesh.Mesh` and the page
+axis over blocks of one card.  Not here yet: the sanitize mode (A.9).
+Policy names resolve through
 ``repro_torch.core.policy_registry`` with the JAX package's stable ids.
 """
 
@@ -321,7 +323,7 @@ def make_step(spec: SimSpec, dt: float, time_slice: float,
               vmax: Optional[int] = None, stepper: str = "fixed",
               h_max: float = 8.0, h_io: float = 3.0,
               wake_exact: bool = True, telemetry: bool = False,
-              device="cuda"):
+              page_shards: int = 1, device="cuda"):
     """Build ``step(carry, cfg, live=None, lc=None) -> carry`` for a
     policy set, over a lane axis.
 
@@ -364,12 +366,22 @@ def make_step(spec: SimSpec, dt: float, time_slice: float,
     values it computes anyway; with it off (the default) the carry, the
     operators run and the results are exactly those without telemetry.
 
+    ``page_shards`` (the JAX package's ``page_axis``): the eviction and
+    grant kernels select their candidates in ``page_shards`` slices of the
+    pool and combine the gathered lists, bit-equal to one slice
+    (``kernels.ops``); the wake solve runs unsplit, its output feeding
+    lane-global jump decisions.  It must divide ``spec.n_pages``.
+
     ``live`` is an ``(L,)`` bool mask: lanes where it is False come back
     unchanged (``None`` = every lane steps), the telemetry included.
     ``lc`` is the cached ``step.lane_consts(cfg)``.
     """
     if stepper not in ("fixed", "horizon"):
         raise ValueError(f"unknown stepper {stepper!r}: fixed | horizon")
+    if spec.n_pages % int(page_shards):
+        raise ValueError(
+            f"page axis has {page_shards} shards which do not divide the "
+            f"padded pool size P={spec.n_pages}")
     horizon = stepper == "horizon"
     dev = resolve_device(device)
     policies = resolve_policies(policies)
@@ -918,7 +930,8 @@ def make_step(spec: SimSpec, dt: float, time_slice: float,
             # _LOAD_MAX pops per fine step stood in for
             pops = torch.minimum(h_u * _LOAD_MAX, lc.pop_cap)
             load_mask, load_bytes, n_load = kops.fifo_grant(
-                load_key, page_size, budget, pops, vmax=n_rounds)
+                load_key, page_size, budget, pops, vmax=n_rounds,
+                page_shards=page_shards)
         else:
             load_mask, load_bytes, n_load = fifo_pop(load_key, budget)
 
@@ -1012,7 +1025,7 @@ def make_step(spec: SimSpec, dt: float, time_slice: float,
                 zero_f)
             need_free = sel(is_coop, need_coop, need_free)
         evict = kops.batched_evict(key, page_size, evictable, need_free,
-                                   vmax=vmax)
+                                   vmax=vmax, page_shards=page_shards)
 
         resident2 = (state.resident & ~evict) | load_mask
         last_used3 = torch.where(load_mask, t2c + jit_p, last_used2)
@@ -1275,6 +1288,7 @@ def make_runner(
     h_max: float = 8.0,
     h_io: float = 3.0,
     wake_exact: bool = True,
+    mesh=None,
     telemetry: bool = False,
     device="cuda",
 ):
@@ -1313,13 +1327,40 @@ def make_runner(
     runner then returns ``(state, telemetry)`` instead of the bare state.
     Off (the default), the steps run exactly the operators they run
     without it.
+
+    ``mesh`` (a :class:`~repro_torch.core.array_sim.mesh.Mesh`; then
+    ``device`` is not read) follows the JAX package's rules: a one-axis
+    mesh splits the lanes evenly over its devices (the lane count must
+    divide), each shard runs on its own device one after the other, and
+    the results are gathered on the first; a two-axis ``('lanes',
+    'page')`` mesh of shape ``(k, n)`` splits the lanes over its k rows and
+    runs each row's n page shards as blocks of that row's one card
+    (``make_step(page_shards=n)``), bit-equal to ``mesh=None``.  Any other
+    number of axes raises ``ValueError``; a row of the page axis that names
+    different cards raises ``NotImplementedError``.  ``runner.lane_mesh``
+    and ``runner.page_axis`` are set as in the JAX package.
     """
+    knobs = dict(bandwidth_ref=bandwidth_ref, time_slice=time_slice,
+                 prefetch_pages=prefetch_pages, max_slices=max_slices,
+                 policies=policies, step_pages=step_pages, vmax=vmax,
+                 stepper=stepper, h_max=h_max, h_io=h_io,
+                 wake_exact=wake_exact, telemetry=telemetry)
+    if mesh is not None:
+        return _mesh_runner(spec, mesh, knobs)
+    return _runner(spec, device, **knobs)
+
+
+def _runner(spec, device, page_shards: int = 1, *, bandwidth_ref,
+            time_slice, prefetch_pages, max_slices, policies, step_pages,
+            vmax, stepper, h_max, h_io, wake_exact, telemetry):
+    """:func:`make_runner` on one device, its page axis split in
+    ``page_shards`` (blocks of that device)."""
     dev = resolve_device(device)
     pols = resolve_policies(policies)
     dt = float(step_pages) * float(np.max(spec.page_size)) / float(bandwidth_ref)
     kw = dict(policies=pols, vmax=vmax, stepper=stepper, h_max=h_max,
               h_io=h_io, wake_exact=wake_exact, telemetry=telemetry,
-              device=dev)
+              page_shards=page_shards, device=dev)
     cheap = make_step(spec, dt, time_slice, prefetch_pages, refresh=False, **kw)
     full = make_step(spec, dt, time_slice, prefetch_pages, refresh=True, **kw)
     n_inner = cheap.n_inner
@@ -1398,6 +1439,63 @@ def make_runner(
     run.device = dev
     run.cheap, run.full = cheap, full
     run.init_carry, run.cond, run.inner_cond = init_carry, cond, inner_cond
+    run.lane_mesh, run.page_axis = None, None
+    return run
+
+
+def _cat_lanes(parts: list, dev: torch.device):
+    """The lane shards' outputs (a tree of lane-major tensors) joined
+    along the lane axis on ``dev``."""
+    first = parts[0]
+    if isinstance(first, torch.Tensor):
+        return torch.cat([p.to(dev) for p in parts])
+    if isinstance(first, tuple):
+        joined = [_cat_lanes([p[i] for p in parts], dev)
+                  for i in range(len(first))]
+        return type(first)(*joined) if hasattr(first, "_fields") \
+            else tuple(joined)
+    if first is None:
+        return None
+    raise TypeError(f"_cat_lanes: a leaf of type {type(first).__name__}")
+
+
+def _mesh_runner(spec, mesh, knobs: dict):
+    """:func:`make_runner` over a :class:`Mesh`: one runner per lane
+    shard's device, every shard run in turn, the states joined on the
+    first device."""
+    from .mesh import lane_devices, page_shards_of
+    devices = lane_devices(mesh)
+    n_page = page_shards_of(mesh)
+    page_axis = mesh.axis_names[1] if len(mesh.axis_names) == 2 else None
+    runners = {d: _runner(spec, d, n_page, **knobs)
+               for d in dict.fromkeys(devices)}
+    one = runners[devices[0]]
+
+    def run(cfg: ArraySimConfig):
+        cfg = _lanes(cfg)
+        L, k = cfg.policy.shape[0], len(devices)
+        if L % k:
+            raise ValueError(
+                f"make_runner(mesh=...): {L} lanes do not divide evenly over "
+                f"the mesh's {k} lane shards")
+        per = L // k
+        outs, stats = [], {"cheap_steps": 0, "refresh_steps": 0}
+        for i, d in enumerate(devices):
+            part = ArraySimConfig(*(x[i * per:(i + 1) * per].to(d)
+                                    for x in cfg))
+            outs.append(runners[d](part))
+            for name in stats:
+                stats[name] += runners[d].stats[name]
+        run.stats = stats
+        return _cat_lanes(outs, devices[0])
+
+    run.stats = {"cheap_steps": 0, "refresh_steps": 0}
+    for name in ("dt_ref", "stepper", "wake_exact", "telemetry",
+                 "policy_names"):
+        setattr(run, name, getattr(one, name))
+    run.device = devices[0]
+    run.lane_mesh, run.page_axis = mesh, page_axis
+    run.runners = runners
     return run
 
 

@@ -628,3 +628,51 @@ CASES = {
     "fifo_grant": grant_cases,
     "wake_solve": wake_cases,
 }
+
+
+def split_cases(seed: int = 20) -> Dict[str, List[Case]]:
+    """Cases of the page-split path, per kernel.  At P = 8,832 (one block
+    a lane) with vmax = 2,048: B1 and B2 split into shards take the
+    whole-row kernels, held to the single-stage kernel (``"shards"``).
+    At P = 20,000 (beyond one block): every path of B1-B3 beyond one
+    block, held to the plain version: the head from the shards'
+    candidates, and B3's whole-row lanes (a head longer than HEAD_CAP,
+    ``inc`` below 0 and NaN, a wanted size below 0 and one infinite)."""
+    rng = np.random.default_rng(seed)
+    out: Dict[str, List[Case]] = {k: [] for k in CASES}
+    for P, vmax, grant_vmax, shards in ((8832, 2048, 2048, True),
+                                         (20_000, 64, 16, False)):
+        L = 4
+        fkey = rng.choice(np.array([-0.0, 0.0, 0.5, -1.5, 2.0], np.float32),
+                          (L, P))
+        fkey[1] = rng.normal(0.0, 1.0, P).astype(np.float32)
+        ikey = rng.integers(2**24 - 2, 2**24 + 2, (L, P)).astype(np.int32)
+        for name, key in (("f32", fkey), ("i32", ikey)):
+            out["batched_evict"].append({
+                "name": f"split_P{P}_{name}", "key": key,
+                "sizes": rng.integers(0, 9, P).astype(np.float32),
+                "evictable": rng.random((L, P)) < 0.7,
+                "need_free": np.array([1e3, 0.0, 5e3, 1e9], np.float32),
+                "static": {"vmax": vmax}, "shards": shards})
+        out["fifo_grant"].append({
+            "name": f"split_P{P}", "key": queue_keys(rng, [0.5, 0.2, 0.9, 0.6],
+                                                     P).astype(np.int32),
+            "sizes": _sizes(rng, L, P),
+            "budget": np.array([1e9, 50.0, 1e9, 4e3], np.float32),
+            "pops": np.array([5000, 100, 0, 3000], np.int32),
+            "static": {"vmax": grant_vmax},
+            "shards": shards})
+    P = 20_000
+    key = queue_keys(rng, [0.3, 0.0, 0.6, 0.4, 0.4, 0.4], P).astype(np.int32)
+    sizes = _sizes(rng, 6, P)
+    sizes[4, np.flatnonzero(key[4] >= 0)[3]] = -2.0
+    sizes[5, np.flatnonzero(key[5] >= 0)[7]] = np.inf
+    out["wake_solve"].append({
+        "name": "split_P20000", "key": key, "sizes": sizes,
+        "credit0": np.array([30.0, 0.0, 100.0, 10.0, 10.0, 10.0], np.float32),
+        "inc": np.array([20.0, 5.0, 400.0, -1.0, np.nan, 9.0], np.float32),
+        "pops": np.array([6, 3, 40, 5, 5, 5], np.int32),
+        "static": {"h_cap": 64}, "shards": False,
+        "path": ["split_select", "idle", "split_full", "split_full",
+                 "split_full", "split_full"]})
+    return out

@@ -1,7 +1,10 @@
 // Buffer-pool kernels of the batched simulator, written for Hopper (sm_90a).
 //
 // Three kernels, one C entry point each (plus one for the second key type of
-// the eviction kernel).  Plain C interface, no PyTorch headers: the Python
+// the eviction kernel), and the page-split kernels of the same three
+// functions for rows beyond one block (one C entry point each, two to four
+// launches; see "Page-split candidate selection" below).  Plain C
+// interface, no PyTorch headers: the Python
 // side (repro_torch/kernels/pbm_timeline.py) loads the library with ctypes,
 // hands in device pointers and PyTorch's current stream, and checks the
 // returned cudaError_t.  The kernels allocate nothing and never synchronise.
@@ -377,6 +380,36 @@ __device__ __forceinline__ uint32_t evict_field(bool ev, K k) {
   return ~ord_key(ev ? k : lowest_key<K>());
 }
 
+// The walk of batched_evict's whole-row path over words[0..n), its sorted
+// row (in shared memory, or a lane's row of the page-split path's global
+// buffer): a thread owns a contiguous run, the block scans the runs' freed
+// bytes.  Padding words carry an index >= P.  Every thread must call it.
+__device__ __forceinline__ void evict_walk(
+    const uint64_t* words, int n, const float* __restrict__ sz_row,
+    const uint8_t* __restrict__ ev_row, double need_d, int m, int P,
+    double* s_wtot, uint8_t* __restrict__ out_row) {
+  const int run_len = (n + blockDim.x - 1) / blockDim.x;
+  const int base = threadIdx.x * run_len;
+  double total = 0.0;
+  for (int c = 0; c < run_len; ++c) {
+    const int i = base + c;
+    if (i < m) {
+      const int idx = (int)(words[i] & kIdxMask);
+      if (ev_row[idx]) total += (double)sz_row[idx];
+    }
+  }
+  double before = block_exclusive(total, s_wtot);
+  for (int c = 0; c < run_len; ++c) {
+    const int i = base + c;
+    if (i >= n) break;
+    const int idx = (int)(words[i] & kIdxMask);
+    if (idx >= P) continue;                   // padding
+    const bool ev = i < m && ev_row[idx];
+    out_row[idx] = (ev && before < need_d) ? 1 : 0;
+    if (ev) before += (double)sz_row[idx];
+  }
+}
+
 template <typename K>
 __device__ __forceinline__ void evict_whole_row(
     const K* __restrict__ key_row, const float* __restrict__ sz_row,
@@ -388,26 +421,7 @@ __device__ __forceinline__ void evict_whole_row(
   }
   __syncthreads();
   bitonic_sort(s_word, n);
-
-  const int run_len = n / blockDim.x;
-  const int base = threadIdx.x * run_len;
-  double total = 0.0;
-  for (int c = 0; c < run_len; ++c) {
-    const int i = base + c;
-    if (i < m) {
-      const int idx = (int)(s_word[i] & kIdxMask);
-      if (ev_row[idx]) total += (double)sz_row[idx];
-    }
-  }
-  double before = block_exclusive(total, s_wtot);
-  for (int c = 0; c < run_len; ++c) {
-    const int i = base + c;
-    const int idx = (int)(s_word[i] & kIdxMask);
-    if (idx >= P) continue;                   // padding
-    const bool ev = i < m && ev_row[idx];
-    out_row[idx] = (ev && before < need_d) ? 1 : 0;
-    if (ev) before += (double)sz_row[idx];
-  }
+  evict_walk(s_word, n, sz_row, ev_row, need_d, m, P, s_wtot, out_row);
 }
 
 template <typename K>
@@ -494,31 +508,27 @@ batched_evict_kernel(const K* __restrict__ key, const float* __restrict__ sizes,
 // pass over the row.  A lane with lim > kHeadCap sorts its whole row
 // instead (bitonic, a thread a contiguous run of it).
 // ---------------------------------------------------------------------------
-__device__ __forceinline__ void grant_whole_row(
-    const int* __restrict__ key_row, const float* __restrict__ sz_row,
-    double budget_d, int lim, int P, int n, uint64_t* s_word, double* s_wtot,
-    int* s_head, uint8_t* __restrict__ mask_row, float* __restrict__ bytes,
+// The walk of fifo_grant's whole-row path over words[0..n), its sorted row
+// (shared memory, or the page-split path's global buffer), the first lim
+// positions grantable; *s_head must hold INT_MAX.  Every thread must call it.
+__device__ __forceinline__ void grant_walk(
+    const uint64_t* words, int n, const float* __restrict__ sz_row,
+    double budget_d, int lim, int P, double* s_wtot, int* s_head,
+    uint8_t* __restrict__ mask_row, float* __restrict__ bytes,
     int* __restrict__ n_granted) {
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    const int k = i < P ? key_row[i] : -1;
-    s_word[i] = sort_word<int>(k >= 0, k, i);
-  }
-  __syncthreads();
-  bitonic_sort(s_word, n);
-
-  const int run_len = n / blockDim.x;
+  const int run_len = (n + blockDim.x - 1) / blockDim.x;
   const int base = threadIdx.x * run_len;
   double total = 0.0;
   for (int c = 0; c < run_len; ++c) {
     const int i = base + c;
-    if (i < lim) total += (double)sz_row[s_word[i] & kIdxMask];
+    if (i < lim) total += (double)sz_row[words[i] & kIdxMask];
   }
   const double offset = block_exclusive(total, s_wtot);
   double csum = offset;
   for (int c = 0; c < run_len; ++c) {
     const int i = base + c;
     if (i >= lim) break;
-    csum += (double)sz_row[s_word[i] & kIdxMask];
+    csum += (double)sz_row[words[i] & kIdxMask];
     if (!(csum <= budget_d)) {
       atomicMin(s_head, i);
       break;                          // later positions are larger
@@ -534,7 +544,8 @@ __device__ __forceinline__ void grant_whole_row(
   csum = offset;
   for (int c = 0; c < run_len; ++c) {
     const int i = base + c;
-    const int idx = (int)(s_word[i] & kIdxMask);
+    if (i >= n) break;
+    const int idx = (int)(words[i] & kIdxMask);
     if (idx >= P) continue;                   // padding
     mask_row[idx] = i < n_grant ? 1 : 0;
     if (i < n_grant) {
@@ -542,6 +553,21 @@ __device__ __forceinline__ void grant_whole_row(
       if (i == n_grant - 1) *bytes = (float)csum;
     }
   }
+}
+
+__device__ __forceinline__ void grant_whole_row(
+    const int* __restrict__ key_row, const float* __restrict__ sz_row,
+    double budget_d, int lim, int P, int n, uint64_t* s_word, double* s_wtot,
+    int* s_head, uint8_t* __restrict__ mask_row, float* __restrict__ bytes,
+    int* __restrict__ n_granted) {
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    const int k = i < P ? key_row[i] : -1;
+    s_word[i] = sort_word<int>(k >= 0, k, i);
+  }
+  __syncthreads();
+  bitonic_sort(s_word, n);
+  grant_walk(s_word, n, sz_row, budget_d, lim, P, s_wtot, s_head, mask_row,
+             bytes, n_granted);
 }
 
 __global__ void __launch_bounds__(kMaxThreads)
@@ -655,6 +681,57 @@ fifo_grant_kernel(const int* __restrict__ key, const float* __restrict__ sizes,
 // negative or not finite sorts its whole row and counts cnt_k over all of
 // it (a warp per k) and each step over all h_cap values of n_k.
 // ---------------------------------------------------------------------------
+// The walk of wake_solve's whole-row path over words[0..n), its sorted row
+// (shared memory, or the page-split path's global buffer).  csum may alias
+// words (entry i is read before it is written, by the thread that owns it);
+// idx holds n ints.  Every thread must call it.
+__device__ __forceinline__ void wake_walk(
+    const uint64_t* words, double* csum_buf, int* idx_buf, int n,
+    const float* __restrict__ sz_row, int n_part, long long pop, int h_cap,
+    int P, const double* s_thr, int* s_cnt, int* s_n, long long* s_wmin,
+    double* s_wtot, int* __restrict__ out_row) {
+  const int run_len = (n + blockDim.x - 1) / blockDim.x;
+  const int base = threadIdx.x * run_len;
+  double total = 0.0;
+  for (int c = 0; c < run_len; ++c) {
+    const int i = base + c;
+    if (i < n_part) total += (double)sz_row[words[i] & kIdxMask];
+  }
+  double csum = block_exclusive(total, s_wtot);
+  for (int c = 0; c < run_len; ++c) {
+    const int i = base + c;
+    if (i >= n) break;
+    const int idx = (int)(words[i] & kIdxMask);
+    idx_buf[i] = idx;
+    if (i < n_part) csum += (double)sz_row[idx];
+    csum_buf[i] = csum;
+  }
+  __syncthreads();
+  const int lane = threadIdx.x & 31;
+  for (int k = threadIdx.x >> 5; k < h_cap; k += blockDim.x >> 5) {
+    const double thr = s_thr[k];
+    int fit = 0;
+    for (int i = lane; i < n_part; i += 32) fit += csum_buf[i] <= thr;
+    fit = __reduce_add_sync(kFull, fit);
+    if (lane == 0) s_cnt[k] = fit;
+  }
+  __syncthreads();
+  const int t = threadIdx.x;
+  grant_counts(t < h_cap ? s_cnt[t] : 0, h_cap, pop, n_part, s_n, s_wmin);
+  for (int c = 0; c < run_len; ++c) {
+    const int i = base + c;
+    if (i >= n) break;
+    const int idx = idx_buf[i];
+    if (idx >= P) continue;                    // padding
+    int step = h_cap + 1;
+    if (i < n_part) {
+      step = 1;
+      for (int k = 0; k < h_cap; ++k) step += s_n[k] <= i;
+    }
+    out_row[idx] = step;
+  }
+}
+
 __device__ __forceinline__ void wake_whole_row(
     const int* __restrict__ key_row, const float* __restrict__ sz_row,
     int n_part, long long pop, int h_cap, int P, int n, unsigned char* smem,
@@ -669,47 +746,8 @@ __device__ __forceinline__ void wake_whole_row(
   }
   __syncthreads();
   bitonic_sort(s_word, n);
-
-  const int run_len = (n + blockDim.x - 1) / blockDim.x;
-  const int base = threadIdx.x * run_len;
-  double total = 0.0;
-  for (int c = 0; c < run_len; ++c) {
-    const int i = base + c;
-    if (i < n_part) total += (double)sz_row[s_word[i] & kIdxMask];
-  }
-  double csum = block_exclusive(total, s_wtot);
-  for (int c = 0; c < run_len; ++c) {
-    const int i = base + c;
-    if (i >= n) break;
-    const int idx = (int)(s_word[i] & kIdxMask);
-    s_idx[i] = idx;
-    if (i < n_part) csum += (double)sz_row[idx];
-    s_csum[i] = csum;
-  }
-  __syncthreads();
-  const int lane = threadIdx.x & 31;
-  for (int k = threadIdx.x >> 5; k < h_cap; k += blockDim.x >> 5) {
-    const double thr = s_thr[k];
-    int fit = 0;
-    for (int i = lane; i < n_part; i += 32) fit += s_csum[i] <= thr;
-    fit = __reduce_add_sync(kFull, fit);
-    if (lane == 0) s_cnt[k] = fit;
-  }
-  __syncthreads();
-  const int t = threadIdx.x;
-  grant_counts(t < h_cap ? s_cnt[t] : 0, h_cap, pop, n_part, s_n, s_wmin);
-  for (int c = 0; c < run_len; ++c) {
-    const int i = base + c;
-    if (i >= n) break;
-    const int idx = s_idx[i];
-    if (idx >= P) continue;                    // padding
-    int step = h_cap + 1;
-    if (i < n_part) {
-      step = 1;
-      for (int k = 0; k < h_cap; ++k) step += s_n[k] <= i;
-    }
-    out_row[idx] = step;
-  }
+  wake_walk(s_word, s_csum, s_idx, n, sz_row, n_part, pop, h_cap, P, s_thr,
+            s_cnt, s_n, s_wmin, s_wtot, out_row);
 }
 
 __global__ void __launch_bounds__(kMaxThreads)
@@ -813,6 +851,457 @@ wake_solve_kernel(const int* __restrict__ key, const float* __restrict__ sizes,
   for (int p = t; p < P; p += blockDim.x) out_row[p] = s_out[p];
 }
 
+// ---------------------------------------------------------------------------
+// Page-split candidate selection: the same three functions when a lane's row
+// does not fit one block (P > kMaxRun * kMaxThreads), or when a split into
+// page shards is asked for (the counterpart of the JAX package's page_axis,
+// src/repro/kernels/ops.py:115-168).  The row is cut into n shards of p_loc
+// = P / n pages, each one block.
+//
+// Head paths, two launches.  Stage 1 (grid lane x shard) stages its slice's
+// key fields (evict_field / queue_field, as the single-stage kernels), radix
+// selects the slice's first min(head, p_loc) (field, index) pairs
+// (select_head / compact_head) and writes them as sort words carrying the
+// GLOBAL page index to a work buffer (L, n, m_slots), unused slots ~0.  It
+// also writes its slice of the output's default (no evict, no grant, the
+// sentinel) and the slice's wanted pages and bad sizes (stats).  Why this is
+// exact: a page among the lane's first m of the service order has fewer
+// than m pages before it, so fewer than m in its own slice: it is among its
+// slice's first m.  Stage 2 (one block a lane) sorts the n * m_slots words
+// in shared memory (bitonic; ~0 sorts last) and runs the single-stage
+// kernels' head logic on the first m, scattering its answers to (L, P).
+//
+// Whole-row paths, three launches: batched_evict with min(vmax, P) >
+// kHeadCap, fifo_grant with min(vmax, P) > kHeadCap (both known on the
+// host), and the wake_solve lanes whose head does not decide (m > kHeadCap,
+// inc < 0 or NaN, a bad wanted size: known on the device, so wake_solve
+// always launches these kernels and a lane that does not need them returns
+// at once).  Each block sorts its slice's words in shared memory (the
+// padding at ~0, past every page), a rank kernel places every word at its
+// global rank (its rank in its own slice plus a binary search in every
+// other slice: the words are distinct, the index is in them), and the walk
+// of the single-stage whole-row path runs over the lane's sorted row in
+// global memory.
+// ---------------------------------------------------------------------------
+
+enum { kGateAll = 0, kGateNeed = 1, kGateWake = 2 };
+
+// Which lanes take a whole-row path: every lane, the lanes with need_free >
+// 0, or wake_solve's rule on its lane totals.
+struct Gate {
+  int mode;
+  int n_sh;
+  int h_cap;
+  int force;                        // every busy wake_solve lane
+  const float* need_free;
+  const int* stats;                 // (L, n_sh, 2): wanted pages, bad size
+  const int* pops;
+  const float* inc;
+};
+
+// A wake_solve lane's wanted pages and bad-size flag, over its shards.
+__device__ __forceinline__ void lane_totals(const int* stats, int n_sh,
+                                            int lane, int* part, int* bad) {
+  const int* st = stats + (size_t)lane * n_sh * 2;
+  int p = 0, b = 0;
+  for (int s = 0; s < n_sh; ++s) {
+    p += st[2 * s];
+    b |= st[2 * s + 1];
+  }
+  *part = p;
+  *bad = b;
+}
+
+__device__ __forceinline__ int wake_head(int n_part, int h_cap, int n_pops) {
+  const long long reach = (long long)h_cap * (n_pops > 0 ? n_pops : 0);
+  return reach < n_part ? (int)reach : n_part;
+}
+
+__device__ __forceinline__ bool wake_needs_row(int m, int force, float inc,
+                                               int bad) {
+  return m > 0 && (force || m > kHeadCap || !(inc >= 0.0f) || bad);
+}
+
+__device__ __forceinline__ bool takes_row(const Gate& g, int lane) {
+  if (g.mode == kGateNeed) return g.need_free[lane] > 0.0f;
+  if (g.mode == kGateWake) {
+    int part, bad;
+    lane_totals(g.stats, g.n_sh, lane, &part, &bad);
+    return wake_needs_row(wake_head(part, g.h_cap, g.pops[lane]), g.force,
+                          g.inc[lane], bad);
+  }
+  return true;
+}
+
+// Stage 1's selection: the first m of the slice's (field, index) order,
+// s_u[0..p_loc) the slice's key fields and n_part its pages taking part, as
+// sort words with the global index base + p in dst[0..m_slots), the rest ~0.
+// every_page: the whole slice (batched_evict with vmax >= p_loc, whose
+// fields span 32 bits).  *s_count must be 0.  Every thread must call it.
+__device__ void slice_head(const uint32_t* s_u, int p_loc, int m, int n_part,
+                           bool every_page, int base, uint64_t* s_cand,
+                           int* s_count, int* s_hist, int* s_pick,
+                           double* s_wtot, uint64_t* __restrict__ dst,
+                           int m_slots) {
+  const int t = threadIdx.x;
+  if (every_page) {
+    for (int i = t; i < m_slots; i += blockDim.x)
+      dst[i] = i < p_loc ? (((uint64_t)s_u[i] << 31) | (uint32_t)(base + i))
+                         : ~0ull;
+    return;
+  }
+  int count = 0;
+  if (m > 0 && n_part > 0) {          // block-uniform
+    const Head h = select_head(s_u, p_loc, m, n_part, s_hist, s_pick);
+    compact_head(s_u, p_loc, h, s_cand, s_count, s_wtot);
+    __syncthreads();
+    count = *s_count;
+  }
+  for (int i = t; i < m_slots; i += blockDim.x)
+    dst[i] = i < count ? s_cand[i] + (uint32_t)base : ~0ull;
+}
+
+template <typename K>
+__global__ void __launch_bounds__(kMaxThreads)
+split_evict_cand(const K* __restrict__ key,
+                 const uint8_t* __restrict__ evictable,
+                 const float* __restrict__ need_free,
+                 uint8_t* __restrict__ out, uint64_t* __restrict__ cand, int P,
+                 int p_loc, int vmax, int m_slots) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ double s_wtot[32];
+  __shared__ int s_hist[2 * kBins];
+  __shared__ int s_pick[3];
+  __shared__ int s_count;
+  const int lane = blockIdx.x, s = blockIdx.y, t = threadIdx.x;
+  const int base = s * p_loc;
+  const size_t row = (size_t)lane * P + base;
+  uint64_t* dst = cand + ((size_t)lane * gridDim.y + s) * m_slots;
+  for (int p = t; p < p_loc; p += blockDim.x) out[row + p] = 0;
+  const int m = vmax < p_loc ? vmax : p_loc;
+  if (!(need_free[lane] > 0.0f) || m <= 0) {    // block-uniform
+    for (int i = t; i < m_slots; i += blockDim.x) dst[i] = ~0ull;
+    return;
+  }
+  if (t == 0) s_count = 0;
+  uint32_t* s_u = reinterpret_cast<uint32_t*>(smem);
+  for (int p = t; p < p_loc; p += blockDim.x)
+    s_u[p] = evict_field<K>(evictable[row + p], key[row + p]);
+  __syncthreads();
+  slice_head(s_u, p_loc, m, p_loc, vmax >= p_loc, base,
+             reinterpret_cast<uint64_t*>(smem + head_offset(p_loc)),
+             &s_count, s_hist, s_pick, s_wtot, dst, m_slots);
+}
+
+// Stage 1 of the two queue kernels: the slice's key fields, its wanted
+// pages (stats[0]) and, for wake_solve, whether a wanted size is negative
+// or not finite (stats[1]); head = min(vmax, pops) or h_cap * pops.
+template <bool kWake>
+__global__ void __launch_bounds__(kMaxThreads)
+split_queue_cand(const int* __restrict__ key, const float* __restrict__ sizes,
+                 int sizes_stride, const int* __restrict__ pops,
+                 void* __restrict__ out, uint64_t* __restrict__ cand,
+                 int* __restrict__ stats, int P, int p_loc, int vmax,
+                 int h_cap, int m_slots) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ double s_wtot[32];
+  __shared__ int s_hist[2 * kBins];
+  __shared__ int s_pick[3];
+  __shared__ int s_count;
+  __shared__ int s_part;
+  const int lane = blockIdx.x, s = blockIdx.y, t = threadIdx.x;
+  const int base = s * p_loc;
+  const size_t row = (size_t)lane * P + base;
+  const float* sz = sizes + (size_t)lane * sizes_stride + base;
+  if (t == 0) {
+    s_count = 0;
+    s_part = 0;
+  }
+  __syncthreads();
+  uint32_t* s_u = reinterpret_cast<uint32_t*>(smem);
+  int mine = 0;
+  bool bad = false;
+  for (int p = t; p < p_loc; p += blockDim.x) {
+    const int k = key[row + p];
+    s_u[p] = queue_field(k);
+    if (k >= 0) {
+      ++mine;
+      if (kWake) bad |= !(sz[p] >= 0.0f && sz[p] <= FLT_MAX);
+    }
+    if (kWake) reinterpret_cast<int*>(out)[row + p] = h_cap + 1;
+    else reinterpret_cast<uint8_t*>(out)[row + p] = 0;
+  }
+  mine = __reduce_add_sync(kFull, mine);
+  if ((t & 31) == 0 && mine) atomicAdd(&s_part, mine);
+  const bool any_bad = __syncthreads_or(bad);
+  const int n_part = s_part;
+  if (t == 0) {
+    int* st = stats + ((size_t)lane * gridDim.y + s) * 2;
+    st[0] = n_part;
+    st[1] = any_bad ? 1 : 0;
+  }
+  const int n_pops = pops[lane] > 0 ? pops[lane] : 0;
+  long long head = kWake ? (long long)h_cap * n_pops
+                         : (vmax < n_pops ? vmax : n_pops);
+  const int m = head < m_slots ? (int)head : m_slots;
+  slice_head(s_u, p_loc, m, n_part, false, base,
+             reinterpret_cast<uint64_t*>(smem + head_offset(p_loc)),
+             &s_count, s_hist, s_pick, s_wtot,
+             cand + ((size_t)lane * gridDim.y + s) * m_slots, m_slots);
+}
+
+// Whole-row paths, first launch: each block sorts its slice's sort words
+// (n_pad a power of two >= p_loc, the padding ~0) and writes the first
+// p_loc to work (L, n, p_loc).
+template <typename K, bool kQueue>
+__global__ void __launch_bounds__(kMaxThreads)
+split_sort_slices(const K* __restrict__ key,
+                  const uint8_t* __restrict__ evictable, Gate g,
+                  uint64_t* __restrict__ work, int P, int p_loc, int n_pad) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int lane = blockIdx.x, s = blockIdx.y;
+  if (!takes_row(g, lane)) return;    // block-uniform
+  uint64_t* s_word = reinterpret_cast<uint64_t*>(smem);
+  const int base = s * p_loc;
+  const size_t row = (size_t)lane * P + base;
+  for (int i = threadIdx.x; i < n_pad; i += blockDim.x) {
+    uint64_t w = ~0ull;
+    if (i < p_loc) {
+      const K k = key[row + i];
+      if (kQueue) {
+        w = sort_word<K>(k >= 0, k, base + i);
+      } else {
+        w = sort_word<K>(true, evictable[row + i] ? k : lowest_key<K>(),
+                         base + i);
+      }
+    }
+    s_word[i] = w;
+  }
+  __syncthreads();
+  bitonic_sort(s_word, n_pad);
+  uint64_t* dst = work + ((size_t)lane * gridDim.y + s) * p_loc;
+  for (int i = threadIdx.x; i < p_loc; i += blockDim.x) dst[i] = s_word[i];
+}
+
+// Whole-row paths, second launch: every word of slice s at its global rank,
+// its rank in the slice plus the words below it in each other slice.
+__global__ void __launch_bounds__(256)
+split_rank(const uint64_t* __restrict__ work, Gate g,
+           uint64_t* __restrict__ sorted, int P, int p_loc) {
+  const int lane = blockIdx.x, s = blockIdx.y, n_sh = gridDim.y;
+  if (!takes_row(g, lane)) return;    // block-uniform
+  const uint64_t* w = work + (size_t)lane * P;
+  for (int i = threadIdx.x; i < p_loc; i += blockDim.x) {
+    const uint64_t x = w[(size_t)s * p_loc + i];
+    int rank = i;
+    for (int o = 0; o < n_sh; ++o) {
+      if (o == s) continue;
+      const uint64_t* other = w + (size_t)o * p_loc;
+      int lo = 0, hi = p_loc;
+      while (lo < hi) {
+        const int mid = (lo + hi) >> 1;
+        if (other[mid] < x) lo = mid + 1;
+        else hi = mid;
+      }
+      rank += lo;
+    }
+    sorted[(size_t)lane * P + rank] = x;
+  }
+}
+
+// Stage 2 of a head path: the lane's n_cand candidate words sorted in
+// shared memory (c_pad a power of two >= n_cand); returns thread t's word
+// of the sorted order for t < m, else ~0.  Every thread must call it.
+__device__ uint64_t sorted_candidate(const uint64_t* __restrict__ cand,
+                                     int n_cand, int c_pad, int m,
+                                     uint64_t* s_c) {
+  for (int i = threadIdx.x; i < c_pad; i += blockDim.x)
+    s_c[i] = i < n_cand ? cand[i] : ~0ull;
+  __syncthreads();
+  bitonic_sort(s_c, c_pad);
+  const uint64_t x = (int)threadIdx.x < m ? s_c[threadIdx.x] : ~0ull;
+  __syncthreads();                    // s_c may be reused
+  return x;
+}
+
+__global__ void __launch_bounds__(kMaxThreads)
+split_evict_finish(const uint64_t* __restrict__ cand,
+                   const uint64_t* __restrict__ sorted,
+                   const float* __restrict__ sizes, int sizes_stride,
+                   const uint8_t* __restrict__ evictable,
+                   const float* __restrict__ need_free,
+                   uint8_t* __restrict__ out, int P, int vmax, int n_cand,
+                   int c_pad) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ double s_wtot[32];
+  const int lane = blockIdx.x, t = threadIdx.x;
+  const size_t row = (size_t)lane * P;
+  const uint8_t* ev_row = evictable + row;
+  const float* sz_row = sizes + (size_t)lane * sizes_stride;
+  uint8_t* out_row = out + row;
+  const float need = need_free[lane];
+  const int m = vmax < P ? vmax : P;
+  const bool idle = !(need > 0.0f) || m <= 0;
+  if (sorted != nullptr) {            // whole row: writes every page
+    if (idle) {
+      for (int p = t; p < P; p += blockDim.x) out_row[p] = 0;
+      return;
+    }
+    evict_walk(sorted + row, P, sz_row, ev_row, (double)need, m, P, s_wtot,
+               out_row);
+    return;
+  }
+  if (idle) return;                   // stage 1 wrote the zeros
+  const uint64_t x = sorted_candidate(cand + (size_t)lane * n_cand, n_cand,
+                                      c_pad, m,
+                                      reinterpret_cast<uint64_t*>(smem));
+  const int idx = (int)(x & kIdxMask);
+  const bool ev = t < m && ev_row[idx];
+  const double sz = ev ? (double)sz_row[idx] : 0.0;
+  const double before = block_exclusive(sz, s_wtot);     // exclusive
+  if (ev && before < (double)need) out_row[idx] = 1;
+}
+
+__global__ void __launch_bounds__(kMaxThreads)
+split_grant_finish(const uint64_t* __restrict__ cand,
+                   const int* __restrict__ stats,
+                   const uint64_t* __restrict__ sorted,
+                   const float* __restrict__ sizes, int sizes_stride,
+                   const float* __restrict__ budget,
+                   const int* __restrict__ pops,
+                   uint8_t* __restrict__ mask_out, float* __restrict__ bytes_out,
+                   int* __restrict__ n_out, int P, int vmax, int n_sh,
+                   int n_cand, int c_pad) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ double s_wtot[32];
+  __shared__ int s_head;
+  __shared__ int s_part;
+  const int lane = blockIdx.x, t = threadIdx.x;
+  const size_t row = (size_t)lane * P;
+  const float* sz_row = sizes + (size_t)lane * sizes_stride;
+  uint8_t* mask_row = mask_out + row;
+  const double budget_d = (double)budget[lane];
+  if (t == 0) {
+    s_head = 0x7fffffff;
+    if (sorted != nullptr) {          // wanted words (bit 63 clear) lead
+      const uint64_t* w = sorted + row;
+      int lo = 0, hi = P;
+      while (lo < hi) {
+        const int mid = (lo + hi) >> 1;
+        if (w[mid] < kOutBit) lo = mid + 1;
+        else hi = mid;
+      }
+      s_part = lo;
+    } else {
+      int part = 0;
+      for (int s = 0; s < n_sh; ++s) part += stats[((size_t)lane * n_sh + s) * 2];
+      s_part = part;
+    }
+  }
+  __syncthreads();
+  int lim = vmax < P ? vmax : P;
+  const int n_pops = pops[lane];
+  lim = n_pops < lim ? n_pops : lim;
+  lim = lim < s_part ? lim : s_part;
+  lim = lim > 0 ? lim : 0;
+  if (sorted != nullptr) {            // whole row: writes every page
+    grant_walk(sorted + row, P, sz_row, budget_d, lim, P, s_wtot, &s_head,
+               mask_row, bytes_out + lane, n_out + lane);
+    return;
+  }
+  if (lim == 0) {                     // stage 1 wrote the zeros
+    if (t == 0) {
+      bytes_out[lane] = 0.0f;
+      n_out[lane] = 0;
+    }
+    return;
+  }
+  const uint64_t x = sorted_candidate(cand + (size_t)lane * n_cand, n_cand,
+                                      c_pad, lim,
+                                      reinterpret_cast<uint64_t*>(smem));
+  const int idx = (int)(x & kIdxMask);
+  const double sz = t < lim ? (double)sz_row[idx] : 0.0;
+  const double csum = block_exclusive(sz, s_wtot) + sz;   // inclusive
+  const unsigned late = __ballot_sync(kFull, t < lim && !(csum <= budget_d));
+  if (late && (t & 31) == __ffs(late) - 1) atomicMin(&s_head, t);
+  __syncthreads();
+  const int n_grant = s_head < lim ? s_head : lim;
+  if (t < n_grant) mask_row[idx] = 1;
+  if (t == n_grant - 1) bytes_out[lane] = (float)csum;
+  if (t == 0) {
+    n_out[lane] = n_grant;
+    if (n_grant == 0) bytes_out[lane] = 0.0f;
+  }
+}
+
+__global__ void __launch_bounds__(kMaxThreads)
+split_wake_finish(const uint64_t* __restrict__ cand,
+                  const int* __restrict__ stats, uint64_t* sorted,
+                  int* __restrict__ idx_buf, const float* __restrict__ sizes,
+                  int sizes_stride, const float* __restrict__ credit0,
+                  const float* __restrict__ inc, const int* __restrict__ pops,
+                  int* __restrict__ out, int P, int h_cap, int n_sh,
+                  int n_cand, int c_pad, int force) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ double s_wtot[32];
+  __shared__ double s_thr[kMaxHCap];
+  __shared__ int s_cnt[kMaxHCap];
+  __shared__ int s_n[kMaxHCap];
+  __shared__ long long s_wmin[kMaxHCap / 32];
+  const int lane = blockIdx.x, t = threadIdx.x;
+  const size_t row = (size_t)lane * P;
+  const float* sz_row = sizes + (size_t)lane * sizes_stride;
+  int* out_row = out + row;
+  const float c0 = credit0[lane];
+  const float step_inc = inc[lane];
+  const int n_pops = pops[lane];
+  const long long pop = n_pops > 0 ? n_pops : 0;
+  for (int k = t; k < h_cap; k += blockDim.x)
+    s_thr[k] = (double)__fadd_rn(c0, __fmul_rn((float)(k + 1), step_inc));
+  __syncthreads();
+  int n_part, bad;
+  lane_totals(stats, n_sh, lane, &n_part, &bad);
+  const int m = wake_head(n_part, h_cap, n_pops);
+  if (m == 0) return;                 // stage 1 wrote the sentinel
+  if (wake_needs_row(m, force, step_inc, bad)) {   // block-uniform
+    uint64_t* w = sorted + row;
+    wake_walk(w, reinterpret_cast<double*>(w), idx_buf + row, P, sz_row,
+              n_part, pop, h_cap, P, s_thr, s_cnt, s_n, s_wmin, s_wtot,
+              out_row);
+    return;
+  }
+  const uint64_t x = sorted_candidate(cand + (size_t)lane * n_cand, n_cand,
+                                      c_pad, m,
+                                      reinterpret_cast<uint64_t*>(smem));
+  const int idx = (int)(x & kIdxMask);
+  const double sz = t < m ? (double)sz_row[idx] : 0.0;
+  const double csum = block_exclusive(sz, s_wtot) + sz;   // inclusive
+  double* s_csum = reinterpret_cast<double*>(smem);
+  if (t < m) s_csum[t] = csum;
+  __syncthreads();
+  long long cnt = 0;
+  if (t < h_cap) {                  // cnt_{t+1}: head prefixes <= threshold
+    const double thr = s_thr[t];
+    int lo = 0, hi = m;
+    while (lo < hi) {
+      const int mid = (lo + hi) >> 1;
+      if (s_csum[mid] <= thr) lo = mid + 1;
+      else hi = mid;
+    }
+    cnt = lo;
+  }
+  grant_counts(cnt, h_cap, pop, m, s_n, s_wmin);
+  if (t < m) {                      // step = 1 + #{k : n_k <= rank}
+    int lo = 0, hi = h_cap;
+    while (lo < hi) {
+      const int mid = (lo + hi) >> 1;
+      if (s_n[mid] <= t) lo = mid + 1;
+      else hi = mid;
+    }
+    out_row[idx] = 1 + lo;
+  }
+}
+
 // Opt a kernel in to all the shared memory a block may take (227 KB on
 // Hopper; above 48 KB only as dynamic shared memory, on request) and report
 // how much of it is left for the dynamic part beside the kernel's static
@@ -843,6 +1332,57 @@ inline size_t smem_for(int P, int n, int row_bytes) {
   return whole > head ? whole : head;
 }
 
+inline int slice_threads(int p_loc) {
+  int n = 32;
+  while (n < p_loc && n < kMaxThreads) n <<= 1;
+  return n;
+}
+
+inline int pad_pow2(int n) {
+  int p = 32;
+  while (p < n) p <<= 1;
+  return p;
+}
+
+inline size_t cand_smem(int p_loc, int m_slots) {
+  return head_offset(p_loc) + 8 * (size_t)m_slots;
+}
+
+template <typename K>
+int split_evict(const void* key, const void* sizes, int sizes_stride,
+                const void* evictable, const void* need_free, void* out,
+                int L, int P, int vmax, int n_sh, int m_slots, void* cand,
+                void* work, void* sorted, void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  const int p_loc = P / n_sh;
+  const dim3 grid(L, n_sh);
+  if (cand != nullptr) {
+    split_evict_cand<K><<<grid, slice_threads(p_loc),
+                          cand_smem(p_loc, m_slots), st>>>(
+        (const K*)key, (const uint8_t*)evictable, (const float*)need_free,
+        (uint8_t*)out, (uint64_t*)cand, P, p_loc, vmax, m_slots);
+    const int n_cand = n_sh * m_slots, c_pad = pad_pow2(n_cand);
+    split_evict_finish<<<L, kMaxThreads, 8 * (size_t)c_pad, st>>>(
+        (const uint64_t*)cand, nullptr, (const float*)sizes, sizes_stride,
+        (const uint8_t*)evictable, (const float*)need_free, (uint8_t*)out, P,
+        vmax, n_cand, c_pad);
+    return (int)cudaGetLastError();
+  }
+  Gate g{kGateNeed, n_sh, 0, 0, (const float*)need_free, nullptr, nullptr,
+         nullptr};
+  const int n_pad = pad_pow2(p_loc);
+  split_sort_slices<K, false><<<grid, slice_threads(n_pad), 8 * (size_t)n_pad,
+                                st>>>((const K*)key, (const uint8_t*)evictable,
+                                      g, (uint64_t*)work, P, p_loc, n_pad);
+  split_rank<<<grid, 256, 0, st>>>((const uint64_t*)work, g,
+                                   (uint64_t*)sorted, P, p_loc);
+  split_evict_finish<<<L, kMaxThreads, 0, st>>>(
+      nullptr, (const uint64_t*)sorted, (const float*)sizes, sizes_stride,
+      (const uint8_t*)evictable, (const float*)need_free, (uint8_t*)out, P,
+      vmax, 0, 0);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -865,7 +1405,26 @@ int pbm_init(int* max_dyn) {
   e = allow_large_smem(fifo_grant_kernel, &max_dyn[1]);
   if (e != cudaSuccess) return (int)e;
   e = allow_large_smem(wake_solve_kernel, &max_dyn[2]);
-  return (int)e;
+  if (e != cudaSuccess) return (int)e;
+  // the page-split kernels: max_dyn[3] is the least of their limits
+  int lim[9];
+  e = allow_large_smem(split_evict_cand<float>, &lim[0]);
+  if (e == cudaSuccess) e = allow_large_smem(split_evict_cand<int>, &lim[1]);
+  if (e == cudaSuccess) e = allow_large_smem(split_queue_cand<false>, &lim[2]);
+  if (e == cudaSuccess) e = allow_large_smem(split_queue_cand<true>, &lim[3]);
+  if (e == cudaSuccess)
+    e = allow_large_smem(split_sort_slices<float, false>, &lim[4]);
+  if (e == cudaSuccess)
+    e = allow_large_smem(split_sort_slices<int, false>, &lim[5]);
+  if (e == cudaSuccess)
+    e = allow_large_smem(split_sort_slices<int, true>, &lim[6]);
+  if (e == cudaSuccess) e = allow_large_smem(split_evict_finish, &lim[7]);
+  if (e == cudaSuccess) e = allow_large_smem(split_grant_finish, &lim[8]);
+  if (e == cudaSuccess) e = allow_large_smem(split_wake_finish, &max_dyn[3]);
+  if (e != cudaSuccess) return (int)e;
+  for (int i = 0; i < 9; ++i)
+    if (lim[i] < max_dyn[3]) max_dyn[3] = lim[i];
+  return 0;
 }
 
 // `n` is the sorted row length: a power of two, >= 32 and >= P.  A block
@@ -918,6 +1477,95 @@ int pbm_wake_solve(const void* key, const void* sizes, int sizes_stride,
   wake_solve_kernel<<<L, threads, smem_for(P, n, 12), (cudaStream_t)stream>>>(
       (const int*)key, (const float*)sizes, sizes_stride, (const float*)credit0,
       (const float*)inc, (const int*)pops, (int*)out, P, h_cap, n);
+  return (int)cudaGetLastError();
+}
+
+// The page-split path (P = n_sh * p_loc).  A head path passes `cand` (L,
+// n_sh, m_slots) words (and, for the queues, `stats` (L, n_sh, 2) ints) and
+// no `work` / `sorted`; a whole-row path passes `work` and `sorted`, (L, P)
+// words each, and no `cand`.  wake_solve passes all of them, and `idx` (L,
+// P) ints: its lanes choose on the device.  Two to four launches on
+// `stream`; the first error is returned.
+
+int pbm_split_evict_f32(const void* key, const void* sizes, int sizes_stride,
+                        const void* evictable, const void* need_free, void* out,
+                        int L, int P, int vmax, int n_sh, int m_slots,
+                        void* cand, void* work, void* sorted, void* stream) {
+  return split_evict<float>(key, sizes, sizes_stride, evictable, need_free,
+                            out, L, P, vmax, n_sh, m_slots, cand, work, sorted,
+                            stream);
+}
+
+int pbm_split_evict_i32(const void* key, const void* sizes, int sizes_stride,
+                        const void* evictable, const void* need_free, void* out,
+                        int L, int P, int vmax, int n_sh, int m_slots,
+                        void* cand, void* work, void* sorted, void* stream) {
+  return split_evict<int>(key, sizes, sizes_stride, evictable, need_free, out,
+                          L, P, vmax, n_sh, m_slots, cand, work, sorted,
+                          stream);
+}
+
+int pbm_split_grant(const void* key, const void* sizes, int sizes_stride,
+                    const void* budget, const void* pops, void* mask_out,
+                    void* bytes_out, void* n_out, int L, int P, int vmax,
+                    int n_sh, int m_slots, void* cand, void* stats, void* work,
+                    void* sorted, void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  const int p_loc = P / n_sh;
+  const dim3 grid(L, n_sh);
+  if (cand != nullptr) {
+    split_queue_cand<false><<<grid, slice_threads(p_loc),
+                              cand_smem(p_loc, m_slots), st>>>(
+        (const int*)key, (const float*)sizes, sizes_stride, (const int*)pops,
+        mask_out, (uint64_t*)cand, (int*)stats, P, p_loc, vmax, 0, m_slots);
+    const int n_cand = n_sh * m_slots, c_pad = pad_pow2(n_cand);
+    split_grant_finish<<<L, kMaxThreads, 8 * (size_t)c_pad, st>>>(
+        (const uint64_t*)cand, (const int*)stats, nullptr, (const float*)sizes,
+        sizes_stride, (const float*)budget, (const int*)pops,
+        (uint8_t*)mask_out, (float*)bytes_out, (int*)n_out, P, vmax, n_sh,
+        n_cand, c_pad);
+    return (int)cudaGetLastError();
+  }
+  Gate g{kGateAll, n_sh, 0, 0, nullptr, nullptr, nullptr, nullptr};
+  const int n_pad = pad_pow2(p_loc);
+  split_sort_slices<int, true><<<grid, slice_threads(n_pad), 8 * (size_t)n_pad,
+                                 st>>>((const int*)key, nullptr, g,
+                                       (uint64_t*)work, P, p_loc, n_pad);
+  split_rank<<<grid, 256, 0, st>>>((const uint64_t*)work, g,
+                                   (uint64_t*)sorted, P, p_loc);
+  split_grant_finish<<<L, kMaxThreads, 0, st>>>(
+      nullptr, nullptr, (const uint64_t*)sorted, (const float*)sizes,
+      sizes_stride, (const float*)budget, (const int*)pops, (uint8_t*)mask_out,
+      (float*)bytes_out, (int*)n_out, P, vmax, n_sh, 0, 0);
+  return (int)cudaGetLastError();
+}
+
+int pbm_split_wake(const void* key, const void* sizes, int sizes_stride,
+                   const void* credit0, const void* inc, const void* pops,
+                   void* out, int L, int P, int h_cap, int n_sh, int m_slots,
+                   void* cand, void* stats, void* work, void* sorted,
+                   void* idx, int force, void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  const int p_loc = P / n_sh;
+  const dim3 grid(L, n_sh);
+  split_queue_cand<true><<<grid, slice_threads(p_loc),
+                           cand_smem(p_loc, m_slots), st>>>(
+      (const int*)key, (const float*)sizes, sizes_stride, (const int*)pops, out,
+      (uint64_t*)cand, (int*)stats, P, p_loc, 0, h_cap, m_slots);
+  Gate g{kGateWake, n_sh, h_cap, force, nullptr, (const int*)stats,
+         (const int*)pops, (const float*)inc};
+  const int n_pad = pad_pow2(p_loc);
+  split_sort_slices<int, true><<<grid, slice_threads(n_pad), 8 * (size_t)n_pad,
+                                 st>>>((const int*)key, nullptr, g,
+                                       (uint64_t*)work, P, p_loc, n_pad);
+  split_rank<<<grid, 256, 0, st>>>((const uint64_t*)work, g,
+                                   (uint64_t*)sorted, P, p_loc);
+  const int n_cand = n_sh * m_slots, c_pad = pad_pow2(n_cand);
+  split_wake_finish<<<L, kMaxThreads, 8 * (size_t)c_pad, st>>>(
+      (const uint64_t*)cand, (const int*)stats, (uint64_t*)sorted, (int*)idx,
+      (const float*)sizes, sizes_stride, (const float*)credit0,
+      (const float*)inc, (const int*)pops, (int*)out, P, h_cap, n_sh, n_cand,
+      c_pad, force);
   return (int)cudaGetLastError();
 }
 

@@ -43,27 +43,48 @@ def reset_launch_counts() -> None:
         fn.launches = 0
 
 
-def batched_evict(key, sizes, evictable, need_free, *, vmax: int = 64):
+def batched_evict(key, sizes, evictable, need_free, *, vmax: int = 64,
+                  page_shards: int = 1):
     """Batched evict selection over a policy score array: the policy is
-    entirely in ``key`` (f32 or i32, higher = evicted first)."""
+    entirely in ``key`` (f32 or i32, higher = evicted first).
+
+    ``page_shards`` is the counterpart of the JAX package's ``page_axis``:
+    with ``n > 1`` each of ``n`` page shards selects the candidates of its
+    own ``P / n`` slice and the vmax-bounded prefix runs on the gathered
+    list, bit-equal to the unsplit answer (``ref.evict_page_sharded``; on
+    the card, one block a shard).  ``n`` must divide P.  A row too long
+    for one block is split on the card whatever ``page_shards`` says."""
     if key.device.type == "cpu":
+        if int(page_shards) > 1:
+            return ref.evict_page_sharded(key, sizes, evictable, need_free,
+                                          int(page_shards), vmax=vmax)
         return ref.batched_evict_ref(key, sizes, evictable, need_free,
                                      vmax=vmax)
     return pbm_timeline.batched_evict_kernel(key, sizes, evictable,
-                                             need_free, vmax=vmax)
+                                             need_free, vmax=vmax,
+                                             page_shards=page_shards)
 
 
-def fifo_grant(key, sizes, budget, pops, *, vmax: int = 16):
+def fifo_grant(key, sizes, budget, pops, *, vmax: int = 16,
+               page_shards: int = 1):
     """Budgeted FIFO grant over the request-queue key array (the serial
-    I/O server's pop, sized for a macro-step)."""
+    I/O server's pop, sized for a macro-step).  ``page_shards`` splits
+    the candidate selection over page shards as in :func:`batched_evict`
+    (``ref.grant_page_sharded``), bit-equal to the unsplit answer."""
     if key.device.type == "cpu":
+        if int(page_shards) > 1:
+            return ref.grant_page_sharded(key, sizes, budget, pops,
+                                          int(page_shards), vmax=vmax)
         return ref.fifo_grant_ref(key, sizes, budget, pops, vmax=vmax)
     return pbm_timeline.fifo_grant_kernel(key, sizes, budget, pops,
-                                          vmax=vmax)
+                                          vmax=vmax, page_shards=page_shards)
 
 
 def wake_solve(key, sizes, credit0, inc, pops, *, h_cap: int = 64):
-    """Per-page grant step of the frozen serial I/O server."""
+    """Per-page grant step of the frozen serial I/O server.  It takes no
+    ``page_shards``: its output feeds lane-global jump decisions, so it
+    runs unsplit, as in the JAX package ("runs replicated as-is"); a row
+    too long for one block still takes the card's page-split kernels."""
     if key.device.type == "cpu":
         return ref.wake_solve_ref(key, sizes, credit0, inc, pops,
                                   h_cap=h_cap)

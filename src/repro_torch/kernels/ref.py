@@ -57,15 +57,16 @@ def batched_evict_ref(
     """Evict mask per lane: evictable pages in service order, among the
     ``vmax`` highest-priority ones, while the bytes freed *before* the
     page are below ``need_free`` (and ``need_free > 0``)."""
-    L, P = key.shape
-    sizes = _lane_sizes(sizes, L)
-    if key.dtype.is_floating_point:
-        low = float("-inf")
-    else:
-        low = torch.iinfo(key.dtype).min   # the dtype's own minimum
-    masked = torch.where(evictable, key, torch.full_like(key, low))
-    _, order = _service_order(masked)
-    cand = order[:, : min(vmax, P)]
+    _, order = _service_order(_evict_keys(key, evictable))
+    return _evict_head(order[:, : min(vmax, key.shape[1])], sizes, evictable,
+                       need_free)
+
+
+def _evict_head(cand, sizes, evictable, need_free) -> torch.Tensor:
+    """The evict rule on the head ``cand`` ``(L, m)`` of the service
+    order: evictable pages while the bytes freed before them (f64) are
+    below ``need_free``."""
+    sizes = _lane_sizes(sizes, cand.shape[0])
     c_ok = evictable.gather(1, cand)
     sz_c = torch.where(c_ok, sizes.gather(1, cand), 0.0).double()
     before = torch.cumsum(sz_c, dim=1) - sz_c
@@ -86,20 +87,26 @@ def fifo_grant_ref(
     entry that does not fit ``budget``, lies beyond ``min(pops, vmax)``
     or is not wanted blocks everything behind it.  Returns
     ``(mask (L, P) bool, granted_bytes (L,) f32, n_granted (L,) i32)``."""
-    L, P = key.shape
-    sizes = _lane_sizes(sizes, L)
     kv, order = _service_order(key)
-    k = min(vmax, P)
-    kv, cand = kv[:, :k], order[:, :k]
-    sz = sizes.gather(1, cand).double()
+    k = min(vmax, key.shape[1])
+    return _grant_head(kv[:, :k], order[:, :k], key.shape[1], sizes, budget,
+                       pops)
+
+
+def _grant_head(kv, cand, P: int, sizes, budget, pops):
+    """The grant rule on the head of the service order, keys ``kv`` at
+    pages ``cand`` ``(L, k)``: strict head-of-line admission (f64 byte
+    prefix) -> ``(mask (L, P), granted_bytes, n_granted)``."""
+    L, k = cand.shape
+    sz = _lane_sizes(sizes, L).gather(1, cand).double()
     csum = torch.cumsum(sz, dim=1)
-    pos = torch.arange(k, device=key.device)
+    pos = torch.arange(k, device=cand.device)
     ok = torch.cumprod(
         ((kv >= 0) & (csum <= budget.double().unsqueeze(1))
          & (pos.unsqueeze(0) < pops.unsqueeze(1))).to(torch.int32),
         dim=1,
     ).bool()
-    mask = torch.zeros(L, P, dtype=torch.bool, device=key.device)
+    mask = torch.zeros(L, P, dtype=torch.bool, device=cand.device)
     mask.scatter_(1, cand, ok)
     granted = torch.where(ok, sz, 0.0).sum(dim=1).float()
     return mask, granted, ok.sum(dim=1).to(torch.int32)
@@ -152,6 +159,65 @@ def wake_solve_ref(
     step = torch.where(w_ord, step, h_cap + 1).to(torch.int32)
     return torch.zeros(L, P, dtype=torch.int32, device=dev).scatter_(
         1, order, step)
+
+
+# ------------------------------------------- page-split candidate selection
+
+def page_shard_candidates(key: torch.Tensor, n: int, head: int) -> torch.Tensor:
+    """Global indices ``(L, n * m)`` of each of ``n`` page shards' first
+    ``m = min(head, P / n)`` pages in service order (its own stable sort,
+    key descending, index ascending), gathered and sorted by ascending
+    global index: the plain version of the JAX package's
+    ``_page_shard_candidates``.  A page among the lane's first ``head`` is
+    among its own shard's first ``head``, so the candidates hold the
+    lane's head, and a stable sort of their keys in index order gives its
+    service order.  ``n`` must divide P."""
+    L, P = key.shape
+    if P % n:
+        raise ValueError(
+            f"page axis has {n} shards which do not divide the padded pool "
+            f"size P={P}")
+    p_loc = P // n
+    m = min(int(head), p_loc)
+    _, order = _service_order(key.reshape(L * n, p_loc))
+    base = torch.arange(0, P, p_loc, device=key.device).repeat(L)
+    cand = (order[:, :m] + base[:, None]).reshape(L, n * m)
+    return torch.sort(cand, dim=1).values
+
+
+def _split_head(key: torch.Tensor, n: int, head: int):
+    """The first ``min(head, P)`` of each lane's service order, taken from
+    the shards' candidates: ``(keys, global indices)``."""
+    cand = page_shard_candidates(key, n, head)
+    kv, pos = _service_order(key.gather(1, cand))
+    take = min(int(head), key.shape[1])
+    return kv[:, :take], cand.gather(1, pos[:, :take])
+
+
+def _evict_keys(key: torch.Tensor, evictable: torch.Tensor) -> torch.Tensor:
+    """``key`` with the pages that cannot be evicted at the key type's
+    minimum (-inf for f32), a float -0.0 read as +0.0."""
+    if key.dtype.is_floating_point:
+        return torch.where(evictable, key + 0.0,
+                           torch.full_like(key, float("-inf")))
+    return torch.where(evictable, key,
+                       torch.full_like(key, torch.iinfo(key.dtype).min))
+
+
+def evict_page_sharded(key, sizes, evictable, need_free, n: int, *,
+                       vmax: int = 64) -> torch.Tensor:
+    """:func:`batched_evict_ref` from ``n`` page shards' candidates (the
+    JAX package's ``_evict_page_sharded``): the same mask."""
+    _, top = _split_head(_evict_keys(key, evictable), n, vmax)
+    return _evict_head(top, sizes, evictable, need_free)
+
+
+def grant_page_sharded(key, sizes, budget, pops, n: int, *,
+                       vmax: int = 16):
+    """:func:`fifo_grant_ref` from ``n`` page shards' candidates (the JAX
+    package's ``_grant_page_sharded``): the same mask, bytes and count."""
+    kv, top = _split_head(key, n, vmax)
+    return _grant_head(kv, top, key.shape[1], sizes, budget, pops)
 
 
 NEG_INF = -1e30

@@ -147,13 +147,12 @@ def mha_decode(
     ring: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One decode step against a contiguous cache; writes the new K/V at
-    ``pos`` in place and returns ``(y, layer_k, layer_v)``.  The ring
-    cache (``ring=True``) belongs to the 5:1 local:global pattern, which
-    the port does not serve yet."""
-    if ring:
-        raise NotImplementedError(
-            "ring-buffer caches (the 5:1 local:global pattern) are not "
-            "ported yet (ROADMAP A.10)")
+    ``pos`` in place and returns ``(y, layer_k, layer_v)``.
+
+    With ``ring=True`` the cache holds only the last S positions (the 5:1
+    pattern's local layers): the write slot is ``pos % S`` and the slots
+    below ``min(pos + 1, S)`` are valid.  RoPE is applied at the absolute
+    position when K is written, so reads need no re-rotation."""
     b = x.shape[0]
     dh = cfg.head_dim_
     hk = cfg.n_kv_heads
@@ -163,12 +162,16 @@ def mha_decode(
     q = apply_rope(q, positions, cfg.rope_theta)
     k_new = apply_rope(k_new, positions, cfg.rope_theta)
     s = layer_k.shape[1]
-    layer_k[:, pos] = k_new[:, 0].to(layer_k.dtype)
-    layer_v[:, pos] = v_new[:, 0].to(layer_v.dtype)
+    slot = pos % s if ring else pos
+    layer_k[:, slot] = k_new[:, 0].to(layer_k.dtype)
+    layer_v[:, slot] = v_new[:, 0].to(layer_v.dtype)
     kpos = torch.arange(s, device=x.device)
-    valid = kpos <= pos
-    if window is not None:
-        valid &= (pos - kpos) < window
+    if ring:
+        valid = kpos < min(pos + 1, s)
+    else:
+        valid = kpos <= pos
+        if window is not None:
+            valid &= (pos - kpos) < window
     # grouped GQA: never expand KV heads
     qg = q.reshape(b, hk, g, dh).float()
     scores = torch.einsum("bkgd,bskd->bkgs", qg, layer_k.float()) * dh ** -0.5

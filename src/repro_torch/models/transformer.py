@@ -1,8 +1,18 @@
-"""Model assembly: the serving surface of three families (port of
+"""Model assembly: the serving surface of every family (port of
 ``repro.models.transformer``).
 
-* ``dense`` — decoder-only LM, a Python loop over the L stacked blocks
-  (qwen2_1_5b, gemma_7b, deepseek_67b; gemma's embedding scale kept).
+* ``dense | moe | vlm`` — decoder-only LM, a Python loop over the L
+  stacked blocks (qwen2_1_5b, gemma_7b, deepseek_67b; the MoE FFN of
+  granite_moe_1b_a400m and llama4_scout_17b_a16e, ``models.moe``; the
+  vision stub of internvl2_26b, whose precomputed ``patch_embeds`` are
+  prepended to the text).  gemma3_12b's 5:1 local:global pattern is two
+  loops, groups of 5 sliding-window layers and 1 global layer, and its
+  decode keeps the local layers' K/V in ring buffers of the window's
+  length (``mha_decode(ring=True)``).
+* ``audio`` (seamless_m4t_large_v2) — encoder-decoder: a bidirectional
+  encoder over precomputed frame embeddings (the stub frontend), a causal
+  decoder with cross-attention to the encoder's output.  Decode reads the
+  cross K/V from the cache (``cache["cross"]``), filled by the caller.
 * ``hybrid`` (zamba2) — Mamba2 blocks; ONE shared attention+MLP block
   (zamba's parameter sharing) applied after every ``attn_every``-th layer,
   reading concat([h, emb]); the reference's ``lax.cond`` is an ``if``.
@@ -12,16 +22,17 @@
 :func:`build_model` returns a :class:`Model` whose ``prefill_logits``,
 ``serve_step`` and ``cache_specs`` keep the JAX names and signatures: a
 params tree of tensors in the JAX layout (stacked leading layer axes), a
-batch dict of ``tokens`` / ``token`` / ``pos``.  ``lax.scan`` over layers
-is a Python loop.  ``serve_step`` updates the cache tensors **in place**
-and returns the same dict.  Prefill reaches the port's kernels through
+batch dict of ``tokens`` / ``token`` / ``pos`` (``patch_embeds``,
+``src_embeds`` / ``tgt_tokens``).  ``lax.scan`` over layers is a Python
+loop.  ``serve_step`` updates the cache tensors **in place** and returns
+the same dict.  Prefill reaches the port's kernels through
 ``blocked_attention``, ``mamba2_block`` and ``mlstm_block``.
 
 The reference's ``_remat`` (activation checkpointing) and
 ``shardctx.constrain_batch`` (a sharding constraint) change no value of a
 forward pass and have no counterpart here.  Training (``train_loss``) is
-not ported yet (ROADMAP A.8); MoE, the 5:1 local:global ring, the vision
-stub and the encoder-decoder raise ``NotImplementedError`` (ROADMAP A.10).
+not ported yet (ROADMAP A.8); the prefill drops the MoE's aux loss, which
+only training reads.
 """
 
 from __future__ import annotations
@@ -33,6 +44,7 @@ import torch
 
 from ..configs.base import ArchConfig
 from . import attention as A
+from . import moe as M
 from . import ssm as S
 from . import xlstm as X
 from .layers import (
@@ -71,17 +83,11 @@ def _no_training(params, batch):
 
 def build_model(cfg: ArchConfig) -> Model:
     if cfg.family == "audio" or cfg.is_encdec:
-        raise _not_ported("the encoder-decoder family", "A.10")
+        return _build_encdec(cfg)
     if cfg.family == "hybrid":
         return _build_hybrid(cfg)
     if cfg.family == "ssm":
         return _build_xlstm(cfg)
-    if cfg.moe:
-        raise _not_ported("the MoE FFN", "A.10")
-    if cfg.local_global_ratio > 0:
-        raise _not_ported("the 5:1 local:global attention ring", "A.10")
-    if cfg.frontend is not None:
-        raise _not_ported("the vision frontend stub", "A.10")
     return _build_lm(cfg)
 
 
@@ -97,73 +103,250 @@ def _head_logits(x: torch.Tensor, head: torch.Tensor) -> torch.Tensor:
 # ------------------------------------------------------------------ LM ----
 
 def _block_specs(cfg: ArchConfig) -> Dict[str, Any]:
-    return {
+    specs: Dict[str, Any] = {
         "ln_attn": ParamSpec((cfg.d_model,), ("embed",), init="zeros"),
         "attn": A.attn_specs(cfg),
         "ln_ffn": ParamSpec((cfg.d_model,), ("embed",), init="zeros"),
-        "mlp": gated_mlp_specs(cfg.d_model, cfg.d_ff),
     }
+    if cfg.moe:
+        specs["moe"] = M.moe_specs(cfg)
+    else:
+        specs["mlp"] = gated_mlp_specs(cfg.d_model, cfg.d_ff)
+    return specs
+
+
+def _ffn(params, h, cfg: ArchConfig) -> torch.Tensor:
+    """The block's FFN: the MoE (its aux loss dropped) or the gated MLP."""
+    if cfg.moe:
+        return M.moe_ffn(params["moe"], h, cfg)[0]
+    return gated_mlp(params["mlp"], h, cfg.ffn_act)
 
 
 def _block_apply(params, x, cfg: ArchConfig, window: Optional[int]):
     h = rms_norm(x, params["ln_attn"], cfg.norm_eps)
     x = x + A.mha_train(params["attn"], h, cfg, window=window)
     h = rms_norm(x, params["ln_ffn"], cfg.norm_eps)
-    return x + gated_mlp(params["mlp"], h, cfg.ffn_act)
+    return x + _ffn(params, h, cfg)
 
 
 def _block_decode(params, x, k, v, pos: int, cfg: ArchConfig,
-                  window: Optional[int]):
+                  window: Optional[int], ring: bool = False):
     h = rms_norm(x, params["ln_attn"], cfg.norm_eps)
-    y, k, v = A.mha_decode(params["attn"], h, k, v, pos, cfg, window=window)
+    y, k, v = A.mha_decode(params["attn"], h, k, v, pos, cfg, window=window,
+                           ring=ring)
     x = x + y
     h = rms_norm(x, params["ln_ffn"], cfg.norm_eps)
-    return x + gated_mlp(params["mlp"], h, cfg.ffn_act)
+    return x + _ffn(params, h, cfg)
 
 
-def _build_lm(cfg: ArchConfig) -> Model:
+def _lm_specs(cfg: ArchConfig) -> Dict[str, Any]:
     specs: Dict[str, Any] = {
         "embed": embedding_specs(cfg.padded_vocab, cfg.d_model),
         "ln_f": ParamSpec((cfg.d_model,), ("embed",), init="zeros"),
-        "layers": _stack_specs(_block_specs(cfg), cfg.n_layers),
     }
+    ratio = cfg.local_global_ratio
+    if ratio > 0:
+        n_groups = cfg.n_layers // (ratio + 1)
+        specs["local"] = _stack_specs(_stack_specs(_block_specs(cfg), ratio),
+                                      n_groups)
+        specs["global"] = _stack_specs(_block_specs(cfg), n_groups)
+    else:
+        specs["layers"] = _stack_specs(_block_specs(cfg), cfg.n_layers)
     if not cfg.tie_embeddings:
         specs["lm_head"] = ParamSpec(
             (cfg.padded_vocab, cfg.d_model), ("vocab", "embed"), scale=1.0
         )
+    return specs
 
-    def embed(params, tokens):
-        x = embed_tokens(params["embed"], tokens)
-        if cfg.name.startswith("gemma"):   # gemma embed scaling, in x's type
-            x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype,
-                                 device=x.device)
-        return x
+
+def _gemma_scale(x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """gemma's embedding scale, in x's type."""
+    if cfg.name.startswith("gemma"):
+        return x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype,
+                                device=x.device)
+    return x
+
+
+def _lm_embed_inputs(params, batch, cfg: ArchConfig) -> torch.Tensor:
+    x = embed_tokens(params["embed"], batch["tokens"])
+    if cfg.frontend == "vision":
+        # stub frontend: precomputed patch embeddings prepended to the text
+        x = torch.cat([batch["patch_embeds"].to(x.dtype), x], dim=1)
+    return _gemma_scale(x, cfg)
+
+
+def _lm_backbone(params, x, cfg: ArchConfig) -> torch.Tensor:
+    ratio = cfg.local_global_ratio
+    if ratio > 0:
+        for g in range(cfg.n_layers // (ratio + 1)):
+            for j in range(ratio):
+                x = _block_apply(layer(params["local"], g, j), x, cfg,
+                                 cfg.sliding_window)
+            x = _block_apply(layer(params["global"], g), x, cfg, None)
+    else:
+        for i in range(cfg.n_layers):
+            x = _block_apply(layer(params["layers"], i), x, cfg,
+                             cfg.sliding_window)
+    return rms_norm(x, params["ln_f"], cfg.norm_eps)
+
+
+def _build_lm(cfg: ArchConfig) -> Model:
+    specs = _lm_specs(cfg)
+    ratio = cfg.local_global_ratio
 
     def head(params):
         return params.get("lm_head", params["embed"]["table"])
 
     def prefill_logits(params, batch):
-        x = embed(params, batch["tokens"])
-        for i in range(cfg.n_layers):
-            x = _block_apply(layer(params["layers"], i), x, cfg,
-                             cfg.sliding_window)
-        x = rms_norm(x, params["ln_f"], cfg.norm_eps)
+        x = _lm_backbone(params, _lm_embed_inputs(params, batch, cfg), cfg)
         return _head_logits(x[:, -1:], head(params))
 
     def cache_specs(batch: int, seq: int):
+        if ratio > 0:
+            g = cfg.n_layers // (ratio + 1)
+            w = min(cfg.sliding_window or seq, seq)
+            return {
+                "local": A.kv_cache_specs(cfg, batch, w, n_layers=g * ratio),
+                "global": A.kv_cache_specs(cfg, batch, seq, n_layers=g),
+            }
         return A.kv_cache_specs(cfg, batch, seq)
 
     def serve_step(params, cache, batch):
         pos = _pos(batch)
-        x = embed(params, batch["token"])
-        for i in range(cfg.n_layers):
-            x = _block_decode(layer(params["layers"], i), x, cache["k"][i],
-                              cache["v"][i], pos, cfg, cfg.sliding_window)
+        x = _gemma_scale(embed_tokens(params["embed"], batch["token"]), cfg)
+        if ratio > 0:
+            # ring-buffer local caches: write slot pos % window, RoPE at the
+            # absolute position (mha_decode's ring semantics)
+            lk, lv = cache["local"]["k"], cache["local"]["v"]
+            gk, gv = cache["global"]["k"], cache["global"]["v"]
+            for g in range(cfg.n_layers // (ratio + 1)):
+                for j in range(ratio):
+                    i = g * ratio + j
+                    x = _block_decode(layer(params["local"], g, j), x, lk[i],
+                                      lv[i], pos, cfg, None, ring=True)
+                x = _block_decode(layer(params["global"], g), x, gk[g], gv[g],
+                                  pos, cfg, None)
+        else:
+            for i in range(cfg.n_layers):
+                x = _block_decode(layer(params["layers"], i), x, cache["k"][i],
+                                  cache["v"][i], pos, cfg, cfg.sliding_window)
         x = rms_norm(x, params["ln_f"], cfg.norm_eps)
         return _head_logits(x, head(params)), cache
 
     return Model(cfg, specs, _no_training, prefill_logits, serve_step,
                  cache_specs)
+
+
+# ------------------------------------------------------- encoder-decoder ---
+
+#: encoder frames of the serving cache (the stub frontend's length)
+ENC_FRAMES = 4096
+
+
+def _build_encdec(cfg: ArchConfig) -> Model:
+    enc_block = {
+        "ln_attn": ParamSpec((cfg.d_model,), ("embed",), init="zeros"),
+        "attn": A.attn_specs(cfg),
+        "ln_ffn": ParamSpec((cfg.d_model,), ("embed",), init="zeros"),
+        "mlp": gated_mlp_specs(cfg.d_model, cfg.d_ff),
+    }
+    dec_block = {
+        **enc_block,
+        "ln_cross": ParamSpec((cfg.d_model,), ("embed",), init="zeros"),
+        "cross": A.attn_specs(cfg),
+    }
+    specs = {
+        "embed": embedding_specs(cfg.padded_vocab, cfg.d_model),
+        "encoder": _stack_specs(enc_block, cfg.encoder_layers),
+        "decoder": _stack_specs(dec_block, cfg.n_layers),
+        "ln_enc": ParamSpec((cfg.d_model,), ("embed",), init="zeros"),
+        "ln_f": ParamSpec((cfg.d_model,), ("embed",), init="zeros"),
+    }
+
+    def encode(params, src):
+        x = src
+        for i in range(cfg.encoder_layers):
+            lp = layer(params["encoder"], i)
+            h = rms_norm(x, lp["ln_attn"], cfg.norm_eps)
+            x = x + A.mha_train(lp["attn"], h, cfg, causal=False)
+            h = rms_norm(x, lp["ln_ffn"], cfg.norm_eps)
+            x = x + gated_mlp(lp["mlp"], h, cfg.ffn_act)
+        return rms_norm(x, params["ln_enc"], cfg.norm_eps)
+
+    def decode_train(params, x, enc):
+        for i in range(cfg.n_layers):
+            lp = layer(params["decoder"], i)
+            h = rms_norm(x, lp["ln_attn"], cfg.norm_eps)
+            x = x + A.mha_train(lp["attn"], h, cfg, causal=True)
+            h = rms_norm(x, lp["ln_cross"], cfg.norm_eps)
+            x = x + A.mha_train(lp["cross"], h, cfg, kv_src=enc, causal=False)
+            h = rms_norm(x, lp["ln_ffn"], cfg.norm_eps)
+            x = x + gated_mlp(lp["mlp"], h, cfg.ffn_act)
+        return rms_norm(x, params["ln_f"], cfg.norm_eps)
+
+    def prefill_logits(params, batch):
+        table = params["embed"]["table"]
+        enc = encode(params, batch["src_embeds"].to(table.dtype))
+        x = decode_train(params, embed_tokens(params["embed"],
+                                              batch["tgt_tokens"]), enc)
+        return _head_logits(x[:, -1:], table)
+
+    def cache_specs(batch: int, seq: int):
+        return {
+            "self": A.kv_cache_specs(cfg, batch, seq),
+            "cross": A.kv_cache_specs(cfg, batch, ENC_FRAMES),
+            "enc_done": A.TensorSpec((), torch.int32),
+        }
+
+    def serve_step(params, cache, batch):
+        pos = _pos(batch)
+        x = embed_tokens(params["embed"], batch["token"])
+        sk, sv = cache["self"]["k"], cache["self"]["v"]
+        ck, cv = cache["cross"]["k"], cache["cross"]["v"]
+        for i in range(cfg.n_layers):
+            x = _block_decode_encdec(layer(params["decoder"], i), x, sk[i],
+                                     sv[i], ck[i], cv[i], pos, cfg)
+        x = rms_norm(x, params["ln_f"], cfg.norm_eps)
+        return _head_logits(x, params["embed"]["table"]), cache
+
+    model = Model(cfg, specs, _no_training, prefill_logits, serve_step,
+                  cache_specs)
+    model.encode = encode
+    return model
+
+
+def encdec_cross_kv(params, enc: torch.Tensor, cfg: ArchConfig):
+    """The decoder's cross K/V of every layer from the encoder's output
+    ``enc`` ``(B, S, d)`` (``Model.encode``): ``(k, v)``, each ``(L, B, S,
+    Hk, Dh)``, what ``serve_step`` reads from ``cache["cross"]`` (no
+    RoPE, as ``mha_train(kv_src=...)`` projects them)."""
+    ks, vs = [], []
+    for i in range(cfg.n_layers):
+        _, k, v = A._project_qkv(layer(params["decoder"], i)["cross"], enc,
+                                 enc, cfg)
+        ks.append(k)
+        vs.append(v)
+    return torch.stack(ks), torch.stack(vs)
+
+
+def _block_decode_encdec(p, x, k, v, ck, cv, pos: int, cfg: ArchConfig):
+    h = rms_norm(x, p["ln_attn"], cfg.norm_eps)
+    y, _, _ = A.mha_decode(p["attn"], h, k, v, pos, cfg)
+    x = x + y
+    # cross-attention against the precomputed encoder K/V (no cache update)
+    h = rms_norm(x, p["ln_cross"], cfg.norm_eps)
+    b = x.shape[0]
+    dh = cfg.head_dim_
+    q = (h @ p["cross"]["wq"]).reshape(b, 1, cfg.n_heads, dh)
+    kf = A._expand_kv(ck, cfg.n_heads).float()
+    vf = A._expand_kv(cv, cfg.n_heads).float()
+    scores = torch.einsum("bqhd,bshd->bhqs", q.float(), kf) * dh ** -0.5
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhqs,bshd->bqhd", probs, vf)
+    out = out.to(x.dtype).reshape(b, 1, cfg.n_heads * dh)
+    x = x + out @ p["cross"]["wo"]
+    h = rms_norm(x, p["ln_ffn"], cfg.norm_eps)
+    return x + gated_mlp(p["mlp"], h, cfg.ffn_act)
 
 
 # ----------------------------------------------------------- hybrid (zamba)

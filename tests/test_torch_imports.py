@@ -76,7 +76,8 @@ def test_every_submodule_is_listed():
                  "repro_torch.core.policies.pbm_lru",
                  "repro_torch.core.policies.attach_throttle",
                  "repro_torch.obs", "repro_torch.obs.counters",
-                 "repro_torch.obs.trace", "repro_torch.obs.manifest"):
+                 "repro_torch.obs.trace", "repro_torch.obs.manifest",
+                 "repro_torch.models.moe", "repro_torch.core.array_sim.mesh"):
         assert want in MODULES
 
 
@@ -189,9 +190,15 @@ def test_cscan_is_registered_but_not_ported():
 
 
 def test_unported_options_are_refused_not_ignored():
+    """``sanitize`` (A.9) and the JAX spelling ``page_axis`` are refused;
+    a mesh that is not a ``Mesh``, or has three axes, is refused."""
+    from repro_torch.core.array_sim import Mesh
     spec = _spec()
     with pytest.raises(ValueError, match="fixed | horizon"):
         make_runner(spec, stepper="event", device="cpu")
     for opt in ("mesh", "sanitize", "page_axis"):
         with pytest.raises(TypeError):
             make_runner(spec, device="cpu", **{opt: True})
+    with pytest.raises(ValueError, match="one-axis"):
+        make_runner(spec, mesh=Mesh(np.array(["cpu"], dtype=object)
+                                    .reshape(1, 1, 1), ("a", "b", "c")))

@@ -11,17 +11,21 @@ CPU in f32 (the port's prefill then runs the plain versions of B5-B7):
   of 10-100, whose rounding follows that scale).  The caches are f32, as in the JAX package's own
   ``test_decode_matches_prefill``: a bf16 cache rounds K/V, and one value
   that lands on the other side of a bf16 rounding boundary moves a logit
-  by more than 1e-4;
-* the port's decode reproduces its own prefill for all three families
-  (the JAX package checks dense archs only).  xLSTM needs its sLSTM
+  by more than 1e-4.  gemma3's 24 steps carry its ring caches past the
+  smoke window of 16; the encoder-decoder's cross cache is filled with the
+  same numbers on both sides (zeros, as the JAX tests fill it, and the
+  encoder's own K/V);
+* the port's decode reproduces its own prefill for every family (the JAX
+  package checks dense archs only): internvl2 with no patch positions,
+  seamless with the cross cache holding the encoder's K/V of 4,096
+  frames.  xLSTM needs its sLSTM
   stabiliser ``sm`` at -1e9 in the cache, as ``slstm_block`` starts it: a
   zero cache is a known fault of the reference (ROADMAP §C), asserted
   here as a difference;
 * one case per family at the full ``CONFIG``'s widths (``n_layers`` cut to
   one pattern period, vocabulary 512, T = 64, weights at their true
   fan-in), which catches layout faults at Zamba2's shared-attention head
-  of 160 and xLSTM's K = 512;
-* the families outside this slice raise ``NotImplementedError``.
+  of 160, xLSTM's K = 512 and granite's 32 experts of 512.
 """
 
 import dataclasses
@@ -44,15 +48,22 @@ from repro_torch.models import (  # noqa: E402
     build_model, init_params, load_jax_params, tree_paths,
 )
 from repro_torch.models import attention as A  # noqa: E402
+from repro_torch.models.transformer import encdec_cross_kv  # noqa: E402
 from repro_torch.models.layers import fan_in_rescale  # noqa: E402
 from repro_torch.models import ssm as S  # noqa: E402
 from repro_torch.models import xlstm as X  # noqa: E402
 
-FAMILIES = ("qwen2_1_5b", "zamba2_2_7b", "xlstm_350m")
+FAMILIES = ("qwen2_1_5b", "zamba2_2_7b", "xlstm_350m", "granite_moe_1b_a400m",
+            "llama4_scout_17b_a16e", "gemma3_12b", "internvl2_26b",
+            "seamless_m4t_large_v2")
 TOL = 1e-4
 #: one pattern period of each family: the dense block, Zamba2's six Mamba2
-#: layers with the shared block after the sixth, xLSTM's 7 mLSTM + 1 sLSTM
-PERIOD = {"qwen2_1_5b": 1, "zamba2_2_7b": 6, "xlstm_350m": 8}
+#: layers with the shared block after the sixth, xLSTM's 7 mLSTM + 1 sLSTM,
+#: granite's MoE block
+PERIOD = {"qwen2_1_5b": 1, "zamba2_2_7b": 6, "xlstm_350m": 8,
+          "granite_moe_1b_a400m": 1}
+#: decode steps of the serving test: gemma3's past its smoke window (16)
+STEPS = {"gemma3_12b": 24}
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -99,16 +110,54 @@ def smoke_pair(arch):
 
 
 def _zero_cache(specs, dtype=torch.float32):
-    return {k: torch.zeros(s.shape, dtype=dtype) for k, s in specs.items()}
+    """A zero cache of the specs' tree; float leaves in ``dtype``."""
+    if isinstance(specs, dict):
+        return {k: _zero_cache(v, dtype) for k, v in specs.items()}
+    dt = dtype if specs.dtype.is_floating_point else specs.dtype
+    return torch.zeros(specs.shape, dtype=dt)
 
 
 def _jzero_cache(specs):
-    return jax.tree.map(lambda s: jnp.zeros(s.shape, jnp.float32), specs)
+    return jax.tree.map(
+        lambda s: jnp.zeros(s.shape, jnp.float32
+                            if jnp.issubdtype(s.dtype, jnp.floating)
+                            else s.dtype), specs)
+
+
+def _cache_leaves(cache, prefix=""):
+    """``{path: leaf}`` of a nested cache (JAX or port)."""
+    if isinstance(cache, dict):
+        out = {}
+        for k, v in cache.items():
+            out.update(_cache_leaves(v, f"{prefix}/{k}"))
+        return out
+    return {prefix: cache}
 
 
 def _tokens(cfg, B, T, seed=1):
     return np.random.default_rng(seed).integers(
         0, cfg.vocab_size, (B, T)).astype(np.int32)
+
+
+def _batches(cfg, B, T, seed=1, patches=None, frames=None):
+    """The prefill batch of the family, numpy: ``tokens``; the vision
+    stub's ``patch_embeds`` (``patches`` positions, default the config's)
+    before them; the encoder-decoder's ``src_embeds`` (``frames``, default
+    T) and ``tgt_tokens``.  Returns ``(jax batch, port batch)``."""
+    rng = np.random.default_rng(seed + 100)
+    toks = _tokens(cfg, B, T, seed)
+    if cfg.is_encdec:
+        src = rng.normal(0, 1, (B, frames or T, cfg.d_model)).astype(
+            np.float32)
+        b = {"src_embeds": src, "tgt_tokens": toks}
+    elif cfg.frontend == "vision":
+        n = cfg.frontend_tokens if patches is None else patches
+        pe = rng.normal(0, 1, (B, n, cfg.d_model)).astype(np.float32)
+        b = {"tokens": toks, "patch_embeds": pe}
+    else:
+        b = {"tokens": toks}
+    return ({k: jnp.asarray(v) for k, v in b.items()},
+            {k: torch.from_numpy(v) for k, v in b.items()})
 
 
 # ------------------------------------------------------------ the specs ----
@@ -126,7 +175,8 @@ def test_param_trees_have_the_jax_paths_shapes_and_inits(arch):
 @pytest.mark.parametrize("arch", FAMILIES)
 def test_cache_specs_have_the_jax_shapes_and_dtypes(arch):
     jm, _, tm, _ = smoke_pair(arch)
-    js, ts = jm.cache_specs(3, 40), tm.cache_specs(3, 40)
+    js = _cache_leaves(jm.cache_specs(3, 40))
+    ts = _cache_leaves(tm.cache_specs(3, 40))
     assert set(js) == set(ts)
     for k in js:
         assert tuple(js[k].shape) == ts[k].shape, k
@@ -205,20 +255,29 @@ def test_xlstm_blocks_match_jax(block):
 def test_prefill_logits_match_jax(arch):
     jm, jp, tm, tp = smoke_pair(arch)
     cfg = jm.cfg
-    toks = _tokens(cfg, 2, 45)
-    want = jm.prefill_logits(jp, {"tokens": jnp.asarray(toks)})
-    got = tm.prefill_logits(tp, {"tokens": torch.from_numpy(toks)})
+    jb, tb = _batches(cfg, 2, 45)
+    want = jm.prefill_logits(jp, jb)
+    got = tm.prefill_logits(tp, tb)
     assert tuple(got.shape) == (2, 1, cfg.padded_vocab)
     _close_to_scale(got, want)
 
 
-@pytest.mark.parametrize("arch", FAMILIES)
-def test_serve_steps_match_jax(arch):
-    jm, jp, tm, tp = smoke_pair(arch)
-    toks = _tokens(jm.cfg, 2, 8, seed=5)
-    jcache = _jzero_cache(jm.cache_specs(2, 16))
-    tcache = _zero_cache(tm.cache_specs(2, 16))
-    for i in range(8):
+def _fill_cross(jcache, tcache, seed=9):
+    """The same random numbers in both caches' cross K/V."""
+    rng = np.random.default_rng(seed)
+    for kv in ("k", "v"):
+        x = rng.normal(0, 1, tcache["cross"][kv].shape).astype(np.float32)
+        tcache["cross"][kv].copy_(torch.from_numpy(x))
+        jcache["cross"][kv] = jnp.asarray(x)
+
+
+def _serve_both(jm, jp, tm, tp, steps, fill=None):
+    toks = _tokens(jm.cfg, 2, steps, seed=5)
+    jcache = _jzero_cache(jm.cache_specs(2, 40))
+    tcache = _zero_cache(tm.cache_specs(2, 40))
+    if fill is not None:
+        fill(jcache, tcache)
+    for i in range(steps):
         want, jcache = jm.serve_step(
             jp, jcache, {"token": jnp.asarray(toks[:, i:i + 1]),
                          "pos": jnp.int32(i)})
@@ -226,8 +285,22 @@ def test_serve_steps_match_jax(arch):
             tp, tcache, {"token": torch.from_numpy(toks[:, i:i + 1]),
                          "pos": i})
         _close_to_scale(got, want)
-    for k in jcache:
-        _close_to_scale(tcache[k], jcache[k])
+    jl, tl = _cache_leaves(jcache), _cache_leaves(tcache)
+    assert set(jl) == set(tl)
+    for k in jl:
+        _close_to_scale(tl[k], jl[k])
+
+
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_serve_steps_match_jax(arch):
+    jm, jp, tm, tp = smoke_pair(arch)
+    fill = _fill_cross if jm.cfg.is_encdec else None
+    _serve_both(jm, jp, tm, tp, STEPS.get(arch, 8), fill)
+
+
+def test_encdec_serve_steps_match_jax_with_a_zero_cross_cache():
+    """The cross cache as the JAX package's own tests fill it: zeros."""
+    _serve_both(*smoke_pair("seamless_m4t_large_v2"), 8)
 
 
 def _decode_last(tm, tp, toks, cache):
@@ -238,15 +311,47 @@ def _decode_last(tm, tp, toks, cache):
     return logits[0, -1]
 
 
+def test_gemma3_ring_decode_past_the_window():
+    """The local layers' ring caches hold the window's 16 positions and
+    are overwritten past it: 24 decoded tokens (every slot written once,
+    the first eight twice) reproduce the prefill of the same 24 tokens
+    (its local layers windowed at 16); the JAX comparison past the window
+    is ``test_serve_steps_match_jax``."""
+    jm, jp, tm, tp = smoke_pair("gemma3_12b")
+    cfg = jm.cfg
+    specs = tm.cache_specs(2, 40)
+    assert specs["local"]["k"].shape[2] == cfg.sliding_window == 16
+    assert specs["global"]["k"].shape[2] == 40
+    toks = _tokens(cfg, 1, 24, seed=6)
+    pre = tm.prefill_logits(tp, {"tokens": torch.from_numpy(toks)})[0, -1]
+    got = _decode_last(tm, tp, toks, _zero_cache(tm.cache_specs(1, 40)))
+    _close(got, pre, tol=2e-2)
+
+
 @pytest.mark.parametrize("arch", FAMILIES)
 def test_decode_matches_prefill(arch):
     """Sequential decode reproduces the prefill forward, at the JAX test's
     bar of 2e-2.  xLSTM's cache holds ``sm`` = -1e9, the sLSTM
-    stabiliser's start in ``slstm_block``."""
+    stabiliser's start in ``slstm_block``; internvl2's prefill has no
+    patch positions (decode has no frontend); seamless's cross cache holds
+    the encoder's K/V of ``ENC_FRAMES`` frames, what its prefill attends
+    to."""
     jm, _, tm, tp = smoke_pair(arch)
-    toks = _tokens(jm.cfg, 1, 8, seed=6)
-    pre = tm.prefill_logits(tp, {"tokens": torch.from_numpy(toks)})[0, -1]
+    cfg = jm.cfg
+    T = 8
     cache = _zero_cache(tm.cache_specs(1, 64))
+    if cfg.is_encdec:
+        from repro_torch.models.transformer import ENC_FRAMES
+        _, tb = _batches(cfg, 1, T, seed=6, frames=ENC_FRAMES)
+        toks = tb["tgt_tokens"].numpy()
+        enc = tm.encode(tp, tb["src_embeds"])
+        ck, cv = encdec_cross_kv(tp, enc, cfg)
+        cache["cross"]["k"].copy_(ck)
+        cache["cross"]["v"].copy_(cv)
+    else:
+        _, tb = _batches(cfg, 1, T, seed=6, patches=0)
+        toks = tb["tokens"].numpy()
+    pre = tm.prefill_logits(tp, tb)[0, -1]
     if arch == "xlstm_350m":
         cache["sm"].fill_(-1e9)
     _close(_decode_last(tm, tp, toks, cache), pre, tol=2e-2)
@@ -272,7 +377,7 @@ def test_xlstm_decode_from_a_zero_cache_differs_from_prefill():
 def _first_block(arch, jp, tp, cfg_j, cfg_t, x):
     """The family's kernel-carrying block of layer 0, JAX and port."""
     xj, xt = jnp.asarray(x), torch.from_numpy(x)
-    if arch == "qwen2_1_5b":
+    if arch in ("qwen2_1_5b", "granite_moe_1b_a400m"):
         lj = jax.tree.map(lambda a: a[0], jp["layers"]["attn"])
         lt = {k: v[0] for k, v in tp["layers"]["attn"].items()}
         return A.mha_train(lt, xt, cfg_t), JA.mha_train(lj, xj, cfg_j)
@@ -285,7 +390,7 @@ def _first_block(arch, jp, tp, cfg_j, cfg_t, x):
     return X.mlstm_block(lt, xt, cfg_t), JX.mlstm_block(lj, xj, cfg_j)
 
 
-@pytest.mark.parametrize("arch", FAMILIES)
+@pytest.mark.parametrize("arch", list(PERIOD))
 def test_full_width_one_period_matches_jax(arch):
     """At the published widths (qwen2: 12 query / 2 KV heads of 128;
     zamba2: Mamba2 heads of 64 with N = 64 and the shared block's heads of
@@ -321,25 +426,7 @@ def test_other_dense_configs_prefill_matches_jax(arch):
                     jm.prefill_logits(jp, {"tokens": jnp.asarray(toks)}))
 
 
-@pytest.mark.parametrize("arch", ["granite_moe_1b_a400m", "llama4_scout_17b_a16e",
-                                  "gemma3_12b", "internvl2_26b",
-                                  "seamless_m4t_large_v2"])
-def test_families_outside_the_slice_raise(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP A.10"):
-        build_model(get_config(arch, smoke=True))
-
-
 def test_training_is_not_ported_yet():
     tm = build_model(get_config("qwen2_1_5b", smoke=True))
     with pytest.raises(NotImplementedError, match="ROADMAP A.8"):
         tm.train_loss({}, {})
-
-
-def test_ring_cache_decode_raises_naming_its_roadmap_item():
-    """The 5:1 local:global ring cache belongs to ROADMAP A.10 (the rest of
-    the model stack), as the families that need it do."""
-    cfg = get_config("gemma3_12b", smoke=True)
-    x = torch.zeros(1, 1, cfg.d_model)
-    kv = torch.zeros(1, 4, cfg.n_kv_heads, cfg.head_dim_)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP A\.10\)"):
-        A.mha_decode({}, x, kv, kv.clone(), 0, cfg, window=4, ring=True)
