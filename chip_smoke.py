@@ -12,7 +12,9 @@ paged-KV serving path (page pool, policy driver, continuous-batching
 engine, ``PagedTinyLM`` decoding through paged attention) and the model
 stack's serving path (dense LM, Mamba2 hybrid, xLSTM, MoE, the 5:1
 local:global ring, the vision stub and the encoder-decoder at full width
-through flash attention, the Mamba2 scan and the mLSTM) — builds the
+through flash attention, the Mamba2 scan and the mLSTM) and its training
+path (``launch.train`` fed by the PBM-cached data pipeline, gradients
+through the same kernels, AdamW, checkpoints) — builds the
 hand-written CUDA kernels from the sources in this checkout, and holds
 each kernel to its plain PyTorch version on the card.  It imports nothing
 of JAX and nothing of the JAX package.
@@ -96,13 +98,31 @@ One JSON object per phase, one per line:
                       depth (28 layers, d 1536, 12 query / 2 KV heads of 128,
                       vocabulary 151,936; random weights from a seed) at the
                       default point under ``pbm``, to completion
-13. ``sim_full``      the same sweep at scale 1.0 (the paper's size: 180 M
+13. ``train``         training (``train_loss`` -> autograd, B5-B7 through
+                      their Functions: the kernel forward, the plain
+                      version's VJP recomputed backward -> AdamW): (a) the
+                      card against the CPU at one period of qwen2_1_5b,
+                      zamba2_2_7b, xlstm_350m and granite_moe_1b_a400m's
+                      published widths, f32, B = 2, T = 128: the loss
+                      within 1e-4 relative, every leaf's gradient finite,
+                      non-zero and within 1e-3 (B5) / 5e-3 (B6, B7)
+                      normwise; xLSTM's params and AdamW state through an
+                      async checkpoint round trip, bit-equal; (b)
+                      ``launch.train.run`` at qwen2_1_5b's full width and
+                      28 layers, f32, 8 x 1,024 tokens in 4 microbatches,
+                      the PBM host cache feeding it: a warm step and five
+                      timed, ms a step, tokens/s, peak memory, finite
+                      losses and gradient norms, B5's 28 x 4 launches a
+                      step, and one more step under the profiler (device
+                      idle share, B5's and the plain VJP's share); (c) the
+                      smoke configuration's loss falls over 40 steps
+14. ``sim_full``      the same sweep at scale 1.0 (the paper's size: 180 M
                       tuples, P = 3072); to completion if the time limit
                       allows, else cut at a stated ``max_slices`` and
                       reported as truncated
-14. ``tpch_probe``    a few slices of the TPC-H workload (P = 8832), only to
+15. ``tpch_probe``    a few slices of the TPC-H workload (P = 8832), only to
                       give the kernels that shape with real keys and sizes
-15. ``page_split``    page-split candidate selection: (a) B1 and B2 with
+16. ``page_split``    page-split candidate selection: (a) B1 and B2 with
                       ``page_shards`` 2, 4 and 8 against the single-stage
                       kernel on the inputs captured at P = 768, 3,072 and
                       8,832 and on seeded and fuzz cases, and B1-B3 at
@@ -113,8 +133,8 @@ One JSON object per phase, one per line:
                       (c) ``make_runner(mesh=)`` with a ('lanes', 'page')
                       mesh of shape (1, 4) on the card at sim_small's
                       point, both steppers, bit-equal to ``mesh=None``
-16. ``kernels``       every kernel against its plain version on inputs
-                      captured from phases 8-15, and its time per call
+17. ``kernels``       every kernel against its plain version on inputs
+                      captured from phases 8-16, and its time per call
                       (``ms``: CUDA events around one call, median of up to
                       30) beside the plain version's, a PyTorch yardstick
                       and its bound; also ``device_ms`` and ``host_ms``
@@ -218,6 +238,34 @@ MODEL_DECODE = dict(batch=8, steps=32, cache=4096)
 #: bar
 DECODE_PREFILL_TOKENS, DECODE_PREFILL_TOL = 16, 2e-2
 BF16_OPS_PER_S = 989e12        # H100 SXM dense bf16 tensor-core rate
+#: phase ``train`` (a): the card against the CPU at one period
+#: (MODEL_PERIOD) of four families' published widths in f32, B x T tokens;
+#: the kernels each family's loss must go through; the loss's relative bar
+#: and the normwise bar of every leaf's gradient, the largest of its
+#: kernels' (the f32 forward bars of B6 and B7 are 2e-3, of B5 3e-5)
+TRAIN_ARCHS = ("qwen2_1_5b", "zamba2_2_7b", "xlstm_350m",
+               "granite_moe_1b_a400m")
+TRAIN_KERNELS = {"qwen2_1_5b": ("flash_attention",),
+                 "zamba2_2_7b": ("flash_attention", "mamba2_scan"),
+                 "xlstm_350m": ("mlstm_chunked",),
+                 "granite_moe_1b_a400m": ("flash_attention",)}
+TRAIN_GRAD_SHAPE = (2, 128)
+TRAIN_LOSS_RTOL = 1e-4
+TRAIN_GRAD_TOL = {"flash_attention": 1e-3, "mamba2_scan": 5e-3,
+                  "mlstm_chunked": 5e-3}
+#: (b) launch.train.run at qwen2_1_5b's full width and depth, f32: one
+#: warm step and five timed, 8 sequences of 1,024 tokens in 4 microbatches;
+#: (c) the smoke configuration's 40 steps must lower the loss (the JAX
+#: package's test_tiny_training_reduces_loss, longer); the phase's aim
+TRAIN_FULL = dict(arch="qwen2_1_5b", steps=6, batch=8, seq=1024,
+                  microbatches=4)
+TRAIN_LEARN = dict(arch="qwen2_1_5b", steps=40, batch=4, seq=32, lr=3e-3)
+TRAIN_BUDGET_S = 90.0
+#: seconds each of the kernel, its plain version and SDPA is timed for on
+#: each training input (``train_kernel_rows``)
+TRAIN_TIME_BUDGET_S = 0.3
+#: where (a) writes its checkpoint, inside this checkout; removed after
+TRAIN_CKPT_DIR = ".smoke_ckpt"
 SIM_KERNELS = ("batched_evict", "fifo_grant", "wake_solve")
 POLICIES = ("lru", "pbm", "opt", "cscan")
 SERVING_POLICIES = ("lru", "cscan", "pbm", "opt")
@@ -1143,7 +1191,7 @@ class FirstCalls(Recorder):
             if all(tuple(x.shape for x in s[1]) != shape or s[2] != static
                    for s in got):
                 t0 = time.perf_counter()
-                got.append((self.label, [a.clone() for a in args],
+                got.append((self.label, [a.detach().clone() for a in args],
                             dict(static)))
                 self.seconds += time.perf_counter() - t0
             return fn(*args, **static)
@@ -1573,13 +1621,16 @@ def _pass_launches(name: str, kernels: dict) -> dict:
     return {"cuda_launches_per_call": total, "cuda_kernels": kernels}
 
 
-def model_kernel_entries(dev, calls: FirstCalls, serve: dict) -> list:
+def model_kernel_entries(dev, calls: FirstCalls, serve: dict,
+                         train: dict = None) -> list:
     """B5-B7 against their plain versions on every input captured from
     ``model_serve``, twice: as captured (bf16) and cast to f32, where the
     tolerance is far below a typical output (``rms_want``), each with 0
     elements outside; and the timings of each captured shape in bf16.  The
     top-level numbers are the B = 4 x 4,096 prefill's of the kernel's first
-    family."""
+    family.  With ``train`` (``phase_train``'s line), each kernel's
+    training inputs as that phase held and timed them (``train_shapes``),
+    their mismatches counted with the serving inputs'."""
     import torch
     from repro_torch.kernels import cases
     fns = model_fns()
@@ -1629,6 +1680,11 @@ def model_kernel_entries(dev, calls: FirstCalls, serve: dict) -> list:
             rows.append(row)
             torch.cuda.empty_cache()
         main = rows[0]
+        trained = [r for r in (train or {}).get("kernel_inputs", [])
+                   if r["kernel"] == name]
+        bad += sum(r["mismatches"] for r in trained)
+        err32 = max([err32] + [r["max_abs_err"] for r in trained
+                               if r["dtype"] == "float32"])
         entries.append({
             "name": name, "route": "cuda", "source": SOURCE[name],
             "replaces": REPLACES[name],
@@ -1637,7 +1693,7 @@ def model_kernel_entries(dev, calls: FirstCalls, serve: dict) -> list:
                 r["arch"]: r["launches_per_forward"][name]
                 for r in serve["archs"] if name in r["launches_per_forward"]},
             "max_abs_err": err, "max_abs_err_f32": err32, "mismatches": bad,
-            "inputs_compared": len(samples),
+            "inputs_compared": len(samples) + len(trained),
             "tolerance": {dt: cases.MODEL_TOL[name][dt]
                           for dt in ("bfloat16", "float32")},
             "ms": main["ms"], "device_ms": main["device_ms"],
@@ -1646,7 +1702,7 @@ def model_kernel_entries(dev, calls: FirstCalls, serve: dict) -> list:
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
             "library_ms": main["library_ms"],
             "library_device_ms": main.get("library_device_ms"),
-            "shapes": rows,
+            "shapes": rows, "train_shapes": trained,
         })
         if name in NORMWISE_KERNELS:
             entries[-1]["normwise_tolerance"] = NORMWISE_TOL
@@ -1939,6 +1995,349 @@ def profile_forwards(lm):
         "paged_attention_share_of_device": b4 / max(busy, 1e-9),
         "paged_attention_share_of_forward": b4 / n / 1e3 / host_ms,
     }
+
+
+# -------------------------------------------------------------- training ----
+
+def _leaf_grads(model, params, batch):
+    """``(loss, metrics, {path: grad or None})`` of ``model.train_loss`` at
+    ``params`` (a tree of tensors that do not require grad)."""
+    import torch
+    from repro_torch.models.layers import tree_paths, unflatten
+    live = {k: v.detach().requires_grad_(True)
+            for k, v in tree_paths(params).items()}
+    loss, metrics = model.train_loss(unflatten(live), batch)
+    grads = torch.autograd.grad(loss, list(live.values()), allow_unused=True)
+    return loss.detach(), {k: float(v.detach()) for k, v in metrics.items()}, \
+        dict(zip(live, grads))
+
+
+def _normwise_rel(got, want) -> float:
+    import torch
+    den = float(torch.linalg.vector_norm(want.double()))
+    num = float(torch.linalg.vector_norm(got.double() - want.double()))
+    return num / den if den > 0 else float("inf")
+
+
+def train_card_vs_cpu(arch: str, dev, calls: FirstCalls) -> tuple:
+    """Part (a) of ``phase_train`` for one family: one pattern period at
+    the published widths in f32, weights drawn on the host from a seed
+    (stacked matrices at their own fan-in, as ``model_serve``'s) and
+    carried to the card; the loss and every leaf's gradient on the card
+    (B5-B7 through their autograd Functions, their inputs recorded by
+    ``calls``) against the port on the CPU (the plain versions).  Returns
+    ``(row, model, params on the card, grads on the card)``."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model, init_params
+    from repro_torch.models.layers import fan_in_rescale, tree_paths, \
+        unflatten
+    cfg = get_config(arch)
+    period = MODEL_PERIOD.get(arch, 1)
+    cfg = dataclasses.replace(cfg, n_layers=period, dtype="float32")
+    model = build_model(cfg)
+    cpu = fan_in_rescale(model.param_specs, init_params(
+        model.param_specs, 0, torch.float32, "cpu"))
+    card = unflatten({k: v.to(dev) for k, v in tree_paths(cpu).items()})
+    B, T = TRAIN_GRAD_SHAPE
+    toks = np.random.default_rng(1).integers(0, cfg.vocab_size, (B, T))
+    toks = torch.from_numpy(toks.astype(np.int32))
+    t0 = time.time()
+    want_loss, want_m, want = _leaf_grads(model, cpu, {"tokens": toks})
+    cpu_s = time.time() - t0
+    ops.reset_launch_counts()
+    ops.reset_recompute_counts()
+    calls.label = f"train (a) {arch} {period} layers B={B} T={T}"
+    with calls:
+        (got_loss, got_m, got), card_s = _sync_time(
+            lambda: _leaf_grads(model, card, {"tokens": toks.to(dev)}))
+    launches = {k: v for k, v in ops.launch_counts().items()
+                if k in MODEL_KERNELS and v}
+    recomputes = {k: v for k, v in ops.recompute_counts().items() if v}
+    loss_rel = abs(float(got_loss) - float(want_loss)) / abs(float(want_loss))
+    bar = max(TRAIN_GRAD_TOL[k] for k in TRAIN_KERNELS[arch])
+    leaves, bad = {}, []
+    for path, w in want.items():
+        g = got[path]
+        if g is None or w is None:
+            bad.append(f"{path}: no gradient")
+            continue
+        g = g.cpu()
+        rel = _normwise_rel(g, w)
+        finite = bool(torch.isfinite(g).all())
+        nonzero = bool((g != 0).any())
+        leaves[path] = rel
+        if not (finite and nonzero and rel <= bar):
+            bad.append(f"{path}: finite {finite} nonzero {nonzero} "
+                       f"normwise {rel:.3g}")
+    row = {"arch": arch, "reduced": {"n_layers": [get_config(arch).n_layers,
+                                                  period]},
+           "dtype": "float32", "remat": cfg.remat, "B": B, "T": T,
+           "loss_card": float(got_loss), "loss_cpu": float(want_loss),
+           "loss_rel_err": loss_rel, "loss_tolerance": TRAIN_LOSS_RTOL,
+           "metrics_card": got_m, "metrics_cpu": want_m,
+           "leaves": len(want), "grad_normwise_max": max(leaves.values(),
+                                                         default=None),
+           "grad_normwise_worst_leaf": max(leaves, key=leaves.get,
+                                           default=None),
+           "grad_tolerance": bar, "bad_leaves": bad,
+           "launches": launches, "recomputes": recomputes,
+           "card_s": card_s, "cpu_s": cpu_s}
+    row["ok"] = (loss_rel <= TRAIN_LOSS_RTOL and not bad and all(
+        launches.get(k, 0) > 0 and recomputes.get(k, 0) > 0
+        for k in TRAIN_KERNELS[arch]))
+    return row, model, card, got
+
+
+def checkpoint_round_trip(params, grads) -> dict:
+    """xLSTM's period through ``CheckpointManager``: its params and the
+    optimizer state after one AdamW step on its card gradients, saved with
+    ``async_=True`` and restored onto the card; every leaf bit-equal."""
+    import torch
+    from repro_torch.models.layers import tree_paths, unflatten
+    from repro_torch.train.checkpoint import CheckpointManager, _flatten
+    from repro_torch.train.optimizer import (OptimizerConfig, adamw_update,
+                                             init_opt_state)
+    opt = init_opt_state(params)
+    adamw_update(OptimizerConfig(), params, unflatten(grads), opt)
+    d = os.path.join(HERE, TRAIN_CKPT_DIR)
+    shutil.rmtree(d, ignore_errors=True)
+    t0 = time.time()
+    try:
+        mgr = CheckpointManager(d, keep=1)
+        mgr.save(1, params, opt, extra={"phase": "train"}, async_=True)
+        returned_s = time.time() - t0
+        mgr.wait()
+        step, p2, o2, extra = mgr.restore(None, params, opt)
+        want = _flatten({"params": params, "opt": opt})
+        got = _flatten({"params": p2, "opt": o2})
+        unequal = [k for k in want if not (
+            got[k].device == want[k].device and got[k].dtype == want[k].dtype
+            and torch.equal(got[k], want[k]))]
+        nbytes = sum(os.path.getsize(os.path.join(d, f"step_{step}", f))
+                     for f in os.listdir(os.path.join(d, f"step_{step}")))
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    return {"leaves": len(want), "bytes": nbytes, "step": step,
+            "extra": extra, "save_returned_s": returned_s,
+            "round_trip_s": time.time() - t0, "unequal_leaves": unequal,
+            "ok": step == 1 and not unequal and extra == {"phase": "train"}}
+
+
+def profile_train_step(res: dict, dev) -> dict:
+    """Where a full-width training step's device time goes: one more step
+    of (b)'s run (its params and AdamW state, a fresh batch) under
+    ``torch.profiler``, after a warm-up step of the profiler: device
+    launches and busy ms, B5's forward kernels, the plain attention VJP's
+    recompute (the ``recompute_vjp/...`` ranges), each as a share of the
+    run's own ms a step (measured without the profiler)."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import _make_batch
+    from repro_torch.models import build_model
+    from repro_torch.train.optimizer import OptimizerConfig
+    from repro_torch.train.train_step import make_train_step
+    F = TRAIN_FULL
+    cfg = get_config(F["arch"])
+    step = make_train_step(build_model(cfg), OptimizerConfig(
+        warmup_steps=20, total_steps=F["steps"]), F["microbatches"])
+    toks = np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (F["batch"], F["seq"] + 1))
+    batch = _make_batch(cfg, toks, F["seq"], dev)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        time.sleep(0.1)                          # the profiler's warm-up
+        torch.ones(1, device=dev).add_(1)
+        torch.cuda.synchronize()
+        prof.step()
+        step(res["params"], res["opt_state"], batch)
+        torch.cuda.synchronize()
+        prof.step()
+    busy = b5 = 0.0
+    launches = 0
+    for k in prof.key_averages():
+        if getattr(k, "is_user_annotation", False) \
+                or k.device_type != DeviceType.CUDA:
+            continue        # operators' rows repeat their kernels' time
+        dev_us = getattr(k, "self_device_time_total", 0.0) or 0.0
+        busy += dev_us
+        launches += k.count
+        if "flash_attention" in k.key:
+            b5 += dev_us
+    recompute = sum(ev.device_time_total for ev in prof.events()
+                    if ev.name.startswith("recompute_vjp/")
+                    and ev.device_type == DeviceType.CPU)
+    ms = statistics.median(res["step_s"][1:]) * 1e3
+    return {"device_launches": launches, "device_busy_ms": busy / 1e3,
+            "device_idle_share": 1.0 - busy / 1e3 / ms,
+            "b5_forward_ms": b5 / 1e3, "b5_forward_share": b5 / 1e3 / ms,
+            "plain_vjp_ms": recompute / 1e3,
+            "plain_vjp_share": recompute / 1e3 / ms,
+            "of_ms_per_step": ms}
+
+
+def train_launches(train: dict, name: str) -> dict:
+    """One kernel's launches and backward recomputes in each part of
+    ``phase_train``: per family in (a), per step in (b), in (c)."""
+    return {
+        "card_vs_cpu": {r["arch"]: [r["launches"].get(name, 0),
+                                    r["recomputes"].get(name, 0)]
+                        for r in train["card_vs_cpu"]},
+        "full_width_per_step": [
+            train["full_width"]["launches_per_step"].get(name, 0),
+            train["full_width"]["recomputes_per_step"].get(name, 0)],
+        "learning": [train["learning"]["launches"].get(name, 0),
+                     train["learning"]["recomputes"].get(name, 0)]}
+
+
+def train_kernel_rows(calls: FirstCalls, dev) -> list:
+    """B5-B7 against their plain versions on the first input of each shape
+    that ``phase_train``'s three parts handed them (``calls``), at the
+    tolerance of the input's dtype (f32), with the kernel's, the plain
+    version's and (B5) SDPA's times on it and its bound.  These launches
+    are not the path's: the parts' counts were read before."""
+    from repro_torch.kernels import cases
+    fns = model_fns()
+    rows = []
+    for name in MODEL_KERNELS:
+        kernel, plain = fns[name]
+        for label, args, static in calls.samples.get(name, []):
+            dtype = _dtype_name(args[0])
+            bound, bound_by = _model_bound_ms(name, args, static)
+            sdpa = (_sdpa_call(*args, static) if name == "flash_attention"
+                    else None)
+            rows.append({
+                "kernel": name, "shape": label, "dtype": dtype,
+                "inputs": [list(a.shape) for a in args],
+                "static": dict(static),
+                **_held_to_plain(name, args, static, dtype),
+                "tolerance": cases.MODEL_TOL[name][dtype],
+                "ms": _time_budget_ms(lambda: kernel(*args, **static), dev,
+                                      TRAIN_TIME_BUDGET_S),
+                "plain_ms": _time_budget_ms(lambda: plain(*args, **static),
+                                            dev, TRAIN_TIME_BUDGET_S),
+                "library_ms": (None if sdpa is None else _time_budget_ms(
+                    sdpa, dev, TRAIN_TIME_BUDGET_S)),
+                "bound_ms": bound, "bound_by": bound_by})
+    return rows
+
+
+def phase_train(dev, calls: FirstCalls) -> dict:
+    """Training on the card (``model.train_loss`` -> autograd through
+    B5-B7's Functions -> AdamW).  (a) card against CPU, four families at
+    one period of their published widths; the checkpoint round trip of
+    xLSTM's; (b) ``launch.train.run`` at qwen2_1_5b's full width and
+    depth with the PBM host cache; (c) the smoke configuration learns.
+    Launch and recompute counts are set to 0 just before each run and read
+    just after.  ``calls`` records the first B5-B7 input of each shape on
+    the card in each part; each is then held against its plain version
+    (``train_kernel_rows``), and the ``kernels`` line reports them."""
+    import math
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as train_launch
+    t_phase = time.time()
+    out = {"phase": "train", "gpu": nvidia_smi_line(), "card_vs_cpu": []}
+    ok = True
+    for arch in TRAIN_ARCHS:
+        row, model, card, grads = train_card_vs_cpu(arch, dev, calls)
+        ok &= row["ok"]
+        out["card_vs_cpu"].append(row)
+        if arch == "xlstm_350m":
+            out["checkpoint"] = checkpoint_round_trip(card, grads)
+            ok &= out["checkpoint"]["ok"]
+        del model, card, grads
+        torch.cuda.empty_cache()
+
+    F = TRAIN_FULL
+    resident = torch.cuda.memory_allocated()    # earlier phases' captures
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    ops.reset_recompute_counts()
+    calls.label = (f"train (b) {F['arch']} {get_config(F['arch']).n_layers} "
+                   f"layers B={F['batch'] // F['microbatches']} T={F['seq']}")
+    t0 = time.time()
+    with calls:
+        res = train_launch.run(arch=F["arch"], steps=F["steps"],
+                               batch=F["batch"], seq=F["seq"],
+                               microbatches=F["microbatches"], device=dev,
+                               log=None)
+    wall = time.time() - t0
+    launches = {k: v for k, v in ops.launch_counts().items() if v}
+    recomputes = {k: v for k, v in ops.recompute_counts().items() if v}
+    timed = res["step_s"][1:]
+    ms = statistics.median(timed) * 1e3
+    tokens = F["batch"] * F["seq"]
+    finite = all(math.isfinite(x) for x in res["losses"] + res["grad_norms"])
+    n, depth = F["steps"], get_config(F["arch"]).n_layers
+    full = {"arch": F["arch"], "layers": depth, "dtype": "float32",
+            "tf32": torch.backends.cuda.matmul.allow_tf32,
+            "seq": F["seq"], "global_batch": F["batch"],
+            "microbatches": F["microbatches"], "steps": n,
+            "timed_steps": len(timed), "ms_per_step": ms,
+            "ms_per_step_each": [s * 1e3 for s in res["step_s"]],
+            "tokens_per_s": tokens / (ms * 1e-3),
+            "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+            "resident_before_bytes": resident,
+            "losses": res["losses"], "grad_norms": res["grad_norms"],
+            "finite": finite, "launches": launches,
+            "launches_per_step": {k: v / n for k, v in launches.items()},
+            "recomputes_per_step": {k: v / n for k, v in recomputes.items()},
+            "flash_attention_expected_per_step": depth * F["microbatches"],
+            "cache": res["cache"], "wall_s": wall, "gpu": nvidia_smi_line()}
+    full["ok"] = (finite and len(timed) >= 5
+                  and launches.get("flash_attention", 0)
+                  == n * full["flash_attention_expected_per_step"]
+                  and recomputes.get("flash_attention", 0)
+                  == launches["flash_attention"])
+    ok &= full["ok"]
+    full["profile"] = profile_train_step(res, dev)
+    out["full_width"] = full
+    del res
+    torch.cuda.empty_cache()
+
+    L = TRAIN_LEARN
+    ops.reset_launch_counts()
+    ops.reset_recompute_counts()
+    calls.label = f"train (c) {L['arch']} smoke B={L['batch']} T={L['seq']}"
+    with calls:
+        learn = train_launch.run(arch=L["arch"], smoke=True,
+                                 steps=L["steps"], batch=L["batch"],
+                                 seq=L["seq"], lr=L["lr"], device=dev,
+                                 log=None)
+    losses = learn["losses"]
+    last5 = statistics.mean(losses[-5:])
+    out["learning"] = {
+        **L, "first_loss": losses[0], "last5_mean": last5,
+        "losses": losses,
+        "launches": {k: v for k, v in ops.launch_counts().items() if v},
+        "recomputes": {k: v for k, v in ops.recompute_counts().items() if v},
+        "ok": last5 < losses[0]}
+    ok &= out["learning"]["ok"]
+    out["kernel_inputs"] = train_kernel_rows(calls, dev)
+    held = {r["kernel"] for r in out["kernel_inputs"]}
+    ok &= (held >= {k for ks in TRAIN_KERNELS.values() for k in ks}
+           and all(r["mismatches"] == 0 for r in out["kernel_inputs"]))
+    calls.samples.clear()
+    out["seconds"] = time.time() - t_phase
+    out["budget_s"] = TRAIN_BUDGET_S
+    out["ok"] = bool(ok)
+    emit(out)
+    if not out["ok"]:
+        fail("train", "card vs CPU outside the bars, a leaf without a "
+                      "gradient, a checkpoint not bit-equal, a non-finite "
+                      "full-width step, a loss that did not fall or a "
+                      "kernel that disagrees with its plain version on a "
+                      "training input")
+    return out
 
 
 # ------------------------------------------------------------- simulator ----
@@ -2705,8 +3104,8 @@ def main() -> int:
 
     all_phases = ["env", "build", "kernels_fuzz", "paged_fuzz", "model_fuzz",
                   "sim_small", "serve_small", "model_serve", "sim_calibrated",
-                  "sim_fixed", "sim_telemetry", "serve_full", "sim_full",
-                  "tpch_probe", "page_split", "kernels"]
+                  "sim_fixed", "sim_telemetry", "serve_full", "train",
+                  "sim_full", "tpch_probe", "page_split", "kernels"]
     phases = [p for p in args.phases.split(",") if p] or all_phases
     unknown = set(phases) - set(all_phases)
     if unknown:
@@ -2790,6 +3189,8 @@ def main() -> int:
         by_phase["sim_telemetry"] = phase_sim_telemetry(dev)
     if "serve_full" in phases:
         serve_full = phase_serve_full(dev, serve_recorder)
+    train = (phase_train(dev, FirstCalls()) if "train" in phases
+             else None)
     if "sim_full" in phases:
         max_slices = args.full_max_slices
         if max_slices is None and calibrated is not None:
@@ -2826,7 +3227,12 @@ def main() -> int:
         if serve_full is not None:
             entries.append(paged_kernel_entry(dev, serve_recorder, serve_full))
         if model_serve is not None:
-            entries += model_kernel_entries(dev, model_calls, model_serve)
+            entries += model_kernel_entries(dev, model_calls, model_serve,
+                                            train)
+        if train is not None:           # the training path's own counts
+            for e in entries:
+                if e["name"] in MODEL_KERNELS:
+                    e["launches_train"] = train_launches(train, e["name"])
         kernels_line = {"kernels": entries}
         if any(e["mismatches"] for e in entries):
             emit(kernels_line)

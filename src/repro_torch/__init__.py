@@ -13,10 +13,20 @@ counterpart of each module:
   steppers; ``validate`` against the event engine);
 * ``repro_torch.serving`` — the paged-KV serving engine and its model;
 * ``repro_torch.configs`` / ``repro_torch.models`` — the architecture
-  configurations and the model stack's serving path (dense LM, Mamba2
-  hybrid, xLSTM: ``build_model`` -> ``prefill_logits`` / ``serve_step``);
+  configurations and the model stack (dense LM, MoE, vision stub, 5:1
+  ring, encoder-decoder, Mamba2 hybrid, xLSTM: ``build_model`` ->
+  ``prefill_logits`` / ``serve_step`` / ``train_loss``);
+* ``repro_torch.data`` — the training data pipeline: sharded token pages
+  behind a host page cache managed by PBM / LRU / OPT;
+* ``repro_torch.train`` — AdamW, the train step (microbatch accumulation,
+  int8 gradient compression), checkpoints in the JAX package's layout,
+  the elastic re-mesh decisions;
+* ``repro_torch.launch`` — the drivers: ``launch.serve`` and
+  ``launch.train`` (the data pipeline -> ``train_loss`` -> AdamW);
 * ``repro_torch.kernels`` — the hand-written CUDA kernels of those paths,
-  their plain PyTorch versions and the dispatch by tensor device.
+  their plain PyTorch versions, the dispatch by tensor device, and
+  ``kernels.autograd``: the model kernels under autograd (kernel forward,
+  the plain version's VJP recomputed backward).
 
 Every entry point takes ``device`` (default ``"cuda"``) and raises on a
 machine without a GPU unless the caller passes ``device="cpu"``.

@@ -7,6 +7,13 @@ launches the hand-written kernel (:mod:`.pbm_timeline`,
 switch and no fallback around a build or a launch: what runs is decided by
 where the caller put the data.
 
+Under autograd (grad mode on and an input that requires grad) a CUDA call
+of B5-B7 goes through :mod:`.autograd`: the kernel in the forward, the
+plain version's VJP recomputed in the backward, each backward counted
+(:func:`recompute_counts`).  Without grad it launches the kernel exactly
+as before; a CPU call takes the plain version, which autograd
+differentiates itself.
+
 Signatures are the JAX package's (``repro.kernels.ops``).  The buffer-pool
 kernels add the leading lane axis: ``key`` is ``(L, P)``, scalars are
 ``(L,)``, ``sizes`` is ``(L, P)`` or one shared ``(P,)`` row.
@@ -16,7 +23,7 @@ from __future__ import annotations
 
 from typing import Optional
 
-from . import pbm_timeline, ref
+from . import autograd, pbm_timeline, ref
 from .flash_attention import flash_attention_kernel
 from .mamba2_scan import mamba2_scan_kernel
 from .mlstm import mlstm_chunked_kernel
@@ -24,7 +31,8 @@ from .paged_attention import paged_attention_kernel
 
 __all__ = ["batched_evict", "fifo_grant", "wake_solve", "paged_attention",
            "flash_attention", "mamba2_scan", "mlstm_chunked",
-           "launch_counts", "reset_launch_counts", "KERNELS"]
+           "launch_counts", "reset_launch_counts", "recompute_counts",
+           "reset_recompute_counts", "KERNELS"]
 
 #: every kernel wrapper by name; each counts its own launches
 KERNELS = {**pbm_timeline.KERNELS, "paged_attention": paged_attention_kernel,
@@ -41,6 +49,17 @@ def launch_counts() -> dict:
 def reset_launch_counts() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
+
+
+def recompute_counts() -> dict:
+    """Backward recomputes of B5-B7's plain versions (:mod:`.autograd`)
+    since the last :func:`reset_recompute_counts`."""
+    return dict(autograd.RECOMPUTES)
+
+
+def reset_recompute_counts() -> None:
+    for name in autograd.RECOMPUTES:
+        autograd.RECOMPUTES[name] = 0
 
 
 def batched_evict(key, sizes, evictable, need_free, *, vmax: int = 64,
@@ -113,6 +132,10 @@ def flash_attention(q, k, v, causal: bool = True,
     if q.device.type == "cpu":
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
                                        offset=offset)
+    if autograd.wants_grad(q, k, v):
+        return autograd.recompute_vjp(
+            "flash_attention", flash_attention_kernel, ref.flash_attention_ref,
+            (q, k, v), dict(causal=causal, window=window, offset=offset))
     return flash_attention_kernel(q, k, v, causal=causal, window=window,
                                   offset=offset)
 
@@ -123,6 +146,9 @@ def mamba2_scan(xh, a, b, c):
     ``xh.dtype``."""
     if xh.device.type == "cpu":
         return ref.mamba2_scan_ref(xh, a, b, c)
+    if autograd.wants_grad(xh, a, b, c):
+        return autograd.recompute_vjp("mamba2_scan", mamba2_scan_kernel,
+                                      ref.mamba2_scan_ref, (xh, a, b, c), {})
     return mamba2_scan_kernel(xh, a, b, c)
 
 
@@ -132,4 +158,8 @@ def mlstm_chunked(q, k, v, a, i):
     in ``v.dtype``."""
     if v.device.type == "cpu":
         return ref.mlstm_chunked_ref(q, k, v, a, i)
+    if autograd.wants_grad(q, k, v, a, i):
+        return autograd.recompute_vjp("mlstm_chunked", mlstm_chunked_kernel,
+                                      ref.mlstm_chunked_ref,
+                                      (q, k, v, a, i), {})
     return mlstm_chunked_kernel(q, k, v, a, i)

@@ -20,27 +20,37 @@
   blocks + 1 sequential sLSTM block.
 
 :func:`build_model` returns a :class:`Model` whose ``prefill_logits``,
-``serve_step`` and ``cache_specs`` keep the JAX names and signatures: a
-params tree of tensors in the JAX layout (stacked leading layer axes), a
-batch dict of ``tokens`` / ``token`` / ``pos`` (``patch_embeds``,
-``src_embeds`` / ``tgt_tokens``).  ``lax.scan`` over layers is a Python
-loop.  ``serve_step`` updates the cache tensors **in place** and returns
-the same dict.  Prefill reaches the port's kernels through
-``blocked_attention``, ``mamba2_block`` and ``mlstm_block``.
+``serve_step``, ``cache_specs`` and ``train_loss`` keep the JAX names and
+signatures: a params tree of tensors in the JAX layout (stacked leading
+layer axes), a batch dict of ``tokens`` / ``token`` / ``pos``
+(``patch_embeds``, ``src_embeds`` / ``tgt_tokens``).  ``lax.scan`` over
+layers is a Python loop.  ``serve_step`` updates the cache tensors **in
+place** and returns the same dict.  Prefill and training reach the port's
+kernels through ``blocked_attention``, ``mamba2_block`` and
+``mlstm_block``; under autograd on the card those run the kernel forward
+and the plain version's VJP backward (``kernels.autograd``).
 
-The reference's ``_remat`` (activation checkpointing) and
-``shardctx.constrain_batch`` (a sharding constraint) change no value of a
-forward pass and have no counterpart here.  Training (``train_loss``) is
-not ported yet (ROADMAP A.8); the prefill drops the MoE's aux loss, which
-only training reads.
+``train_loss(params, batch) -> (loss, metrics)`` is next-token cross
+entropy in f32 (:func:`_xent`, the last position masked), plus ``0.01 *
+aux`` for an MoE, whose load-balancing losses the LM backbone sums;
+``prefill_logits`` ignores them.  The vision stub's patch positions carry
+no loss.  Training applies ``cfg.remat`` to each layer as the reference's
+``_remat`` does (:func:`_remat`: ``torch.utils.checkpoint``, non-reentrant);
+serving runs no checkpoint.  ``shardctx.constrain_batch`` (a sharding
+constraint) changes no value and has no counterpart here.
 """
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import (
+    CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts,
+)
 
 from ..configs.base import ArchConfig
 from . import attention as A
@@ -72,13 +82,50 @@ class Model:
     cache_specs: Callable         # (batch, seq) -> dict of TensorSpec
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported to PyTorch yet "
-                               f"(ROADMAP {item})")
+#: the matrix products whose outputs ``remat="dots"`` keeps (JAX's
+#: ``checkpoint_dots_with_no_batch_dims``: a batched product is recomputed)
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
 
 
-def _no_training(params, batch):
-    raise _not_ported("training (train_loss)", "A.8")
+def _save_dots(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(fn: Callable, mode: str) -> Callable:
+    """Activation checkpointing of one layer: ``"full"`` keeps the
+    layer's inputs and recomputes the rest in the backward, ``"dots"``
+    also keeps the outputs of 2-D matrix products, ``"none"`` returns
+    ``fn``.  No value changes."""
+    if mode == "full":
+        return lambda *args: checkpoint(fn, *args, use_reentrant=False)
+    if mode == "dots":
+        ctx = functools.partial(create_selective_checkpoint_contexts,
+                                _save_dots)
+        return lambda *args: checkpoint(fn, *args, use_reentrant=False,
+                                        context_fn=ctx)
+    return fn
+
+
+def _xent(logits: torch.Tensor, labels: torch.Tensor, mask: torch.Tensor
+          ) -> torch.Tensor:
+    """Mean next-token cross entropy over ``mask``: logsumexp and the gold
+    logit in f32."""
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)
+    gold = lf.gather(-1, labels.long()[..., None])[..., 0]
+    nll = (lse - gold) * mask
+    return nll.sum() / torch.clamp(mask.sum(), min=1.0)
+
+
+def _next_token_loss(logits: torch.Tensor, tokens: torch.Tensor
+                     ) -> torch.Tensor:
+    """:func:`_xent` of ``logits`` ``(B, T, V)`` against ``tokens``
+    shifted by one, the last position padded and masked."""
+    labels = F.pad(tokens[:, 1:], (0, 1))
+    mask = F.pad(torch.ones(tokens[:, 1:].shape, dtype=torch.float32,
+                            device=tokens.device), (0, 1))
+    return _xent(logits, labels, mask)
 
 
 def build_model(cfg: ArchConfig) -> Model:
@@ -115,18 +162,22 @@ def _block_specs(cfg: ArchConfig) -> Dict[str, Any]:
     return specs
 
 
-def _ffn(params, h, cfg: ArchConfig) -> torch.Tensor:
-    """The block's FFN: the MoE (its aux loss dropped) or the gated MLP."""
+def _ffn(params, h, cfg: ArchConfig
+         ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The block's FFN: the MoE with its aux loss, or the gated MLP with
+    none (``None``: serving adds no operation for it)."""
     if cfg.moe:
-        return M.moe_ffn(params["moe"], h, cfg)[0]
-    return gated_mlp(params["mlp"], h, cfg.ffn_act)
+        return M.moe_ffn(params["moe"], h, cfg)
+    return gated_mlp(params["mlp"], h, cfg.ffn_act), None
 
 
 def _block_apply(params, x, cfg: ArchConfig, window: Optional[int]):
+    """``(x, aux or None)`` after one block."""
     h = rms_norm(x, params["ln_attn"], cfg.norm_eps)
     x = x + A.mha_train(params["attn"], h, cfg, window=window)
     h = rms_norm(x, params["ln_ffn"], cfg.norm_eps)
-    return x + _ffn(params, h, cfg)
+    y, aux = _ffn(params, h, cfg)
+    return x + y, aux
 
 
 def _block_decode(params, x, k, v, pos: int, cfg: ArchConfig,
@@ -136,7 +187,7 @@ def _block_decode(params, x, k, v, pos: int, cfg: ArchConfig,
                            ring=ring)
     x = x + y
     h = rms_norm(x, params["ln_ffn"], cfg.norm_eps)
-    return x + _ffn(params, h, cfg)
+    return x + _ffn(params, h, cfg)[0]
 
 
 def _lm_specs(cfg: ArchConfig) -> Dict[str, Any]:
@@ -175,19 +226,27 @@ def _lm_embed_inputs(params, batch, cfg: ArchConfig) -> torch.Tensor:
     return _gemma_scale(x, cfg)
 
 
-def _lm_backbone(params, x, cfg: ArchConfig) -> torch.Tensor:
+def _lm_backbone(params, x, cfg: ArchConfig, remat: str = "none"):
+    """``(normed x, the MoE's aux losses summed in f32, in the
+    reference's order, or None without an MoE)``; each block checkpointed
+    as ``remat`` says."""
     ratio = cfg.local_global_ratio
+    local = _remat(lambda lp, xx: _block_apply(lp, xx, cfg,
+                                               cfg.sliding_window), remat)
+    glob = _remat(lambda lp, xx: _block_apply(lp, xx, cfg, None), remat)
     if ratio > 0:
-        for g in range(cfg.n_layers // (ratio + 1)):
-            for j in range(ratio):
-                x = _block_apply(layer(params["local"], g, j), x, cfg,
-                                 cfg.sliding_window)
-            x = _block_apply(layer(params["global"], g), x, cfg, None)
+        blocks = [(local, ("local", g, j)) if j < ratio
+                  else (glob, ("global", g))
+                  for g in range(cfg.n_layers // (ratio + 1))
+                  for j in range(ratio + 1)]
     else:
-        for i in range(cfg.n_layers):
-            x = _block_apply(layer(params["layers"], i), x, cfg,
-                             cfg.sliding_window)
-    return rms_norm(x, params["ln_f"], cfg.norm_eps)
+        blocks = [(local, ("layers", i)) for i in range(cfg.n_layers)]
+    aux = None
+    for fn, (name, *idx) in blocks:
+        x, a = fn(layer(params[name], *idx), x)
+        if a is not None:
+            aux = a if aux is None else aux + a
+    return rms_norm(x, params["ln_f"], cfg.norm_eps), aux
 
 
 def _build_lm(cfg: ArchConfig) -> Model:
@@ -197,8 +256,19 @@ def _build_lm(cfg: ArchConfig) -> Model:
     def head(params):
         return params.get("lm_head", params["embed"]["table"])
 
+    def train_loss(params, batch):
+        x, aux = _lm_backbone(params, _lm_embed_inputs(params, batch, cfg),
+                              cfg, cfg.remat)
+        if aux is None:
+            aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        tokens = batch["tokens"]
+        pre = x.shape[1] - tokens.shape[1]  # frontend positions carry no loss
+        loss = _next_token_loss(_head_logits(x[:, pre:], head(params)),
+                                tokens) + 0.01 * aux
+        return loss, {"loss": loss, "aux": aux}
+
     def prefill_logits(params, batch):
-        x = _lm_backbone(params, _lm_embed_inputs(params, batch, cfg), cfg)
+        x, _ = _lm_backbone(params, _lm_embed_inputs(params, batch, cfg), cfg)
         return _head_logits(x[:, -1:], head(params))
 
     def cache_specs(batch: int, seq: int):
@@ -233,7 +303,7 @@ def _build_lm(cfg: ArchConfig) -> Model:
         x = rms_norm(x, params["ln_f"], cfg.norm_eps)
         return _head_logits(x, head(params)), cache
 
-    return Model(cfg, specs, _no_training, prefill_logits, serve_step,
+    return Model(cfg, specs, train_loss, prefill_logits, serve_step,
                  cache_specs)
 
 
@@ -263,26 +333,41 @@ def _build_encdec(cfg: ArchConfig) -> Model:
         "ln_f": ParamSpec((cfg.d_model,), ("embed",), init="zeros"),
     }
 
-    def encode(params, src):
+    def enc_layer(x, lp):
+        h = rms_norm(x, lp["ln_attn"], cfg.norm_eps)
+        x = x + A.mha_train(lp["attn"], h, cfg, causal=False)
+        h = rms_norm(x, lp["ln_ffn"], cfg.norm_eps)
+        return x + gated_mlp(lp["mlp"], h, cfg.ffn_act)
+
+    def dec_layer(x, lp, enc):
+        h = rms_norm(x, lp["ln_attn"], cfg.norm_eps)
+        x = x + A.mha_train(lp["attn"], h, cfg, causal=True)
+        h = rms_norm(x, lp["ln_cross"], cfg.norm_eps)
+        x = x + A.mha_train(lp["cross"], h, cfg, kv_src=enc, causal=False)
+        h = rms_norm(x, lp["ln_ffn"], cfg.norm_eps)
+        return x + gated_mlp(lp["mlp"], h, cfg.ffn_act)
+
+    def encode(params, src, remat: str = "none"):
+        fn = _remat(enc_layer, remat)
         x = src
         for i in range(cfg.encoder_layers):
-            lp = layer(params["encoder"], i)
-            h = rms_norm(x, lp["ln_attn"], cfg.norm_eps)
-            x = x + A.mha_train(lp["attn"], h, cfg, causal=False)
-            h = rms_norm(x, lp["ln_ffn"], cfg.norm_eps)
-            x = x + gated_mlp(lp["mlp"], h, cfg.ffn_act)
+            x = fn(x, layer(params["encoder"], i))
         return rms_norm(x, params["ln_enc"], cfg.norm_eps)
 
-    def decode_train(params, x, enc):
+    def decode_train(params, x, enc, remat: str = "none"):
+        fn = _remat(dec_layer, remat)
         for i in range(cfg.n_layers):
-            lp = layer(params["decoder"], i)
-            h = rms_norm(x, lp["ln_attn"], cfg.norm_eps)
-            x = x + A.mha_train(lp["attn"], h, cfg, causal=True)
-            h = rms_norm(x, lp["ln_cross"], cfg.norm_eps)
-            x = x + A.mha_train(lp["cross"], h, cfg, kv_src=enc, causal=False)
-            h = rms_norm(x, lp["ln_ffn"], cfg.norm_eps)
-            x = x + gated_mlp(lp["mlp"], h, cfg.ffn_act)
+            x = fn(x, layer(params["decoder"], i), enc)
         return rms_norm(x, params["ln_f"], cfg.norm_eps)
+
+    def train_loss(params, batch):
+        table = params["embed"]["table"]
+        enc = encode(params, batch["src_embeds"].to(table.dtype), cfg.remat)
+        tgt = batch["tgt_tokens"]
+        x = decode_train(params, embed_tokens(params["embed"], tgt), enc,
+                         cfg.remat)
+        loss = _next_token_loss(_head_logits(x, table), tgt)
+        return loss, {"loss": loss}
 
     def prefill_logits(params, batch):
         table = params["embed"]["table"]
@@ -309,7 +394,7 @@ def _build_encdec(cfg: ArchConfig) -> Model:
         x = rms_norm(x, params["ln_f"], cfg.norm_eps)
         return _head_logits(x, params["embed"]["table"]), cache
 
-    model = Model(cfg, specs, _no_training, prefill_logits, serve_step,
+    model = Model(cfg, specs, train_loss, prefill_logits, serve_step,
                   cache_specs)
     model.encode = encode
     return model
@@ -413,14 +498,29 @@ def _build_hybrid(cfg: ArchConfig) -> Model:
     }
     every = max(1, cfg.attn_every)
 
-    def prefill_logits(params, batch):
-        x = embed_tokens(params["embed"], batch["tokens"])
+    def hybrid_layer(x, lp, shared, emb, use_attn: bool):
+        x = x + S.mamba2_block(lp, x, cfg)
+        if use_attn:
+            x = _shared_attn_apply(shared, x, emb, cfg)
+        return x
+
+    def backbone(params, x, remat: str = "none"):
+        fn = _remat(hybrid_layer, remat)
         emb = x
         for i in range(cfg.n_layers):
-            x = x + S.mamba2_block(layer(params["mamba"], i), x, cfg)
-            if i % every == every - 1:
-                x = _shared_attn_apply(params["shared_attn"], x, emb, cfg)
-        x = rms_norm(x, params["ln_f"], cfg.norm_eps)
+            x = fn(x, layer(params["mamba"], i), params["shared_attn"], emb,
+                   i % every == every - 1)
+        return rms_norm(x, params["ln_f"], cfg.norm_eps)
+
+    def train_loss(params, batch):
+        tokens = batch["tokens"]
+        x = backbone(params, embed_tokens(params["embed"], tokens), cfg.remat)
+        loss = _next_token_loss(_head_logits(x, params["embed"]["table"]),
+                                tokens)
+        return loss, {"loss": loss}
+
+    def prefill_logits(params, batch):
+        x = backbone(params, embed_tokens(params["embed"], batch["tokens"]))
         return _head_logits(x[:, -1:], params["embed"]["table"])
 
     n_uses = cfg.n_layers // every
@@ -461,7 +561,7 @@ def _build_hybrid(cfg: ArchConfig) -> Model:
         x = rms_norm(x, params["ln_f"], cfg.norm_eps)
         return _head_logits(x, params["embed"]["table"]), cache
 
-    return Model(cfg, specs, _no_training, prefill_logits, serve_step,
+    return Model(cfg, specs, train_loss, prefill_logits, serve_step,
                  cache_specs)
 
 
@@ -486,17 +586,29 @@ def _build_xlstm(cfg: ArchConfig) -> Model:
         "ln_f": ParamSpec((cfg.d_model,), ("embed",), init="zeros"),
     }
 
-    def prefill_logits(params, batch):
-        x = embed_tokens(params["embed"], batch["tokens"])
+    def mlayer(x, lp):
+        return x + X.mlstm_block(lp["m"], rms_norm(x, lp["ln"], cfg.norm_eps),
+                                 cfg)
+
+    def backbone(params, x, remat: str = "none"):
+        mfn = _remat(mlayer, remat)        # the reference remats the mLSTMs
         for g in range(n_groups):
             for j in range(n_m):
-                lp = layer(params["mlstm"], g, j)
-                h = rms_norm(x, lp["ln"], cfg.norm_eps)
-                x = x + X.mlstm_block(lp["m"], h, cfg)
+                x = mfn(x, layer(params["mlstm"], g, j))
             sp = layer(params["slstm"], g)
             h = rms_norm(x, sp["ln"], cfg.norm_eps)
             x = x + X.slstm_block(sp["s"], h, cfg)
-        x = rms_norm(x, params["ln_f"], cfg.norm_eps)
+        return rms_norm(x, params["ln_f"], cfg.norm_eps)
+
+    def train_loss(params, batch):
+        tokens = batch["tokens"]
+        x = backbone(params, embed_tokens(params["embed"], tokens), cfg.remat)
+        loss = _next_token_loss(_head_logits(x, params["embed"]["table"]),
+                                tokens)
+        return loss, {"loss": loss}
+
+    def prefill_logits(params, batch):
+        x = backbone(params, embed_tokens(params["embed"], batch["tokens"]))
         return _head_logits(x[:, -1:], params["embed"]["table"])
 
     di = 2 * cfg.d_model
@@ -536,5 +648,5 @@ def _build_xlstm(cfg: ArchConfig) -> Model:
         x = rms_norm(x, params["ln_f"], cfg.norm_eps)
         return _head_logits(x, params["embed"]["table"]), cache
 
-    return Model(cfg, specs, _no_training, prefill_logits, serve_step,
+    return Model(cfg, specs, train_loss, prefill_logits, serve_step,
                  cache_specs)

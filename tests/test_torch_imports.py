@@ -22,6 +22,7 @@ from repro_torch.core.workload import make_lineitem_db, micro_streams
 from repro_torch.obs.trace import TraceSession
 from repro_torch.configs import get_config
 from repro_torch.launch import serve
+from repro_torch.launch import train as train_launch
 from repro_torch.models import build_model, init_params, load_jax_params
 from repro_torch.serving.model import PagedTinyLM, TinyConfig
 
@@ -77,7 +78,14 @@ def test_every_submodule_is_listed():
                  "repro_torch.core.policies.attach_throttle",
                  "repro_torch.obs", "repro_torch.obs.counters",
                  "repro_torch.obs.trace", "repro_torch.obs.manifest",
-                 "repro_torch.models.moe", "repro_torch.core.array_sim.mesh"):
+                 "repro_torch.models.moe", "repro_torch.core.array_sim.mesh",
+                 "repro_torch.data", "repro_torch.data.dataset",
+                 "repro_torch.data.cache", "repro_torch.data.pipeline",
+                 "repro_torch.train", "repro_torch.train.optimizer",
+                 "repro_torch.train.compression",
+                 "repro_torch.train.train_step",
+                 "repro_torch.train.checkpoint", "repro_torch.train.elastic",
+                 "repro_torch.launch.train", "repro_torch.kernels.autograd"):
         assert want in MODULES
 
 
@@ -134,10 +142,13 @@ def _no_gpu():
     lambda spec: load_jax_params({"w": np.zeros((2, 2), np.float32)}),
     lambda spec: TraceSession(spec),
     _telemetry_run,
+    lambda spec: train_launch.run(smoke=True, steps=1, log=None),
+    lambda spec: train_launch.main(["--smoke", "--steps", "1"]),
 ], ids=["make_runner", "init_state", "make_config", "spec_to_torch",
         "resolve_device", "run_sweep", "PagedTinyLM", "launch.serve",
         "models.init_params", "models.load_jax_params", "obs.TraceSession",
-        "run_workload_array_telemetry"])
+        "run_workload_array_telemetry", "launch.train.run",
+        "launch.train.main"])
 def test_entry_points_default_to_cuda_and_raise_without_a_gpu(call):
     if not _no_gpu():
         pytest.skip("a GPU is present: the default device works here")
