@@ -35,6 +35,16 @@ One JSON object per phase, one per line:
                       f32 and bf16 kernels all listed), and none of
                       batched_evict (both key types), fifo_grant and
                       wake_solve, may have a stack frame or use local memory
+2b. ``contracts``     ``repro_torch.analysis``'s static checks on the tree
+                      (the step regions' sync lint, the registry
+                      cross-check, the kernel rules), then every kernel
+                      contract (``analysis.kernels.CONTRACTS``: B1-B7's
+                      paths, the page split, bf16 and f32) on the card
+                      between guard zones, in poisoned buffers and
+                      repeated, each held to its plain version; each
+                      kernel's shared memory against the card's opt-in
+                      limit; ``compute-sanitizer`` where it runs on the
+                      device (its refusal recorded where it does not)
 3. ``kernels_fuzz``   every buffer-pool kernel against its plain version on
                       the fuzz shapes of the CPU tests (outputs must be EQUAL);
                       per kernel the lanes that took each path (nothing to
@@ -53,6 +63,11 @@ One JSON object per phase, one per line:
 6. ``sim_small``      a tiny sweep of the four policies on ``cuda`` and,
                       asked for explicitly, on ``cpu``, under both
                       steppers: the two must agree
+6b. ``sanitize``      ``make_runner(sanitize=True)`` at the JAX package's
+                      sanitize points (micro 4 M tuples, TPC-H 0.02), both
+                      steppers x four policies: no NaN, no index outside
+                      its extent, one config signature per runner, no
+                      truncated lane; the B1 keys that were -0.0
 7. ``serve_small``    ``TinyConfig()`` with the same weights on ``cuda`` and,
                       asked for explicitly, on ``cpu``, at the serving
                       benchmark's default point under all four policies:
@@ -115,7 +130,12 @@ One JSON object per phase, one per line:
                       losses and gradient norms, B5's 28 x 4 launches a
                       step, and one more step under the profiler (device
                       idle share, B5's and the plain VJP's share); (c) the
-                      smoke configuration's loss falls over 40 steps
+                      smoke configuration's loss falls over 40 steps;
+                      the dry run of (b)'s step (``launch.dryrun``, on the
+                      meta device): its bytes and operations beside the
+                      measured peak and step time
+13b. ``examples``     ``examples/torch_*.py``, each a child process on the
+                      card at its smallest flags, all at once
 14. ``sim_full``      the same sweep at scale 1.0 (the paper's size: 180 M
                       tuples, P = 3072); to completion if the time limit
                       allows, else cut at a stated ``max_slices`` and
@@ -266,6 +286,27 @@ TRAIN_BUDGET_S = 90.0
 TRAIN_TIME_BUDGET_S = 0.3
 #: where (a) writes its checkpoint, inside this checkout; removed after
 TRAIN_CKPT_DIR = ".smoke_ckpt"
+#: PERF.md's estimate of (b)'s operations in matrix products a step:
+#: 6 x 1.54e9 parameters x 8,192 tokens
+TRAIN_PRODUCT_FLOPS = 7.6e13
+#: the sanitized smoke sweep (both points x both steppers x four policies)
+SANITIZE_BUDGET_S = 30.0
+#: the static checks and every kernel contract on the card
+CONTRACTS_BUDGET_S = 120.0
+#: the four examples, each a child process on the card, all at once
+EXAMPLES_BUDGET_S = 60.0
+#: each example at its smallest flags (the device is the default, cuda),
+#: and what its output must hold
+EXAMPLES = {
+    "torch_quickstart.py": ([], ["step 9 loss", "flash attention kernel "
+                                 "launches"]),
+    "torch_concurrent_scans_demo.py": (["--scale", "0.01", "--streams", "2"],
+                                       ["opt(trace)", "sharing potential"]),
+    "torch_serve_paged.py": ([], ["tokens identical under a different "
+                                  "eviction policy: True",
+                                  "paged attention kernel launches"]),
+    "torch_train_lm.py": (["--steps", "3"], ["device=cuda", "done: loss"]),
+}
 SIM_KERNELS = ("batched_evict", "fifo_grant", "wake_solve")
 POLICIES = ("lru", "pbm", "opt", "cscan")
 SERVING_POLICIES = ("lru", "cscan", "pbm", "opt")
@@ -325,113 +366,9 @@ def nvidia_smi_line() -> str:
 
 
 # ----------------------------------------------------------------- build ----
-
-#: SASS instructions that show which of the card's features a library uses:
-#: warpgroup MMA, warp MMA, TMA tensor loads, bulk copies, cp.async
-SASS_OPS = ("HGMMA", "HMMA", "UTMALDG", "UBLKCP", "LDGSTS")
-#: what each redesigned library must show (any one of the names)
-SASS_REQUIRED = {"flash_attention": (("HGMMA",), ("UTMALDG",)),
-                 "paged_attention": (("LDGSTS", "UBLKCP"),),
-                 "mamba2_scan": (("HGMMA", "HMMA"),),
-                 "mlstm": (("HMMA", "HGMMA"),)}
-#: what a library must not show: the buffer-pool kernels sum whole byte
-#: counts, which a tensor-core product would round
-SASS_FORBIDDEN = {"pbm_timeline": ("HGMMA", "HMMA")}
-#: kernels that must be listed, each with the number of its instantiations:
-#: in a library outside SASS_REQUIRED the redesigned kernels, which alone
-#: are held to no stack frame and no local memory (every kernel of a
-#: SASS_REQUIRED library is); in mlstm the f32 and the bf16 path's kernels
-NO_LOCAL_KERNELS = {"pbm_timeline": {"fifo_grant_kernel": 1,
-                                     "wake_solve_kernel": 1,
-                                     "batched_evict_kernel": 2,
-                                     "split_evict_cand": 2,
-                                     "split_queue_cand": 2,
-                                     "split_sort_slices": 3,
-                                     "split_rank": 1,
-                                     "split_evict_finish": 1,
-                                     "split_grant_finish": 1,
-                                     "split_wake_finish": 1},
-                    "mlstm": {"mlstm_ffma": 1, "mlstm_scores_bf16": 1,
-                              "mlstm_recur_bf16": 2}}
-
-
-def _cuobjdump(flag: str, name: str) -> str:
-    """``cuobjdump <flag>`` of the built library of ``name``."""
-    from repro_torch.kernels import _build
-    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    return subprocess.run(
-        [cuobjdump, flag, str(_build.library_path(name))],
-        capture_output=True, text=True, check=True).stdout
-
-
-def sass_counts(name: str) -> dict:
-    """Instructions of ``SASS_OPS`` in the built library of ``name``
-    (``cuobjdump -sass``)."""
-    counts = dict.fromkeys(SASS_OPS, 0)
-    for line in _cuobjdump("-sass", name).splitlines():
-        words = line.split("*/", 1)[-1].split()
-        if words and words[0].startswith("@"):      # a predicate
-            words = words[1:]
-        op = words[0].split(".", 1)[0] if words else ""
-        if op in counts:
-            counts[op] += 1
-    return counts
-
-
-def resource_usage(name: str) -> list:
-    """Per kernel of the built library of ``name``, its registers, stack
-    frame, static shared memory and local memory as the binary records them
-    (``cuobjdump -res-usage``): read from the library on disk, so a library
-    that an earlier run built reports the same as a fresh build."""
-    import re
-    rows, kernel = [], None
-    for line in _cuobjdump("-res-usage", name).splitlines():
-        m = re.search(r"Function ([^\s:]+):", line)
-        if m:
-            kernel = m.group(1)
-        if "REG:" in line:
-            v = {k: int(n) for k, n in re.findall(r"(\w+):(\d+)", line)}
-            rows.append({"kernel": kernel, "registers": v.get("REG"),
-                         "stack_bytes": v.get("STACK"),
-                         "shared_bytes": v.get("SHARED"),
-                         "local_bytes": v.get("LOCAL")})
-    return rows
-
-
-def build_evidence_ok(usage: dict, sass: dict):
-    """The redesigned kernels' libraries use the features their designs
-    rest on and none they must not, and every kernel in them (in a library
-    of ``NO_LOCAL_KERNELS`` outside ``SASS_REQUIRED``: each kernel named
-    there) is listed by ``cuobjdump -res-usage`` with no stack frame and no
-    local memory (no spill, no array in local memory).  A library or a
-    named kernel (every instantiation) that is not listed fails."""
-    for lib, groups in SASS_REQUIRED.items():
-        for names in groups:
-            if not any(sass.get(lib, {}).get(n, 0) for n in names):
-                return False, f"{lib}: no {' / '.join(names)} in its SASS"
-    for lib, names in SASS_FORBIDDEN.items():
-        for op in names:
-            if sass.get(lib, {}).get(op, 0):
-                return False, f"{lib}: {op} in its SASS"
-    gated = {lib: usage.get(lib, []) for lib in SASS_REQUIRED}
-    for lib, kernels in NO_LOCAL_KERNELS.items():
-        rows = usage.get(lib, [])
-        for kernel, count in kernels.items():
-            listed = sum(kernel in (row["kernel"] or "") for row in rows)
-            if listed < count:
-                return False, (f"{lib}: cuobjdump -res-usage lists {listed} "
-                               f"of the {count} instantiations of {kernel}")
-        if lib not in SASS_REQUIRED:
-            gated[lib] = [row for row in rows
-                          if any(k in (row["kernel"] or "") for k in kernels)]
-    for lib, rows in gated.items():
-        if not rows:
-            return False, f"{lib}: cuobjdump -res-usage lists no kernel"
-        for row in rows:
-            if row["stack_bytes"] != 0 or row["local_bytes"] != 0:
-                return False, f"{lib}: {row['kernel']} uses local memory"
-    return True, ""
-
+# The build gate (SASS and cuobjdump -res-usage rules on the built
+# libraries) lives in repro_torch.analysis.kernels (build_gate), beside the
+# kernels' static rules.
 
 # --------------------------------------------------------------- kernels ----
 
@@ -1461,44 +1398,10 @@ def _serve_arch(arch, dev, calls: FirstCalls):
     return row, model, params
 
 
-def _model_work(kernel, args, static):
-    """(operations, bytes) the least a call must do: every input read and
-    the output written once; flash attention 4 B H dh flops per attended
-    (query, key) pair (the causal half, the window), the scans 4 flops per
-    (step, head, state element) of their recurrences (one multiply-add to
-    update the element, one to read it out)."""
-    import torch
-    nbytes = sum(t.numel() * t.element_size() for t in args)
-    if kernel == "flash_attention":
-        q, k, _v = args
-        B, T, H, dh = q.shape
-        S = k.shape[1]
-        off = S - T if static.get("offset") is None else static["offset"]
-        t = torch.arange(T, dtype=torch.int64)
-        hi = (t + off + 1).clamp(0, S) if static.get("causal", True) \
-            else torch.full_like(t, S)
-        lo = torch.zeros_like(t)
-        if static.get("window") is not None:
-            lo = (t + off - static["window"] + 1).clamp(0, S)
-        pairs = int((hi - lo).clamp(min=0).sum())
-        ops = 4.0 * B * H * dh * pairs
-        nbytes += q.numel() * q.element_size()
-    elif kernel == "mamba2_scan":
-        xh, _a, b, _c = args
-        B, T, H, P = xh.shape
-        ops = 4.0 * B * T * H * P * b.shape[-1]
-        nbytes += xh.numel() * xh.element_size()
-    else:
-        q, _k, v, _a, _i = args
-        B, T, H, K = q.shape
-        ops = 4.0 * B * T * H * K * (v.shape[-1] + 1)
-        nbytes += v.numel() * v.element_size()
-    return ops, nbytes
-
-
 def _model_bound_ms(kernel, args, static):
     import torch
-    ops, nbytes = _model_work(kernel, args, static)
+    from repro_torch.kernels import accounting
+    ops, nbytes = accounting.work(kernel, args, static)
     rate = BF16_OPS_PER_S if args[0].dtype == torch.bfloat16 \
         else FP32_OPS_PER_S
     t_ops = ops / rate * 1e3
@@ -1632,7 +1535,7 @@ def model_kernel_entries(dev, calls: FirstCalls, serve: dict,
     training inputs as that phase held and timed them (``train_shapes``),
     their mismatches counted with the serving inputs'."""
     import torch
-    from repro_torch.kernels import cases
+    from repro_torch.kernels import accounting, cases
     fns = model_fns()
     entries = []
     for name in MODEL_KERNELS:
@@ -1666,7 +1569,7 @@ def model_kernel_entries(dev, calls: FirstCalls, serve: dict,
                    "inputs": [list(a.shape) for a in args],
                    "static": dict(static),
                    **held, "float32": held32, "ms": ms, **queued,
-                   "tflops": _model_work(name, args, static)[0]
+                   "tflops": accounting.work(name, args, static)[0]
                    / (queued["device_ms"] * 1e-3) / 1e12,
                    "plain_ms": _time_budget_ms(
                        lambda: plain(*args, **static), dev),
@@ -2201,8 +2104,9 @@ def train_kernel_rows(calls: FirstCalls, dev) -> list:
     """B5-B7 against their plain versions on the first input of each shape
     that ``phase_train``'s three parts handed them (``calls``), at the
     tolerance of the input's dtype (f32), with the kernel's, the plain
-    version's and (B5) SDPA's times on it and its bound.  These launches
-    are not the path's: the parts' counts were read before."""
+    version's and (B5) SDPA's times on it (per call, and queued: device
+    and host) and its bound.  These launches are not the path's: the
+    parts' counts were read before."""
     from repro_torch.kernels import cases
     fns = model_fns()
     rows = []
@@ -2225,8 +2129,34 @@ def train_kernel_rows(calls: FirstCalls, dev) -> list:
                                             dev, TRAIN_TIME_BUDGET_S),
                 "library_ms": (None if sdpa is None else _time_budget_ms(
                     sdpa, dev, TRAIN_TIME_BUDGET_S)),
+                **_queued_row(lambda: kernel(*args, **static), sdpa),
                 "bound_ms": bound, "bound_by": bound_by})
     return rows
+
+
+def train_dryrun(full: dict) -> dict:
+    """The dry run (``launch.dryrun``, on the meta device) of (b)'s step:
+    its parameter, gradient, optimizer-state and input bytes and its
+    operations, beside the step's measured peak memory and time."""
+    import torch
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch import dryrun
+    F = TRAIN_FULL
+    t0 = time.time()
+    cell = dryrun.build_cell(
+        F["arch"], "train_full_width",
+        shape=ShapeConfig("train_full_width", F["seq"], F["batch"], "train"),
+        param_dtype=torch.float32, microbatches=F["microbatches"])
+    b = cell["bytes"]
+    state = b["params"] + b["grads"] + b["opt_state"] + b["inputs"]
+    return {"flops": cell["flops"], "bytes": b,
+            "predicted_state_bytes": state,
+            "measured_peak_bytes": full["peak_memory_bytes"],
+            "peak_over_predicted_state": full["peak_memory_bytes"] / state,
+            "achieved_tflops_per_s": cell["flops"]
+            / (full["ms_per_step"] * 1e-3) / 1e12,
+            "estimate_flops_in_products": TRAIN_PRODUCT_FLOPS,
+            "seconds": time.time() - t0}
 
 
 def phase_train(dev, calls: FirstCalls) -> dict:
@@ -2301,6 +2231,7 @@ def phase_train(dev, calls: FirstCalls) -> dict:
     ok &= full["ok"]
     full["profile"] = profile_train_step(res, dev)
     out["full_width"] = full
+    out["dryrun"] = train_dryrun(full)
     del res
     torch.cuda.empty_cache()
 
@@ -2337,6 +2268,102 @@ def phase_train(dev, calls: FirstCalls) -> dict:
                       "full-width step, a loss that did not fall or a "
                       "kernel that disagrees with its plain version on a "
                       "training input")
+    return out
+
+
+# ------------------------------------------------------ contract gates ----
+
+def phase_contracts(dev) -> dict:
+    """``repro_torch.analysis``'s static checks on the tree, then every
+    kernel contract on the card (``analysis.absint.contracts_on_card``):
+    guard zones, poisoned buffers and repeats on every case, each held to
+    its plain version; each kernel's shared memory against the card's
+    opt-in limit; ``compute-sanitizer`` where it runs on this device, its
+    refusal recorded where it does not."""
+    from repro_torch.analysis import run_checks
+    from repro_torch.analysis.absint import contracts_on_card
+    t0 = time.time()
+    static = run_checks()
+    report, findings = contracts_on_card()
+    rows = report["device_checks"]
+    out = {"phase": "contracts", "static_findings": [f.format()
+                                                     for f in static],
+           "cases": len(rows),
+           "cases_by_kernel": {k: sum(r["kernel"] == k for r in rows)
+                               for k in REPLACES},
+           **report, "findings": [f.format() for f in findings],
+           "seconds": time.time() - t0, "budget_s": CONTRACTS_BUDGET_S}
+    out["ok"] = (not static and not findings
+                 and all(out["cases_by_kernel"].values()))
+    emit(out)
+    if not out["ok"]:
+        fail("contracts", "a static finding, or a kernel contract that "
+                          "failed on the card")
+    return out
+
+
+def phase_sanitize(dev) -> dict:
+    """``make_runner(sanitize=True)`` over the JAX package's sanitize
+    points (``analysis.sanitize``): no NaN, no index out of its extent, one
+    config signature per runner, no truncated lane; per (point, stepper)
+    the steps, lanes, signatures and the B1 keys that were -0.0."""
+    from repro_torch.analysis.sanitize import sanitize_smoke
+    t0 = time.time()
+    rows = []
+    failures = sanitize_smoke(log=None, device=dev, rows=rows)
+    out = {"phase": "sanitize", "rows": rows, "failures": failures,
+           "neg_zero_keys": sum(lane["neg_zero_keys"] for r in rows
+                                for lane in r["lanes"]),
+           "seconds": time.time() - t0, "budget_s": SANITIZE_BUDGET_S}
+    out["ok"] = (not failures and len(rows) == 4
+                 and all(r["signatures"] == 1 for r in rows))
+    emit(out)
+    if not out["ok"]:
+        fail("sanitize", "a sanitizer hit, a second config signature or a "
+                         "truncated lane")
+    return out
+
+
+def phase_examples(dev) -> dict:
+    """The four examples of ``examples/torch_*.py``, each a child process
+    on the card at its smallest flags, all at once: exit code, seconds and
+    what each must print."""
+    import tempfile
+    t0 = time.time()
+    ckpt = tempfile.mkdtemp(prefix="smoke_example_ckpt_")
+    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
+    procs = {}
+    for name, (args, _) in EXAMPLES.items():
+        extra = ["--checkpoint-dir", ckpt] if name == "torch_train_lm.py" \
+            else []
+        procs[name] = (time.time(), subprocess.Popen(
+            [sys.executable, os.path.join(HERE, "examples", name), *args,
+             *extra], env=env, cwd=HERE, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True))
+    rows = []
+    try:
+        for name, (start, proc) in procs.items():
+            stdout, stderr = proc.communicate(timeout=2 * EXAMPLES_BUDGET_S)
+            missing = [t for t in EXAMPLES[name][1] if t not in stdout]
+            rows.append({"example": name, "args": EXAMPLES[name][0],
+                         "rc": proc.returncode,
+                         "seconds": time.time() - start,
+                         "missing": missing,
+                         "tail": stdout.strip().splitlines()[-3:],
+                         "stderr_tail": stderr.strip().splitlines()[-3:]})
+    finally:
+        for _, proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(ckpt, ignore_errors=True)
+    out = {"phase": "examples", "rows": rows, "device": str(dev),
+           "seconds": time.time() - t0, "budget_s": EXAMPLES_BUDGET_S}
+    out["ok"] = all(r["rc"] == 0 and not r["missing"] for r in rows)
+    emit(out)
+    if not out["ok"]:
+        fail("examples", "an example failed on the card or did not print "
+                         "what it must")
     return out
 
 
@@ -3098,13 +3125,15 @@ def main() -> int:
     # full-f32 matrix products on the serving path (PyTorch's default,
     # stated): TF32 would not meet the f32 tolerances
     torch.backends.cuda.matmul.allow_tf32 = False
+    from repro_torch.analysis.kernels import build_gate
     from repro_torch.kernels import (
         _build, flash_attention, mamba2_scan, mlstm, paged_attention,
         pbm_timeline)
 
-    all_phases = ["env", "build", "kernels_fuzz", "paged_fuzz", "model_fuzz",
-                  "sim_small", "serve_small", "model_serve", "sim_calibrated",
-                  "sim_fixed", "sim_telemetry", "serve_full", "train",
+    all_phases = ["env", "build", "contracts", "kernels_fuzz", "paged_fuzz",
+                  "model_fuzz", "sim_small", "sanitize", "serve_small",
+                  "model_serve", "sim_calibrated", "sim_fixed",
+                  "sim_telemetry", "serve_full", "train", "examples",
                   "sim_full", "tpch_probe", "page_split", "kernels"]
     phases = [p for p in args.phases.split(",") if p] or all_phases
     unknown = set(phases) - set(all_phases)
@@ -3135,18 +3164,20 @@ def main() -> int:
                "nvcc_seconds": _build.build_seconds,
                "sources": sorted(set(SOURCE.values())),
                "flags": list(_build.NVCC_FLAGS)}
-        out["resource_usage"] = {name: resource_usage(name)
-                                 for name in libraries}
-        out["sass"] = {name: sass_counts(name) for name in libraries}
+        gate = build_gate(libraries)
+        out["resource_usage"], out["sass"] = (gate["resource_usage"],
+                                              gate["sass"])
         # ptxas -v of the builds this process ran (none for a library
         # found built): extra output, the gate reads the binaries
         out["ptxas"] = _build.ptxas_usage
         out["warnings"] = {k: v for k, v in _build.build_warnings.items() if v}
-        out["ok"], why = build_evidence_ok(out["resource_usage"], out["sass"])
+        out["ok"] = gate["ok"]
         emit(out)
         if not out["ok"]:
-            fail("build", why)
+            fail("build", gate["why"])
 
+    if "contracts" in phases:
+        phase_contracts(dev)
     if "kernels_fuzz" in phases:
         phase_kernels_fuzz(dev)
     if "paged_fuzz" in phases:
@@ -3155,6 +3186,8 @@ def main() -> int:
         phase_model_fuzz(dev)
     if "sim_small" in phases:
         phase_sim_small(dev)
+    if "sanitize" in phases:
+        phase_sanitize(dev)
     if "serve_small" in phases:
         phase_serve_small(dev)
     model_calls, model_serve = FirstCalls(), None
@@ -3191,6 +3224,8 @@ def main() -> int:
         serve_full = phase_serve_full(dev, serve_recorder)
     train = (phase_train(dev, FirstCalls()) if "train" in phases
              else None)
+    if "examples" in phases:
+        phase_examples(dev)
     if "sim_full" in phases:
         max_slices = args.full_max_slices
         if max_slices is None and calibrated is not None:

@@ -6,17 +6,18 @@ config for CPU tests), held field by field equal to the JAX package's.
 Input shapes come from the shared SHAPES registry.  Vocab sizes are padded
 to a multiple of 256 (Megatron-style padding).
 
-The JAX package's ``mesh_rules`` and ``logical_to_spec`` are sharding
-rules for a mesh; a forward pass on one card needs neither, so they are
-not copied.  ``ParamSpec.logical`` keeps the logical axis names all the
-same, so that parameter trees compare equal.
+``mesh_rules`` and ``logical_to_spec`` are the JAX package's sharding
+rules, copied for the dry run (``launch/dryrun.py``), which prices each
+cell per card under the reference's pod and multi-pod meshes: a spec is a
+tuple with one entry per dimension, each a mesh axis name, a tuple of
+them, or ``None`` (the JAX ``PartitionSpec``'s entries).
 """
 
 from __future__ import annotations
 
 import importlib
 from dataclasses import dataclass
-from typing import Dict, List, Optional
+from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 
 VOCAB_PAD = 256
 
@@ -168,3 +169,68 @@ def cell_is_skipped(cfg: ArchConfig, shape: ShapeConfig) -> Optional[str]:
     if shape.name == "long_500k" and not cfg.supports_long_context:
         return "long_500k skipped: pure full-attention architecture"
     return None
+
+
+# ---------------------------------------------------------------------------
+# Logical-axis sharding rules
+# ---------------------------------------------------------------------------
+
+def mesh_rules(mode: str, mesh_axis_names: Sequence[str]) -> Dict[str, Any]:
+    """Logical axis -> mesh axes, per run mode (``train`` | ``decode`` |
+    ``decode_long``).
+
+    ``batch`` spreads over the pure-DP axes ("pod","data"); ``kv_seq`` is the
+    decode KV-cache sequence dim: sharded over "model" so huge caches fit,
+    except in long_500k where batch=1 cannot use "data", so the cache
+    spreads over both.  Embed/mlp/heads follow standard Megatron TP; in
+    training the weights' output dims shard over ("model", "data") (FSDP).
+    """
+    has_pod = "pod" in mesh_axis_names
+    dp: Any = ("pod", "data") if has_pod else ("data",)
+    fsdp = ("model", "data") if mode == "train" else "model"
+    rules: Dict[str, Any] = {
+        "batch": dp,
+        "vocab": "model",
+        "embed": None,
+        "layers": None,
+        "heads": "model",
+        "kv_heads": None,     # replicated unless divisible — set per arch
+        "q_dim": fsdp,        # flattened H*dh projections
+        "mlp": fsdp,
+        "experts": "model",
+        "expert_cap": None,
+        "seq": None,
+        "kv_seq": None,
+        "state": None,
+        "conv": None,
+    }
+    if mode == "decode":
+        rules["kv_seq"] = "model"
+    if mode == "decode_long":
+        # batch=1: KV pages spread over data AND model
+        rules["batch"] = None
+        rules["kv_seq"] = ("data", "model")
+        rules["heads"] = "model"
+    return rules
+
+
+def logical_to_spec(logical: Sequence[Optional[str]],
+                    rules: Mapping[str, Any]) -> Tuple:
+    """Translate logical axis names to a spec (the JAX ``PartitionSpec``'s
+    entries as a tuple).
+
+    A mesh axis may appear only once per tensor: when a later logical axis
+    requests an already-used mesh axis, the used *component* is dropped
+    (e.g. MoE (experts->model, mlp->(model,data)) yields (model, ..., data)).
+    """
+    out = []
+    used: set = set()
+    for name in logical:
+        axis = rules.get(name) if name is not None else None
+        if axis is not None:
+            flat = (axis,) if isinstance(axis, str) else tuple(axis)
+            keep = tuple(a for a in flat if a not in used)
+            used.update(keep)
+            axis = None if not keep else (keep[0] if len(keep) == 1 else keep)
+        out.append(axis)
+    return tuple(out)

@@ -109,6 +109,7 @@ class CoopConsts(NamedTuple):
     keep_tie: torch.Tensor     # (P,) f32 lowest-chunk-first part of keep_key
 
 
+# analysis: host -- device constants made once from the spec
 def coop_consts(spec, device) -> CoopConsts:
     if spec.page_chunk is None or int(spec.n_chunks) <= 0:
         raise ValueError(
@@ -315,7 +316,8 @@ def io_phase(cc: CoopConsts, *, done, cur_chunk, inflight, pin_pages,
     bb.scatter_add_(1, count_p.clamp(0, S + 1),
                     torch.where(base_ev, size64, zero64))
     below = torch.cat([torch.zeros((L, 1), dtype=torch.float64, device=dev),
-                       torch.cumsum(bb, dim=1)], dim=1).float()
+                       torch.cumsum(bb, dim=1, dtype=torch.float64)],
+                      dim=1).float()
     feasible = free.unsqueeze(1) + below.gather(1, count.clamp(0, S + 1)) \
         >= mb
 
@@ -387,7 +389,7 @@ def clear_on_query_change(done, finished):
     return done & ~finished.unsqueeze(2)
 
 
-def chunk_geometry(db, tnames, page_rows):
+def chunk_geometry(db, tnames, page_rows):  # analysis: host -- compiler
     """Compiler helper: global chunk ids for the compiled tables.
 
     Returns ``(n_chunks, chunk_first, chunk_last, chunk_table,

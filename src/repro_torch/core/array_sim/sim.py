@@ -40,7 +40,9 @@ machine:
 ``repro_torch.obs`` through the loop nest (with it off, the step runs
 not one operator more); ``make_runner(mesh=)`` splits the lanes over the
 devices of a :class:`~repro_torch.core.array_sim.mesh.Mesh` and the page
-axis over blocks of one card.  Not here yet: the sanitize mode (A.9).
+axis over blocks of one card; ``make_runner(sanitize=True)`` checks every
+carried leaf and every score row handed to the kernels for NaN and index
+bounds on the device, read only where the loop nest reads it anyway.
 Policy names resolve through
 ``repro_torch.core.policy_registry`` with the JAX package's stable ids.
 """
@@ -323,7 +325,7 @@ def make_step(spec: SimSpec, dt: float, time_slice: float,
               vmax: Optional[int] = None, stepper: str = "fixed",
               h_max: float = 8.0, h_io: float = 3.0,
               wake_exact: bool = True, telemetry: bool = False,
-              page_shards: int = 1, device="cuda"):
+              page_shards: int = 1, sanitize: bool = False, device="cuda"):
     """Build ``step(carry, cfg, live=None, lc=None) -> carry`` for a
     policy set, over a lane axis.
 
@@ -375,6 +377,11 @@ def make_step(spec: SimSpec, dt: float, time_slice: float,
     ``live`` is an ``(L,)`` bool mask: lanes where it is False come back
     unchanged (``None`` = every lane steps), the telemetry included.
     ``lc`` is the cached ``step.lane_consts(cfg)``.
+
+    ``sanitize``: each call also leaves the float rows it hands to B1-B3
+    (and, with telemetry, the histogram buckets it scatters into) in
+    ``step.probe``, a dict the sanitized runner checks; off, ``step.probe``
+    is ``None`` and the step runs not one operator more.
     """
     if stepper not in ("fixed", "horizon"):
         raise ValueError(f"unknown stepper {stepper!r}: fixed | horizon")
@@ -385,6 +392,7 @@ def make_step(spec: SimSpec, dt: float, time_slice: float,
     horizon = stepper == "horizon"
     dev = resolve_device(device)
     policies = resolve_policies(policies)
+    probe = {} if sanitize else None
     P, S, Q, C = spec.n_pages, spec.n_streams, spec.n_queries, spec.n_cols
     vmax = _evict_candidates(spec) if vmax is None else int(vmax)
     K = int(prefetch_pages)
@@ -932,6 +940,8 @@ def make_step(spec: SimSpec, dt: float, time_slice: float,
             load_mask, load_bytes, n_load = kops.fifo_grant(
                 load_key, page_size, budget, pops, vmax=n_rounds,
                 page_shards=page_shards)
+            if probe is not None:
+                probe["B2.budget"] = budget
         else:
             load_mask, load_bytes, n_load = fifo_pop(load_key, budget)
 
@@ -1026,6 +1036,9 @@ def make_step(spec: SimSpec, dt: float, time_slice: float,
             need_free = sel(is_coop, need_coop, need_free)
         evict = kops.batched_evict(key, page_size, evictable, need_free,
                                    vmax=vmax, page_shards=page_shards)
+        if probe is not None:
+            probe["B1.keys"] = key
+            probe["B1.need_free"] = need_free
 
         resident2 = (state.resident & ~evict) | load_mask
         last_used3 = torch.where(load_mask, t2c + jit_p, last_used2)
@@ -1085,6 +1098,11 @@ def make_step(spec: SimSpec, dt: float, time_slice: float,
                                stable=True)[1]
             vrank = torch.empty_like(order).scatter_(1, order,
                                                      p_ids.expand(L, P))
+            rank_bin = obs.log2_bin(vrank + 1)
+            jump_bin = obs.log2_bin(h_u)
+            if probe is not None:
+                probe["evict_rank.bucket"] = rank_bin
+                probe["jump_hist.bucket"] = jump_bin
             pol_rows = []
             for j, (p, ps) in enumerate(zip(policies, pstate2)):
                 row = tele.pol_obs[j]
@@ -1100,9 +1118,8 @@ def make_step(spec: SimSpec, dt: float, time_slice: float,
                 misses=obs.count(tele.misses, demand_hit),
                 loads=obs.count(tele.loads, n_load),
                 evictions=obs.count(tele.evictions, evict),
-                evict_rank=obs.hist(tele.evict_rank,
-                                    obs.log2_bin(vrank + 1), evict),
-                jump_hist=obs.hist(tele.jump_hist, obs.log2_bin(h_u), 1),
+                evict_rank=obs.hist(tele.evict_rank, rank_bin, evict),
+                jump_hist=obs.hist(tele.jump_hist, jump_bin, 1),
                 ioq_depth_sum=obs.count(tele.ioq_depth_sum, depth),
                 ioq_depth_max=torch.maximum(tele.ioq_depth_max, depth),
                 chunk_picks=chunk_picks,
@@ -1146,6 +1163,8 @@ def make_step(spec: SimSpec, dt: float, time_slice: float,
             wake_step = kops.wake_solve(
                 wake_key, page_size, io_credit2, lc.inc_ref, lc.pops_wake,
                 h_cap=wake_cap_i)
+            if probe is not None:
+                probe["B3.credit"] = io_credit2
             # a blocked stream wakes when EVERY absent page it sits on is
             # granted; the lane jumps to the EARLIEST such wake
             d0 = absent2 & (w_dist2[..., :W] <= 0.0)
@@ -1263,6 +1282,7 @@ def make_step(spec: SimSpec, dt: float, time_slice: float,
                 out = (*out, tele2)
             return out if live is None else _freeze(live, out, carry)
 
+    step.probe = probe
     step.adv_limit = adv_limit
     step.query_view = query_view
     step.window = window
@@ -1289,6 +1309,7 @@ def make_runner(
     h_io: float = 3.0,
     wake_exact: bool = True,
     mesh=None,
+    sanitize: bool = False,
     telemetry: bool = False,
     device="cuda",
 ):
@@ -1339,7 +1360,31 @@ def make_runner(
     number of axes raises ``ValueError``; a row of the page axis that names
     different cards raises ``NotImplementedError``.  ``runner.lane_mesh``
     and ``runner.page_axis`` are set as in the JAX package.
+
+    ``sanitize=True`` is the contract checker's mode
+    (``repro_torch.analysis``), the JAX package's checkify run restated
+    for eager PyTorch: after every step, every float leaf of the carry and
+    every float row handed to B1-B3 must hold no NaN, and every index leaf
+    (query index, frontier and window page ids, the request tie rank, the
+    cooperative chunk ids, the telemetry's histogram buckets) must lie
+    within its extent.  The checks accumulate on the device, per lane;
+    the flag rides in the one number each loop condition already reads,
+    so a sanitized run reads the device exactly as often as a plain one
+    (``runner.stats["host_reads"]``), and on a hit the runner raises
+    :class:`SanitizeError` naming the leaf, the lane and the lane's step.
+    The runner also counts the B1 keys that are -0.0, per lane
+    (``runner.stats["neg_zero_keys"]``).  Off, the steps run not one
+    operator more.  As jit's single trace: a config whose (shape, dtype)
+    signature differs from the first call's raises ``RuntimeError``
+    under ``sanitize``; every runner, sanitized or not, counts the
+    distinct signatures it ran (``runner.trace_count()``).  ``sanitize``
+    with ``mesh`` raises ``ValueError``, as in the JAX package.
     """
+    if sanitize and mesh is not None:
+        raise ValueError(
+            "make_runner(sanitize=True) does not compose with mesh= "
+            "(checkify under shard_map); sanitize unsharded lanes instead"
+        )
     knobs = dict(bandwidth_ref=bandwidth_ref, time_slice=time_slice,
                  prefetch_pages=prefetch_pages, max_slices=max_slices,
                  policies=policies, step_pages=step_pages, vmax=vmax,
@@ -1347,12 +1392,139 @@ def make_runner(
                  wake_exact=wake_exact, telemetry=telemetry)
     if mesh is not None:
         return _mesh_runner(spec, mesh, knobs)
-    return _runner(spec, device, **knobs)
+    return _runner(spec, device, sanitize=sanitize, **knobs)
 
 
-def _runner(spec, device, page_shards: int = 1, *, bandwidth_ref,
-            time_slice, prefetch_pages, max_slices, policies, step_pages,
-            vmax, stepper, h_max, h_io, wake_exact, telemetry):
+class SanitizeError(RuntimeError):
+    """A NaN or an index out of its extent, found by a sanitized run."""
+
+
+#: carry tuples without field names: their leaves' names, by position
+_CARRY_NAMES = ("state", "view", "win", "adv_lim", "pend", "rem_u",
+                "next_h")
+_WIN_NAMES = ("pidx", "trig", "need", "dist")
+
+
+def _named_leaves(prefix: str, x):
+    """(name, tensor) of every tensor in a carry tree."""
+    if torch.is_tensor(x):
+        return [(prefix, x)]
+    if x is None:
+        return []
+    if hasattr(x, "_fields"):
+        names = x._fields
+    elif prefix == "win":
+        names = _WIN_NAMES
+    else:
+        names = [str(i) for i in range(len(x))]
+    out = []
+    for name, kid in zip(names, x):
+        out += _named_leaves(f"{prefix}.{name}", kid)
+    return out
+
+
+def _carry_leaves(carry):
+    """(name, tensor) of every leaf of a runner's carry."""
+    out = []
+    for i, part in enumerate(carry):
+        name = "tele" if isinstance(part, obs.Telemetry) else _CARRY_NAMES[i]
+        out += _named_leaves(name, part)
+    return out
+
+
+class _Sanitizer:
+    """The checks of ``make_runner(sanitize=True)``, on the device.
+
+    ``bounds`` maps an index leaf's name to its ``[lo, hi)`` (``hi`` a
+    number or a tensor that broadcasts against the leaf's trailing axes).
+    Each check writes, per lane and per leaf, the lane's step count at the
+    first hit (``-1``: none); ``hit`` is one (L,) flag over all of them."""
+
+    def __init__(self, spec: SimSpec, lanes: int, device):
+        from ...obs.counters import N_BINS
+
+        n_q = torch.as_tensor(spec.n_q, dtype=torch.int64, device=device)
+        npages = torch.as_tensor(spec.col_npages, dtype=torch.int64,
+                                 device=device)
+        P, CH = spec.n_pages, max(1, int(spec.n_chunks))
+        self.bounds = {
+            "state.qidx": (0, n_q + 1),
+            "state.req_tie": (0, 32768),
+            "state.req_step": (0, _REQ_NONE + 1),
+            "view.frontier": (0, npages + 1),
+            "view.fpidx": (0, P),
+            "win.pidx": (0, P),
+            "cur_chunk": (-1, CH),
+            "inflight": (-1, CH),
+            "evict_rank.bucket": (0, N_BINS),
+            "jump_hist.bucket": (0, N_BINS),
+        }
+        self.lanes = lanes
+        self.first = {}          # names tuple -> (L, k) i32
+        self.kinds = {}          # leaf name -> what a hit there is
+        self.hit = torch.zeros(lanes, dtype=torch.bool, device=device)
+        self.neg_zero = torch.zeros(lanes, dtype=torch.int64, device=device)
+
+    def _bound(self, name: str):
+        for key, b in self.bounds.items():
+            if name == key or name.endswith("." + key):
+                return b
+        return None
+
+    def check(self, carry, probe, live):  # analysis: traced
+        """Accumulate this step's hits; ``live`` (L,) bool or ``None``."""
+        L = self.lanes
+        leaves = [*_carry_leaves(carry), *sorted(probe.items())]
+        names, cols = [], []
+        for name, x in leaves:
+            if x.is_floating_point():
+                bad = x.isnan()
+                self.kinds[name] = "a NaN"
+            else:
+                b = self._bound(name)
+                if b is None:
+                    continue
+                bad = (x < b[0]) | (x >= b[1])
+                self.kinds[name] = f"an index outside [{b[0]}, extent)"
+            names.append(name)
+            cols.append(bad.reshape(L, -1).any(dim=1))
+        bad = torch.stack(cols, dim=1)
+        if live is not None:
+            bad = bad & live.unsqueeze(1)
+        key = tuple(names)
+        first = self.first.get(key)
+        if first is None:
+            first = torch.full(bad.shape, -1, dtype=torch.int32,
+                               device=bad.device)
+        steps = carry[0].steps.unsqueeze(1)
+        self.first[key] = torch.where((first < 0) & bad, steps, first)
+        self.hit |= bad.any(dim=1)
+        keys = probe.get("B1.keys")
+        if keys is not None and keys.is_floating_point():
+            nz = (keys == 0) & keys.signbit()
+            if live is not None:
+                nz = nz & live.unsqueeze(1)
+            self.neg_zero += nz.sum(dim=1)
+
+    def fold(self, count: torch.Tensor) -> torch.Tensor:
+        """``count`` with the hit flag above bit 32: one read for both."""
+        return count + self.hit.any().to(torch.int64) * (1 << 32)
+
+    def raise_hit(self):  # analysis: host -- reads the flags after a hit
+        hits = []
+        for names, first in self.first.items():
+            f = first.cpu()
+            for lane, j in zip(*torch.nonzero(f >= 0, as_tuple=True)):
+                hits.append((int(f[lane, j]), int(lane), names[int(j)]))
+        step, lane, name = min(hits)
+        raise SanitizeError(
+            f"make_runner(sanitize=True): {self.kinds[name]} in leaf "
+            f"`{name}` of lane {lane} at its step {step}")
+
+
+def _runner(spec, device, page_shards: int = 1, sanitize: bool = False, *,
+            bandwidth_ref, time_slice, prefetch_pages, max_slices, policies,
+            step_pages, vmax, stepper, h_max, h_io, wake_exact, telemetry):
     """:func:`make_runner` on one device, its page axis split in
     ``page_shards`` (blocks of that device)."""
     dev = resolve_device(device)
@@ -1360,7 +1532,7 @@ def _runner(spec, device, page_shards: int = 1, *, bandwidth_ref,
     dt = float(step_pages) * float(np.max(spec.page_size)) / float(bandwidth_ref)
     kw = dict(policies=pols, vmax=vmax, stepper=stepper, h_max=h_max,
               h_io=h_io, wake_exact=wake_exact, telemetry=telemetry,
-              page_shards=page_shards, device=dev)
+              page_shards=page_shards, sanitize=sanitize, device=dev)
     cheap = make_step(spec, dt, time_slice, prefetch_pages, refresh=False, **kw)
     full = make_step(spec, dt, time_slice, prefetch_pages, refresh=True, **kw)
     n_inner = cheap.n_inner
@@ -1394,43 +1566,78 @@ def _runner(spec, device, page_shards: int = 1, *, bandwidth_ref,
         rem_u, next_h = carry[5], carry[6]
         return (rem_u > 1) & (next_h < rem_u)
 
+    signatures = []
+
+    # analysis: host -- the loop nest: its reads are the ones it means
     def run(cfg: ArraySimConfig):
         cfg = _lanes(cfg)
         if cfg.policy.device != dev:
             raise ValueError(
                 f"config lies on {cfg.policy.device}, the runner on {dev}")
+        sig = tuple((tuple(x.shape), x.dtype) for x in cfg)
+        if sig not in signatures:
+            signatures.append(sig)
+        if sanitize and len(signatures) > 1:
+            raise RuntimeError(
+                f"make_runner(sanitize=True): {len(signatures)} jit "
+                "traces for one runner — a config leaf changed "
+                "shape/dtype between calls (stack configs with "
+                "stack_configs / keep leaves f32/i32 scalars); every "
+                "(stepper x policy-set) must compile exactly once")
         L = cfg.policy.shape[0]
         lc = cheap.lane_consts(cfg)
         carry = init_carry(cfg)
-        stats = run.stats = {"cheap_steps": 0, "refresh_steps": 0}
+        san = _Sanitizer(spec, L, dev) if sanitize else None
+        stats = run.stats = {"cheap_steps": 0, "refresh_steps": 0,
+                             "host_reads": 0}
+
+        def read(count):  # analysis: host -- the loop nest's own reads
+            if san is not None:
+                count = san.fold(count)
+            v = int(count)
+            stats["host_reads"] += 1
+            if v >> 32:
+                san.raise_hit()
+            return v
+
+        def step(fn, carry, mask):
+            carry = fn(carry, cfg, mask, lc)
+            if san is not None:
+                san.check(carry, fn.probe, mask)
+            return carry
+
         while True:
             live = cond(carry, cfg)
-            n_live = int(live.sum())              # one read per slice
+            n_live = read(live.sum())             # one read per slice
             if n_live == 0:
                 break
             if stepper == "fixed":
                 mask = None if n_live == L else live
                 for _ in range(n_inner - 1):
-                    carry = cheap(carry, cfg, mask, lc)
-                carry = full(carry, cfg, mask, lc)
+                    carry = step(cheap, carry, mask)
+                carry = step(full, carry, mask)
                 stats["cheap_steps"] += n_inner - 1
                 stats["refresh_steps"] += 1
                 continue
             i = 0
             while True:
                 inner = live & inner_cond(carry)
-                n_in = int(inner.sum())           # one read per macro-step
+                n_in = read(inner.sum())          # one read per macro-step
                 if n_in == 0:
                     break
-                carry = cheap(carry, cfg, None if n_in == L else inner, lc)
+                carry = step(cheap, carry, None if n_in == L else inner)
                 i += 1
-            carry = full(carry, cfg, None if n_live == L else live, lc)
+            carry = step(full, carry, None if n_live == L else live)
             stats["cheap_steps"] += i
             stats["refresh_steps"] += 1
+        if san is not None:
+            stats["neg_zero_keys"] = san.neg_zero.tolist()
         return (carry[0], carry[-1]) if telemetry else carry[0]
 
     #: batched step calls of the last run (each launches every kernel once)
-    run.stats = {"cheap_steps": 0, "refresh_steps": 0}
+    run.stats = {"cheap_steps": 0, "refresh_steps": 0, "host_reads": 0}
+    run.trace_count = lambda: len(signatures)
+    run.sanitize = sanitize
     run.dt_ref = dt
     run.stepper = stepper
     run.wake_exact = wake_exact
@@ -1491,8 +1698,9 @@ def _mesh_runner(spec, mesh, knobs: dict):
 
     run.stats = {"cheap_steps": 0, "refresh_steps": 0}
     for name in ("dt_ref", "stepper", "wake_exact", "telemetry",
-                 "policy_names"):
+                 "policy_names", "sanitize"):
         setattr(run, name, getattr(one, name))
+    run.trace_count = lambda: max(r.trace_count() for r in runners.values())
     run.device = devices[0]
     run.lane_mesh, run.page_axis = mesh, page_axis
     run.runners = runners
@@ -1587,13 +1795,14 @@ def run_workload_array(
     runner=None,
     stepper: str = "fixed",
     wake_exact: bool = True,
+    sanitize: bool = False,
     telemetry: bool = False,
     device="cuda",
 ) -> ArrayResult:
     """One policy, one buffer size: compile the workload (multi-table
     streams included), run it to completion, return the paper's metrics
     (and, with ``telemetry``, the counters' summary in
-    ``extras["telemetry"]``).
+    ``extras["telemetry"]``; ``sanitize`` as in :func:`make_runner`).
     Check ``result.extras["truncated"]`` when lowering ``max_time``: a run
     cut short by the livelock guard reports lower bounds, not results."""
     from .compiler import compile_workload
@@ -1606,8 +1815,8 @@ def run_workload_array(
                              time_slice=time_slice,
                              prefetch_pages=prefetch_pages,
                              policies=(policy_name,), stepper=stepper,
-                             wake_exact=wake_exact, telemetry=telemetry,
-                             device=dev)
+                             wake_exact=wake_exact, sanitize=sanitize,
+                             telemetry=telemetry, device=dev)
     cfg = make_config(spec, capacity_bytes, bandwidth, policy_name,
                       max_time=max_time, device=dev)
     t0 = _time.time()

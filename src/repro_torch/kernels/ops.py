@@ -12,7 +12,11 @@ of B5-B7 goes through :mod:`.autograd`: the kernel in the forward, the
 plain version's VJP recomputed in the backward, each backward counted
 (:func:`recompute_counts`).  Without grad it launches the kernel exactly
 as before; a CPU call takes the plain version, which autograd
-differentiates itself.
+differentiates itself.  Inside ``accounting.card_route()`` (the dry run)
+a ``meta`` tensor of B5-B7 takes the card's route with the kernel
+replaced by a shape-only operator that the flop counter counts by the
+kernel's bound formula (:mod:`.accounting`); outside it a meta tensor
+reaches the kernel's wrapper, which refuses it.
 
 Signatures are the JAX package's (``repro.kernels.ops``).  The buffer-pool
 kernels add the leading lane axis: ``key`` is ``(L, P)``, scalars are
@@ -23,7 +27,7 @@ from __future__ import annotations
 
 from typing import Optional
 
-from . import autograd, pbm_timeline, ref
+from . import accounting, autograd, pbm_timeline, ref
 from .flash_attention import flash_attention_kernel
 from .mamba2_scan import mamba2_scan_kernel
 from .mlstm import mlstm_chunked_kernel
@@ -129,37 +133,48 @@ def flash_attention(q, k, v, causal: bool = True,
     ``(B, S, Hk, dh)`` -> ``(B, T, H, dh)`` in ``q.dtype``; query ``t`` and
     key ``s`` are ``t - s + offset`` apart (default ``S - T``, the JAX
     oracle's alignment)."""
-    if q.device.type == "cpu":
+    if accounting.takes_card_route(q):
+        fwd = accounting.op("flash_attention")
+    elif q.device.type == "cpu":
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
                                        offset=offset)
+    else:
+        fwd = flash_attention_kernel
     if autograd.wants_grad(q, k, v):
         return autograd.recompute_vjp(
-            "flash_attention", flash_attention_kernel, ref.flash_attention_ref,
+            "flash_attention", fwd, ref.flash_attention_ref,
             (q, k, v), dict(causal=causal, window=window, offset=offset))
-    return flash_attention_kernel(q, k, v, causal=causal, window=window,
-                                  offset=offset)
+    return fwd(q, k, v, causal=causal, window=window, offset=offset)
 
 
 def mamba2_scan(xh, a, b, c):
     """Chunked SSD scan output: ``xh`` ``(B, T, H, P)``, ``a`` ``(B, T, H)``
     f32, ``b``/``c`` ``(B, T, N)`` -> ``y`` ``(B, T, H, P)`` in
     ``xh.dtype``."""
-    if xh.device.type == "cpu":
+    if accounting.takes_card_route(xh):
+        fwd = accounting.op("mamba2_scan")
+    elif xh.device.type == "cpu":
         return ref.mamba2_scan_ref(xh, a, b, c)
+    else:
+        fwd = mamba2_scan_kernel
     if autograd.wants_grad(xh, a, b, c):
-        return autograd.recompute_vjp("mamba2_scan", mamba2_scan_kernel,
+        return autograd.recompute_vjp("mamba2_scan", fwd,
                                       ref.mamba2_scan_ref, (xh, a, b, c), {})
-    return mamba2_scan_kernel(xh, a, b, c)
+    return fwd(xh, a, b, c)
 
 
 def mlstm_chunked(q, k, v, a, i):
     """Chunkwise mLSTM output: ``q``/``k`` ``(B, T, H, K)``, ``v``
     ``(B, T, H, P)``, ``a``/``i`` ``(B, T, H)`` f32 -> ``y`` ``(B, T, H, P)``
     in ``v.dtype``."""
-    if v.device.type == "cpu":
+    if accounting.takes_card_route(v):
+        fwd = accounting.op("mlstm_chunked")
+    elif v.device.type == "cpu":
         return ref.mlstm_chunked_ref(q, k, v, a, i)
+    else:
+        fwd = mlstm_chunked_kernel
     if autograd.wants_grad(q, k, v, a, i):
-        return autograd.recompute_vjp("mlstm_chunked", mlstm_chunked_kernel,
+        return autograd.recompute_vjp("mlstm_chunked", fwd,
                                       ref.mlstm_chunked_ref,
                                       (q, k, v, a, i), {})
-    return mlstm_chunked_kernel(q, k, v, a, i)
+    return fwd(q, k, v, a, i)

@@ -44,6 +44,7 @@ _LIB = None
 _MAX_DYN = {}
 
 
+# analysis: host -- loads the library and reads the device limits once
 def library(device):
     """``(library, shared-memory limits)`` for the CUDA ``device``: built
     and loaded at first use, and the kernels' shared-memory limit raised
@@ -297,6 +298,7 @@ def _split_whole(name: str, P: int, static) -> bool:
     return _head_slots(P, static["vmax"], n_sh)[1]
 
 
+# analysis: host -- the paths lanes took, a summary read by chip_smoke.py
 def lane_paths(name: str, args, static) -> list:
     """Per lane of one ``batched_evict``, ``fifo_grant`` or ``wake_solve``
     call (``args`` its tensors in call order, ``static`` its keyword

@@ -69,7 +69,7 @@ def _evict_head(cand, sizes, evictable, need_free) -> torch.Tensor:
     sizes = _lane_sizes(sizes, cand.shape[0])
     c_ok = evictable.gather(1, cand)
     sz_c = torch.where(c_ok, sizes.gather(1, cand), 0.0).double()
-    before = torch.cumsum(sz_c, dim=1) - sz_c
+    before = torch.cumsum(sz_c, dim=1, dtype=torch.float64) - sz_c
     need = need_free.unsqueeze(1)
     take = c_ok & (before < need.double()) & (need > 0)
     return torch.zeros_like(evictable).scatter_(1, cand, take)
@@ -99,7 +99,7 @@ def _grant_head(kv, cand, P: int, sizes, budget, pops):
     prefix) -> ``(mask (L, P), granted_bytes, n_granted)``."""
     L, k = cand.shape
     sz = _lane_sizes(sizes, L).gather(1, cand).double()
-    csum = torch.cumsum(sz, dim=1)
+    csum = torch.cumsum(sz, dim=1, dtype=torch.float64)
     pos = torch.arange(k, device=cand.device)
     ok = torch.cumprod(
         ((kv >= 0) & (csum <= budget.double().unsqueeze(1))
@@ -138,7 +138,7 @@ def wake_solve_ref(
     kv, order = _service_order(key)
     w_ord = kv >= 0
     sz = torch.where(w_ord, sizes.gather(1, order), 0.0).double()
-    csum = torch.cumsum(sz, dim=1)
+    csum = torch.cumsum(sz, dim=1, dtype=torch.float64)
     ks = torch.arange(1, h_cap + 1, device=dev)
     thr = credit0.unsqueeze(1) + ks.float().unsqueeze(0) * inc.unsqueeze(1)
     cnt = (

@@ -17,8 +17,9 @@ and the final state, for the smoke script and the tests.
 Weights are drawn by ``models.init_params`` from ``--seed`` (another
 generator than the reference's).  The reference builds a device mesh
 (``launch.mesh.make_local_mesh``) and its input shardings
-(``launch.inputs.cell_shardings``); one card needs neither (ROADMAP A.9 /
-A.11).
+(``launch.inputs.cell_shardings``); the port has both (the dry run prices
+cells with them), and this driver runs on one card, which needs neither
+(a mesh across cards is ROADMAP A.11).
 """
 
 from __future__ import annotations

@@ -5,11 +5,11 @@ Parameters are declared as :class:`ParamSpec` trees (shape + logical axes
 + init); :func:`init_params` draws a tree of tensors from one, in the JAX
 package's layout: nested dicts keyed as its trees are, stacked layer axes
 leading, matrices stored ``(in, out)``.  :func:`load_jax_params` carries a
-JAX model's weights across as they are.
-
-The JAX package also derives abstract shapes and ``PartitionSpec`` trees
-from the specs for its dry run and mesh; a forward pass on one card needs
-neither.
+JAX model's weights across as they are.  For the dry run,
+:func:`abstract_params` gives the tree as ``meta`` tensors (shapes and
+dtypes, no storage) and :func:`param_shardings` the spec of each leaf
+under a mesh's rules (``configs.base.mesh_rules``), as the JAX package's
+``abstract_params`` / ``param_shardings`` do.
 """
 
 from __future__ import annotations
@@ -21,6 +21,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..configs.base import logical_to_spec
 from ..core.array_sim.convert import resolve_device
 
 
@@ -86,6 +87,57 @@ def init_params(specs: ParamTree, generator, dtype: torch.dtype,
             arr = arr.mul_(spec.fan_in_scale()).to(dtype)
         out[path] = arr
     return unflatten(out)
+
+
+def abstract_params(specs: ParamTree, dtype: torch.dtype) -> ParamTree:
+    """The tree of ``specs`` as ``meta`` tensors of ``dtype``: shapes and
+    dtypes with no storage (the JAX ``ShapeDtypeStruct`` tree)."""
+    return unflatten({path: torch.empty(spec.shape, dtype=dtype,
+                                        device="meta")
+                      for path, spec in tree_paths(specs).items()})
+
+
+def mesh_sizes(mesh) -> Dict[str, int]:
+    """Axis name -> size of a mesh: a JAX-style one (``axis_names`` and
+    ``devices.shape``), the port's ``core.array_sim.Mesh`` or a
+    ``launch.mesh.MeshShape`` (``shape`` an axis -> size dict or a tuple)."""
+    if hasattr(mesh, "devices"):
+        return dict(zip(mesh.axis_names, mesh.devices.shape))
+    shape = mesh.shape
+    return dict(shape) if isinstance(shape, dict) \
+        else dict(zip(mesh.axis_names, shape))
+
+
+def param_shardings(specs: ParamTree, rules: Mapping[str, Any],
+                    mesh=None) -> ParamTree:
+    """The spec of every leaf (``configs.base.logical_to_spec``); with a
+    mesh, mesh-axis components that do not divide the tensor dim are
+    dropped greedily (e.g. xlstm's 1408-wide FFN keeps "model" 16-way FSDP
+    but drops the extra "data" 16-way), as in the JAX package."""
+    sizes = mesh_sizes(mesh) if mesh is not None else {}
+
+    def fit(spec: ParamSpec):
+        ps = logical_to_spec(spec.logical, rules)
+        if not sizes:
+            return ps
+        fixed = []
+        for dim, axis in zip(spec.shape, ps):
+            if axis is None:
+                fixed.append(None)
+                continue
+            comps = (axis,) if isinstance(axis, str) else tuple(axis)
+            kept = []
+            prod = 1
+            for c in comps:
+                if dim % (prod * sizes.get(c, 1)) == 0:
+                    kept.append(c)
+                    prod *= sizes.get(c, 1)
+            fixed.append(None if not kept else
+                         (kept[0] if len(kept) == 1 else tuple(kept)))
+        return tuple(fixed)
+
+    return unflatten({path: fit(spec)
+                      for path, spec in tree_paths(specs).items()})
 
 
 def fan_in_rescale(specs: ParamTree, params: ParamTree) -> ParamTree:

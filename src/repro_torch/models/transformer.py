@@ -36,8 +36,8 @@ aux`` for an MoE, whose load-balancing losses the LM backbone sums;
 ``prefill_logits`` ignores them.  The vision stub's patch positions carry
 no loss.  Training applies ``cfg.remat`` to each layer as the reference's
 ``_remat`` does (:func:`_remat`: ``torch.utils.checkpoint``, non-reentrant);
-serving runs no checkpoint.  ``shardctx.constrain_batch`` (a sharding
-constraint) changes no value and has no counterpart here.
+serving runs no checkpoint.  ``shardctx.constrain_batch`` is called at
+the JAX package's two block boundaries; on one card it returns its input.
 """
 
 from __future__ import annotations
@@ -61,6 +61,7 @@ from .layers import (
     ParamSpec, embed_tokens, embedding_specs, gated_mlp, gated_mlp_specs,
     layer, rms_norm,
 )
+from .shardctx import constrain_batch
 
 
 def _stack_specs(specs: Any, n: int) -> Any:
@@ -173,8 +174,10 @@ def _ffn(params, h, cfg: ArchConfig
 
 def _block_apply(params, x, cfg: ArchConfig, window: Optional[int]):
     """``(x, aux or None)`` after one block."""
+    x = constrain_batch(x)
     h = rms_norm(x, params["ln_attn"], cfg.norm_eps)
     x = x + A.mha_train(params["attn"], h, cfg, window=window)
+    x = constrain_batch(x)
     h = rms_norm(x, params["ln_ffn"], cfg.norm_eps)
     y, aux = _ffn(params, h, cfg)
     return x + y, aux

@@ -103,6 +103,7 @@ def _pows(n_bins: int, dtype, device) -> torch.Tensor:
                         device=device)
 
 
+# analysis: host -- the zeroed counters, made once before the loop
 def init_telemetry(policies, spec, lanes: int, device) -> Telemetry:
     """Zeroed :class:`Telemetry` for ``lanes`` lanes of a compiled policy
     set.  A policy opts into a row through ``observe_init`` (``None`` = no
@@ -123,12 +124,14 @@ def init_telemetry(policies, spec, lanes: int, device) -> Telemetry:
     )
 
 
+# analysis: host -- one lane's counters, after the run
 def lane_slice(tele: Telemetry, i: int) -> Telemetry:
     """Lane ``i`` of a lane-major :class:`Telemetry`."""
     return Telemetry(*(x[i] for x in tele[:-1]),
                      pol_obs=tuple(r[i] for r in tele.pol_obs))
 
 
+# analysis: host -- the host digest of a finished run
 def summarize(tele: Telemetry, policies=None, steps=None) -> dict:
     """Host-side digest of ONE lane's telemetry (:func:`lane_slice`) — the
     dict stamped into ``ArrayResult.extras['telemetry']``; the same keys,

@@ -55,10 +55,10 @@ def collect(*, spec=None, runner=None, device=None,
             stepper: Optional[str] = None, sanitize: Optional[bool] = None,
             telemetry: Optional[dict] = None, **extra) -> dict:
     """Build one manifest dict.  ``runner`` (a ``make_runner`` product)
-    contributes its stepper and device; explicit keywords win; ``extra``
-    keys pass through.  The JAX package's ``jax`` / ``jaxlib`` /
-    ``trace_count`` become ``torch`` / ``cuda`` / ``device`` here (an
-    eager runner traces nothing)."""
+    contributes its stepper, device, sanitize mode and ``trace_count``
+    (the config signatures it ran: an eager runner traces nothing);
+    explicit keywords win; ``extra`` keys pass through.  The JAX package's
+    ``jax`` / ``jaxlib`` become ``torch`` / ``cuda`` here."""
     import torch
 
     if runner is not None:
@@ -66,6 +66,8 @@ def collect(*, spec=None, runner=None, device=None,
             stepper = getattr(runner, "stepper", None)
         if device is None:
             device = getattr(runner, "device", None)
+        if sanitize is None:
+            sanitize = getattr(runner, "sanitize", None)
     man = {
         "git_sha": git_sha(),
         "python": platform.python_version(),
@@ -83,6 +85,8 @@ def collect(*, spec=None, runner=None, device=None,
         man["stepper"] = stepper
     if sanitize is not None:
         man["sanitize"] = bool(sanitize)
+    if runner is not None and hasattr(runner, "trace_count"):
+        man["trace_count"] = runner.trace_count()
     if telemetry is not None:
         man["telemetry"] = telemetry
     man.update(extra)

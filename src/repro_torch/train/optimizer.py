@@ -12,10 +12,9 @@ reference's ``jax.jit(..., donate_argnums=(0, 1))`` in
 Trees are nested dicts of tensors, walked with ``models.layers.tree_paths``
 / ``unflatten``.  :func:`leaves` takes them in the order
 ``jax.tree.leaves`` does (dict keys sorted), so :func:`global_norm` sums
-its f32 squares in the reference's order.  The reference's
-``abstract_opt_state`` and ``opt_state_shardings`` (abstract shapes and
-``PartitionSpec`` trees for a mesh) have no counterpart on one card
-(ROADMAP A.9 / A.11).
+its f32 squares in the reference's order.  For the dry run,
+:func:`abstract_opt_state` gives the state as ``meta`` tensors and
+:func:`opt_state_shardings` its spec tree, as the reference's do.
 """
 
 from __future__ import annotations
@@ -44,6 +43,25 @@ class OptState(NamedTuple):
     step: torch.Tensor    # () int32
     mu: Any               # f32 tree like params
     nu: Any               # f32 tree like params
+
+
+def abstract_opt_state(params: Any) -> OptState:
+    """The state of ``params`` (a tree of tensors, ``meta`` ones included)
+    as ``meta`` tensors: a () int32 step and f32 moments."""
+    def z(p):
+        return torch.empty(p.shape, dtype=torch.float32, device="meta")
+
+    flat = tree_paths(params)
+    return OptState(
+        step=torch.empty((), dtype=torch.int32, device="meta"),
+        mu=unflatten({k: z(p) for k, p in flat.items()}),
+        nu=unflatten({k: z(p) for k, p in flat.items()}))
+
+
+def opt_state_shardings(param_specs_tree: Any) -> OptState:
+    """The spec tree of :class:`OptState` given the params' spec tree."""
+    return OptState(step=(), mu=param_specs_tree,
+                    nu=unflatten(dict(tree_paths(param_specs_tree))))
 
 
 def leaves(tree: Any) -> List[torch.Tensor]:

@@ -89,6 +89,51 @@ def test_every_submodule_is_listed():
         assert want in MODULES
 
 
+def test_the_contract_checker_dry_run_and_meshes_are_listed():
+    for want in ("repro_torch.analysis", "repro_torch.analysis.__main__",
+                 "repro_torch.analysis.findings", "repro_torch.analysis.lint",
+                 "repro_torch.analysis.registry",
+                 "repro_torch.analysis.kernels", "repro_torch.analysis.absint",
+                 "repro_torch.analysis.sanitize",
+                 "repro_torch.launch.dryrun", "repro_torch.launch.inputs",
+                 "repro_torch.launch.mesh", "repro_torch.models.shardctx",
+                 "repro_torch.kernels.accounting"):
+        assert want in MODULES
+
+
+EXAMPLES = ("torch_quickstart.py", "torch_concurrent_scans_demo.py",
+            "torch_serve_paged.py", "torch_train_lm.py")
+
+
+@pytest.mark.parametrize("name", EXAMPLES)
+def test_the_examples_import_neither_jax_nor_repro(name):
+    """Each example's module, imported (not run), leaves no JAX and no JAX
+    package in ``sys.modules``, and names ``repro_torch`` only."""
+    path = os.path.join(ROOT, "examples", name)
+    src = open(path).read()
+    for line in src.splitlines():
+        s = line.strip()
+        if s.startswith(("import ", "from ")):
+            assert "jax" not in s.split(), s
+            assert not s.startswith(("import repro.", "from repro.",
+                                     "import repro ", "from repro ")), s
+    code = (
+        "import importlib.util, sys\n"
+        f"spec = importlib.util.spec_from_file_location('ex', {path!r})\n"
+        "mod = importlib.util.module_from_spec(spec)\n"
+        "spec.loader.exec_module(mod)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or "
+        "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
+        "assert not bad, bad\n"
+        "print('clean')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                         capture_output=True, text=True)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "clean"
+
+
 def test_importing_the_port_pulls_in_neither_jax_nor_repro():
     code = (
         "import importlib, sys\n"
@@ -156,6 +201,22 @@ def test_entry_points_default_to_cuda_and_raise_without_a_gpu(call):
         call(_spec())
 
 
+@pytest.mark.parametrize("call", [
+    lambda: __import__("repro_torch.analysis.sanitize", fromlist=["x"])
+    .sanitize_smoke(log=None),
+    lambda: __import__("repro_torch.analysis.absint", fromlist=["x"])
+    .contracts_on_card(),
+    lambda: __import__("repro_torch.launch.mesh", fromlist=["x"])
+    .make_local_mesh(),
+], ids=["analysis.sanitize_smoke", "analysis.contracts_on_card",
+        "launch.make_local_mesh"])
+def test_the_card_gates_raise_without_a_gpu(call):
+    if not _no_gpu():
+        pytest.skip("a GPU is present")
+    with pytest.raises(RuntimeError):
+        call()
+
+
 def test_cpu_runs_only_when_asked_for():
     spec = _spec()
     runner = make_runner(spec, device="cpu", time_slice=0.002,
@@ -201,15 +262,16 @@ def test_cscan_is_registered_but_not_ported():
 
 
 def test_unported_options_are_refused_not_ignored():
-    """``sanitize`` (A.9) and the JAX spelling ``page_axis`` are refused;
-    a mesh that is not a ``Mesh``, or has three axes, is refused."""
+    """The JAX spelling ``page_axis`` is refused; a mesh that is not a
+    ``Mesh``, or has three axes, is refused.  ``sanitize`` is taken."""
     from repro_torch.core.array_sim import Mesh
     spec = _spec()
     with pytest.raises(ValueError, match="fixed | horizon"):
         make_runner(spec, stepper="event", device="cpu")
-    for opt in ("mesh", "sanitize", "page_axis"):
+    for opt in ("mesh", "page_axis"):
         with pytest.raises(TypeError):
             make_runner(spec, device="cpu", **{opt: True})
+    assert make_runner(spec, device="cpu", sanitize=True).sanitize is True
     with pytest.raises(ValueError, match="one-axis"):
         make_runner(spec, mesh=Mesh(np.array(["cpu"], dtype=object)
                                     .reshape(1, 1, 1), ("a", "b", "c")))

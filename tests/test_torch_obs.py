@@ -318,7 +318,9 @@ def test_manifest_fields():
     spec = T.compile_workload(db, streams)
     man = collect_manifest(spec=spec, runner=runner, extra_key="x")
     assert set(man) == {"git_sha", "python", "torch", "cuda", "platform",
-                        "device", "spec_hash", "stepper", "extra_key"}
+                        "device", "spec_hash", "stepper", "sanitize",
+                        "trace_count", "extra_key"}
+    assert man["sanitize"] is False and man["trace_count"] == 1
     for key in ("git_sha", "python", "torch", "platform"):
         assert man[key], key
     assert man["torch"] == torch.__version__
