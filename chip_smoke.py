@@ -27,8 +27,10 @@ One JSON object per phase, one per line:
                       stack and local memory that ``cuobjdump -res-usage``
                       reads from the library (and ptxas -v's lines for the
                       builds this run made), per library the SASS count of
-                      HGMMA / HMMA / UTMALDG / UBLKCP / LDGSTS:
-                      flash_attention must show HGMMA and UTMALDG,
+                      HGMMA / HMMA (and TF32 HMMA) / UTMALDG / UBLKCP /
+                      LDGSTS: flash_attention must show HGMMA and
+                      UTMALDG (its bf16 arm) and TF32 HMMA (its f32 arm's
+                      P V, 3xTF32 on mma.sync),
                       paged_attention LDGSTS or UBLKCP, mamba2_scan and
                       mlstm HGMMA or HMMA, pbm_timeline no tensor-core
                       instruction; no kernel of those four libraries (mlstm's
@@ -59,7 +61,12 @@ One JSON object per phase, one per line:
 5. ``model_fuzz``     flash attention, the Mamba2 scan and the mLSTM against
                       their plain versions on their fuzz cases, f32 and bf16
                       (their bf16 also as in 4, each block a CTA's tile:
-                      for the scans a 128-step chunk of one head)
+                      for the scans a 128-step chunk of one head), and on
+                      ``cases.width_cases``: the scan's state past 128
+                      columns and off-16 / narrow heads, the mLSTM's K
+                      past 1,024, flash attention's f32 arm at dh 64 /
+                      128 / 160 / 256 causal, windowed, non-causal and
+                      T < S
 6. ``sim_small``      a tiny sweep of the four policies on ``cuda`` and,
                       asked for explicitly, on ``cpu``, under both
                       steppers: the two must agree
@@ -140,16 +147,17 @@ One JSON object per phase, one per line:
                       tuples, P = 3072); to completion if the time limit
                       allows, else cut at a stated ``max_slices`` and
                       reported as truncated
-15. ``tpch_probe``    a few slices of the TPC-H workload (P = 8832), only to
-                      give the kernels that shape with real keys and sizes
+15. ``tpch_probe``    ``TPCH_SLICES`` slices of the TPC-H workload (P =
+                      8832), only to give the kernels that shape with real
+                      keys and sizes
 16. ``page_split``    page-split candidate selection: (a) B1 and B2 with
                       ``page_shards`` 2, 4 and 8 against the single-stage
                       kernel on the inputs captured at P = 768, 3,072 and
                       8,832 and on seeded and fuzz cases, and B1-B3 at
                       P = 20,000 against their plain versions (0
                       mismatches); (b) ``tpch_big``, TPC-H at scale 4.0
-                      (P = 35,328, beyond one block a lane), 16 slices of
-                      the horizon stepper, its inputs kept for ``kernels``;
+                      (P = 35,328, beyond one block a lane),
+                      ``TPCH_SLICES`` slices of the horizon stepper, its inputs kept for ``kernels``;
                       (c) ``make_runner(mesh=)`` with a ('lanes', 'page')
                       mesh of shape (1, 4) on the card at sim_small's
                       point, both steppers, bit-equal to ``mesh=None``
@@ -165,10 +173,17 @@ One JSON object per phase, one per line:
                       the cooperative (cscan) lanes' rows also held to
                       the plain version on their own; the Mamba2 scan
                       and the mLSTM with the CUDA kernels one call launches
-                      (profiler; each of their passes once, else the phase
-                      fails); paged attention also at a deployment's batch
+                      on each captured input and on the first width case
+                      of each path past their tiles (``width_paths``),
+                      counted by the profiler in a fresh process (each of
+                      their passes once, else the phase fails); paged
+                      attention also at a deployment's batch
                       (B = 32, 1024-4096 tokens); B4's to B7's bf16 inputs
-                      held to f32 as in 4
+                      held to f32 as in 4; B6 and B7 also at a width
+                      past their tiles (``WIDTH_SHAPES``), timed and held
+                      (B5's f32 arm is timed at the training input in
+                      ``train``; at the other geometries by
+                      ``tools/time_attention_f32.py``)
 
 then the card's name and power limit as ``nvidia-smi`` prints them, then
 ``{"ok": true, "device": {...}}`` as the last line.  Any failed phase ends
@@ -211,6 +226,9 @@ TAIL_S, MODEL_KERNELS_S = 120.0, 100.0
 FULL_STEP_COST = 1.5
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate
 FP32_OPS_PER_S = 67e12         # H100 SXM float32 rate outside the tensor cores
+#: f32-exact products on the tensor cores as 3xTF32: a third of the dense
+#: TF32 rate (495 TFLOP/s), the least time of B5's f32 work on this card
+TF32X3_OPS_PER_S = 495e12 / 3
 SOURCE = {
     "batched_evict": "src/repro_torch/kernels/csrc/pbm_timeline.cu",
     "fifo_grant": "src/repro_torch/kernels/csrc/pbm_timeline.cu",
@@ -341,9 +359,11 @@ CALIBRATED_SCALE = 0.25
 #: part (b) cuts the calibrated sweep at; the macro-steps each runner (off,
 #: on) takes before its windows, those of a timed window and those of the
 #: profiled one (the profiler's own processing grows with the events)
-TELEMETRY_BUDGET_S = 90.0
-TELEMETRY_SLICES = 24
-TELEMETRY_WARM, TELEMETRY_WINDOW, TELEMETRY_PROFILED = 100, 50, 20
+TELEMETRY_BUDGET_S = 45.0
+TELEMETRY_SLICES = 12
+TELEMETRY_WARM, TELEMETRY_WINDOW, TELEMETRY_PROFILED = 100, 25, 10
+#: the horizon stepper's slices in ``tpch_probe`` and ``page_split`` (b)
+TPCH_SLICES = 8
 T0 = time.time()
 
 
@@ -1076,7 +1096,7 @@ def phase_model_fuzz(dev) -> None:
     out = {"phase": "model_fuzz", "device": str(dev),
            "tolerance": cases.MODEL_TOL}
     normwise = dict.fromkeys(NORMWISE_KERNELS, 0.0)
-    for case in cases.model_cases():
+    for case in cases.model_cases() + cases.width_cases():
         kernel, plain = fns[case["kernel"]]
         args = cases.model_tensors(case, dev)
         got = kernel(*args, **case["static"])
@@ -1398,16 +1418,79 @@ def _serve_arch(arch, dev, calls: FirstCalls):
     return row, model, params
 
 
-def _model_bound_ms(kernel, args, static):
+def _model_bound_ms(kernel, args, static, f32_rate=None):
+    """Least time of a model-stack call: operations at the dtype's rate
+    (bf16 989 TFLOP/s; f32 67 outside the tensor cores, and for B5's f32
+    work, which 3xTF32 could do on them, 165) against its bytes at 3.35
+    TB/s; ``f32_rate`` overrides the f32 rate."""
     import torch
     from repro_torch.kernels import accounting
     ops, nbytes = accounting.work(kernel, args, static)
-    rate = BF16_OPS_PER_S if args[0].dtype == torch.bfloat16 \
-        else FP32_OPS_PER_S
+    if args[0].dtype == torch.bfloat16:
+        rate = BF16_OPS_PER_S
+    elif f32_rate is not None:
+        rate = f32_rate
+    else:
+        rate = TF32X3_OPS_PER_S if kernel == "flash_attention" \
+            else FP32_OPS_PER_S
     t_ops = ops / rate * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                  else "bytes")
+
+
+#: B6 and B7 at a width past their tiles, timed beside the captured
+#: shapes: Zamba2's prefill (4 x 4,096, 80 heads of 64) with a state of
+#: 256, and xLSTM-350M's (4 x 4,096, 4 heads, P = 512) with K = 2,048, in
+#: bf16; and that mLSTM in f32 at 1 x 1,024
+WIDTH_SHAPES = (("mamba2_scan", "bfloat16", (4, 4096, 80, 64, 256)),
+                ("mlstm_chunked", "bfloat16", (4, 4096, 4, 2048, 512)),
+                ("mlstm_chunked", "float32", (1, 1024, 4, 2048, 512)))
+
+
+def width_rows(name: str, dev) -> list:
+    """``WIDTH_SHAPES``' rows of kernel ``name``: held to the plain version
+    (at the dtype's bar; bf16 also normwise against f32) and timed per
+    call, with the bound.  Their paths' CUDA launches a call are counted in
+    ``model_fuzz`` (``width_paths``)."""
+    import torch
+    kernel, plain = model_fns()[name]
+    rows = []
+    for kname, dtype, shape in WIDTH_SHAPES:
+        if kname != name:
+            continue
+        g = torch.Generator(device=dev).manual_seed(5)
+        dt = getattr(torch, dtype)
+        if name == "mamba2_scan":
+            B, T, H, P, N = shape
+            args = [(0.5 * torch.randn(B, T, H, P, generator=g, device=dev)
+                     ).to(dt),
+                    0.6 + 0.4 * torch.rand(B, T, H, generator=g, device=dev),
+                    (0.3 * torch.randn(B, T, N, generator=g, device=dev)
+                     ).to(dt),
+                    (0.3 * torch.randn(B, T, N, generator=g, device=dev)
+                     ).to(dt)]
+        else:
+            B, T, H, K, P = shape
+            args = [torch.randn(B, T, H, K, generator=g, device=dev).to(dt),
+                    (0.3 * torch.randn(B, T, H, K, generator=g, device=dev)
+                     ).to(dt),
+                    torch.randn(B, T, H, P, generator=g, device=dev).to(dt),
+                    0.7 + 0.3 * torch.rand(B, T, H, generator=g, device=dev),
+                    0.1 + 0.9 * torch.rand(B, T, H, generator=g, device=dev)]
+        held = _held_to_plain(name, args, {}, dtype)
+        if dtype == "bfloat16":
+            held.update(_vs_f32(plain, kernel(*args), args, {}))
+            held["mismatches"] += not _normwise_worst(held) <= NORMWISE_TOL
+        torch.cuda.empty_cache()
+        bound, bound_by = _model_bound_ms(name, args, {})
+        rows.append({"shape": list(shape), "dtype": dtype,
+                     "path": _width_path(name, args, dtype), **held,
+                     "ms": _time_budget_ms(lambda: kernel(*args), dev),
+                     "bound_ms": bound, "bound_by": bound_by})
+        del args
+        torch.cuda.empty_cache()
+    return rows
 
 
 def _time_budget_ms(fn, dev, budget_s: float = 1.5) -> float:
@@ -1468,6 +1551,90 @@ def _held_to_plain(name, args, static, dtype: str) -> dict:
 #: recurrence (csrc/mlstm.cu)
 CUDA_PASSES = {"mamba2_scan": ("chunk_state", "state_pass", "chunk_scan"),
                "mlstm_chunked": ("mlstm_scores", "mlstm_recur")}
+#: the same past the tiles' widths, by path and dtype: the scan's state in
+#: slices (their shares of y added by a fourth launch), the scan's off-16
+#: widths padded (the three passes; the padding and the cut are PyTorch
+#: copies, reported apart), the mLSTM's K in slices (the parts added and
+#: divided by a last launch; in f32 its one kernel and the combine)
+_SSD = ("chunk_state", "state_pass", "chunk_scan")
+WIDTH_PASSES = {
+    "mamba2_scan[n_slices,f32]": _SSD + ("sum_slices",),
+    "mamba2_scan[n_slices,bf16]": _SSD + ("sum_slices",),
+    "mamba2_scan[padded,f32]": _SSD,
+    "mamba2_scan[padded,bf16]": _SSD,
+    "mlstm_chunked[k_slices,bf16]": ("mlstm_scores", "mlstm_recur",
+                                     "mlstm_combine"),
+    "mlstm_chunked[k_slices,f32]": ("mlstm_ffma", "mlstm_combine"),
+}
+
+
+def width_launches(dev) -> dict:
+    """The CUDA kernels one call of each ``WIDTH_PASSES`` path launches,
+    on the first width case that takes it (profiler): path -> {"case":
+    name, "kernels": {kernel: launches a call}}."""
+    from repro_torch.kernels import cases
+    fns, out = model_fns(), {}
+    for case in cases.width_cases():
+        args = cases.model_tensors(case, dev)
+        path = _width_path(case["kernel"], args, case["dtype"])
+        if path is None or path in out:
+            continue
+        kernel = fns[case["kernel"]][0]
+        out[path] = {"case": case["name"], "kernels": cuda_kernels_per_call(
+            lambda: kernel(*args, **case["static"]))}
+    return out
+
+
+def count_launches(path: str, dev) -> dict:
+    """The child's side of :func:`launch_counts_child`: the CUDA kernels a
+    call launches on each input saved at ``path`` (kernel name, args,
+    static), then on the width cases."""
+    import torch
+    fns = model_fns()
+    saved = torch.load(path, map_location=dev)
+    return {"captured": [cuda_kernels_per_call(
+                lambda: fns[name][0](*args, **static))
+            for name, args, static in saved],
+            "width": width_launches(dev)}
+
+
+def launch_counts_child(inputs: list) -> dict:
+    """:func:`count_launches` in a fresh process (``--count-launches``) on
+    ``inputs`` (kernel name, args, static), saved to a temporary file: in a
+    process that has made many launches the profiler recorded fewer
+    kernels than ran, up to none (``tools/profiler_window_drift.py``); a
+    fresh process counts them whole."""
+    import tempfile
+    import torch
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "inputs.pt")
+        torch.save(inputs, path)
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                               "--count-launches", path],
+                              capture_output=True, text=True, timeout=600)
+    lines = proc.stdout.strip().splitlines()
+    if proc.returncode != 0 or not lines:
+        fail("kernels", f"the launch count exited {proc.returncode}: "
+                        f"{proc.stdout[-1000:]} {proc.stderr[-1500:]}")
+    return json.loads(lines[-1])
+
+
+def _width_path(kernel: str, args, dtype: str):
+    """The ``WIDTH_PASSES`` path a call takes, None for the widths the
+    tiles take as they are (``mamba2_scan.plan``, ``mlstm.k_slices``)."""
+    from repro_torch.kernels import mamba2_scan, mlstm
+    dt = "bf16" if dtype == "bfloat16" else "f32"
+    if kernel == "mamba2_scan":
+        P, N = args[0].shape[-1], args[2].shape[-1]
+        pl = mamba2_scan.plan(P, N)
+        if len(pl["slices"]) > 1:
+            return f"mamba2_scan[n_slices,{dt}]"
+        if (pl["P_pad"], pl["N_pad"]) != (P, N):
+            return f"mamba2_scan[padded,{dt}]"
+    if kernel == "mlstm_chunked" and len(mlstm.k_slices(
+            args[0].shape[-1])) > 1:
+        return f"mlstm_chunked[k_slices,{dt}]"
+    return None
 
 
 def cuda_kernels_per_call(fn, reps: int = 20) -> dict:
@@ -1483,7 +1650,10 @@ def cuda_kernel_times(fn, reps: int = 20) -> dict:
     warm-up step of as many calls comes first: late in a long process the
     device activity started recording some milliseconds after the profiler
     was entered, and the first calls' kernels went uncounted; each step
-    also waits 0.1 s before its first call."""
+    also waits 0.1 s before its first call.  In a process that has made
+    many launches the profiler records fewer kernels than ran, whatever the
+    window's layout (``tools/profiler_window_drift.py``): a count that is
+    checked is made in a fresh process (:func:`launch_counts_child`)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
@@ -1512,16 +1682,23 @@ def cuda_kernel_times(fn, reps: int = 20) -> dict:
 
 def _pass_launches(name: str, kernels: dict) -> dict:
     """``cuda_kernels_per_call``'s count for one call of ``name``'s
-    kernel, held to the design: each of ``CUDA_PASSES[name]`` once and
-    nothing else."""
-    passes = CUDA_PASSES[name]
-    per_pass = {p: sum(n for k, n in kernels.items() if p in k)
+    kernel (or of a ``WIDTH_PASSES`` path), held to the design: each of
+    its passes once and nothing else (a padded path's PyTorch copies are
+    counted apart, ``layout_launches_per_call``)."""
+    passes = {**CUDA_PASSES, **WIDTH_PASSES}[name]
+    ours = {k: n for k, n in kernels.items() if any(p in k for p in passes)}
+    per_pass = {p: sum(n for k, n in ours.items() if p in k)
                 for p in passes}
-    total = sum(kernels.values())
-    if total != len(passes) or any(n != 1 for n in per_pass.values()):
-        fail("kernels", f"{name}: a call launched {kernels}, expected "
-                        f"each of {passes} once")
-    return {"cuda_launches_per_call": total, "cuda_kernels": kernels}
+    total, layout = sum(ours.values()), sum(kernels.values()) - sum(
+        ours.values())
+    if total != len(passes) or any(n != 1 for n in per_pass.values()) \
+            or (layout and "[padded" not in name):
+        fail("kernels", f"{name}: a call launched {kernels}, expected each "
+                        f"of {passes} once")
+    out = {"cuda_launches_per_call": total, "cuda_kernels": kernels}
+    if layout:
+        out["layout_launches_per_call"] = layout
+    return out
 
 
 def model_kernel_entries(dev, calls: FirstCalls, serve: dict,
@@ -1538,13 +1715,24 @@ def model_kernel_entries(dev, calls: FirstCalls, serve: dict,
     from repro_torch.kernels import accounting, cases
     fns = model_fns()
     entries = []
+    counted = [(name, i) for name in CUDA_PASSES
+               for i, _ in enumerate(calls.samples.get(name, []))]
+    counts = launch_counts_child([
+        (name, *calls.samples[name][i][1:]) for name, i in counted])
+    per_input = dict(zip(counted, counts["captured"]))
+    width_paths = {p: {"case": w["case"],
+                       **_pass_launches(p, w["kernels"])}
+                   for p, w in counts["width"].items()}
+    if set(width_paths) != set(WIDTH_PASSES):
+        fail("kernels", f"the width cases ran {sorted(width_paths)}, "
+                        f"expected {sorted(WIDTH_PASSES)}")
     for name in MODEL_KERNELS:
         kernel, plain = fns[name]
         samples = calls.samples.get(name, [])
         if not samples:
             fail("kernels", f"{name}: no input captured in model_serve")
         rows, bad, err, err32 = [], 0, 0.0, 0.0
-        for label, args, static in samples:
+        for i, (label, args, static) in enumerate(samples):
             held = _held_to_plain(name, args, static, _dtype_name(args[0]))
             args32 = [a.float() if a.is_floating_point() else a
                       for a in args]
@@ -1578,8 +1766,7 @@ def model_kernel_entries(dev, calls: FirstCalls, serve: dict,
             if sdpa is not None:
                 row["library_ms"] = _time_budget_ms(sdpa, dev)
             if name in CUDA_PASSES:        # one count a call, a launch a pass
-                row.update(_pass_launches(name, cuda_kernels_per_call(
-                    lambda: kernel(*args, **static))))
+                row.update(_pass_launches(name, per_input[(name, i)]))
             rows.append(row)
             torch.cuda.empty_cache()
         main = rows[0]
@@ -1612,6 +1799,11 @@ def model_kernel_entries(dev, calls: FirstCalls, serve: dict,
         if name in CUDA_PASSES:
             entries[-1]["cuda_launches_per_call"] = \
                 main["cuda_launches_per_call"]
+            entries[-1]["width_paths"] = {
+                p: w for p, w in width_paths.items() if p.startswith(name)}
+            wide = width_rows(name, dev)
+            entries[-1]["width_shapes"] = wide
+            entries[-1]["mismatches"] += sum(r["mismatches"] for r in wide)
     return entries
 
 
@@ -2131,6 +2323,10 @@ def train_kernel_rows(calls: FirstCalls, dev) -> list:
                     sdpa, dev, TRAIN_TIME_BUDGET_S)),
                 **_queued_row(lambda: kernel(*args, **static), sdpa),
                 "bound_ms": bound, "bound_by": bound_by})
+            if name == "flash_attention" and dtype == "float32":
+                rows[-1]["bound_ms_ffma"] = _model_bound_ms(
+                    name, args, static, FP32_OPS_PER_S)[0]
+                rows[-1]["bound_share"] = bound / rows[-1]["device_ms"]
     return rows
 
 
@@ -2919,7 +3115,8 @@ def phase_sim_telemetry(dev) -> dict:
     return part_b["on"]["launches"]
 
 
-def phase_tpch_probe(dev, recorder: Recorder, max_slices: int = 16) -> None:
+def phase_tpch_probe(dev, recorder: Recorder,
+                     max_slices: int = TPCH_SLICES) -> None:
     """A few slices of the TPC-H throughput workload (8 tables, P = 8832):
     not a result, only real keys and page sizes at that page count for the
     kernels' comparison and timing."""
@@ -2949,7 +3146,7 @@ def phase_tpch_probe(dev, recorder: Recorder, max_slices: int = 16) -> None:
 #: page shards the split path is held to the single-stage kernel at
 SPLIT_SHARDS = (2, 4, 8)
 #: the TPC-H deployment beyond one block a lane: scale 4.0 (P = 35,328)
-TPCH_BIG = dict(scale=4.0, n_streams=8, seed=7, max_slices=16)
+TPCH_BIG = dict(scale=4.0, n_streams=8, seed=7, max_slices=TPCH_SLICES)
 
 
 def seeded_split_cases(dev):
@@ -3034,7 +3231,7 @@ def split_against_unsplit(dev, recorder: Recorder) -> dict:
 def tpch_big_run(dev, recorder: Recorder) -> dict:
     """Part (b) of ``page_split``: TPC-H at scale 4.0 (P = 35,328), the
     horizon stepper with ``wake_exact`` over ``tpch_probe``'s lanes, cut
-    at 16 slices; B1-B3 take only the page-split kernels here, and the
+    at ``TPCH_SLICES`` slices; B1-B3 take only the page-split kernels here, and the
     kernels line holds their captured inputs to the plain versions."""
     from repro_torch.core.array_sim import compile_workload
     from repro_torch.core.workload import (
@@ -3114,6 +3311,8 @@ def main() -> int:
                     help="comma-separated subset of the phases (development)")
     ap.add_argument("--full-max-slices", type=int, default=None,
                     help="cut sim_full at this many slices")
+    ap.add_argument("--count-launches", metavar="PATH",
+                    help=argparse.SUPPRESS)     # the kernels phase's child
     args = ap.parse_args()
 
     import torch
@@ -3121,6 +3320,10 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False — this script "
               "needs one NVIDIA GPU", file=sys.stderr)
         return 2
+    if args.count_launches:
+        print(json.dumps(count_launches(args.count_launches,
+                                        torch.device("cuda"))), flush=True)
+        return 0
     dev = torch.device("cuda")
     # full-f32 matrix products on the serving path (PyTorch's default,
     # stated): TF32 would not meet the f32 tolerances

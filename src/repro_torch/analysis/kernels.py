@@ -401,10 +401,13 @@ LIBRARIES = ("flash_attention", "mamba2_scan", "mlstm", "paged_attention",
              "pbm_timeline")
 
 #: SASS instructions that show which of the card's features a library uses:
-#: warpgroup MMA, warp MMA, TMA tensor loads, bulk copies, cp.async
-SASS_OPS = ("HGMMA", "HMMA", "UTMALDG", "UBLKCP", "LDGSTS")
-#: what each redesigned library must show (any one of the names)
-SASS_REQUIRED = {"flash_attention": (("HGMMA",), ("UTMALDG",)),
+#: warpgroup MMA, warp MMA (and among those, TF32 ones), TMA tensor loads,
+#: bulk copies, cp.async
+SASS_OPS = ("HGMMA", "HMMA", "HMMA.TF32", "UTMALDG", "UBLKCP", "LDGSTS")
+#: what each redesigned library must show (any one of the names):
+#: flash_attention's bf16 arm wgmma and TMA, its f32 arm's P V TF32 warp MMA
+SASS_REQUIRED = {"flash_attention": (("HGMMA",), ("UTMALDG",),
+                                     ("HMMA.TF32",)),
                  "paged_attention": (("LDGSTS", "UBLKCP"),),
                  "mamba2_scan": (("HGMMA", "HMMA"),),
                  "mlstm": (("HMMA", "HGMMA"),)}
@@ -428,8 +431,8 @@ NO_LOCAL_KERNELS = {"pbm_timeline": {"fifo_grant_kernel": 1,
                                      "split_evict_finish": 1,
                                      "split_grant_finish": 1,
                                      "split_wake_finish": 1},
-                    "mlstm": {"mlstm_ffma": 1, "mlstm_scores_bf16": 1,
-                              "mlstm_recur_bf16": 2}}
+                    "mlstm": {"mlstm_ffma": 2, "mlstm_scores_bf16": 1,
+                              "mlstm_recur_bf16": 4, "mlstm_combine": 2}}
 
 
 def _cuobjdump(flag: str, name: str) -> str:
@@ -443,15 +446,18 @@ def _cuobjdump(flag: str, name: str) -> str:
 
 def sass_counts(name: str) -> dict:
     """Instructions of ``SASS_OPS`` in the built library of ``name``
-    (``cuobjdump -sass``)."""
+    (``cuobjdump -sass``); ``HMMA.TF32`` counts the HMMA whose modifiers
+    name TF32 (``HMMA.1688.F32.TF32``), which ``HMMA`` counts too."""
     counts = dict.fromkeys(SASS_OPS, 0)
     for line in _cuobjdump("-sass", name).splitlines():
         words = line.split("*/", 1)[-1].split()
         if words and words[0].startswith("@"):      # a predicate
             words = words[1:]
-        op = words[0].split(".", 1)[0] if words else ""
-        if op in counts:
-            counts[op] += 1
+        parts = words[0].rstrip(";").split(".") if words else [""]
+        if parts[0] in counts:
+            counts[parts[0]] += 1
+        if parts[0] == "HMMA" and "TF32" in parts[1:]:
+            counts["HMMA.TF32"] += 1
     return counts
 
 
@@ -638,14 +644,41 @@ def _mamba(dtype: str):
     return build
 
 
-def _mlstm(dtype: str):
+def _flash_wide(dh: int, T: int, S: int, causal: bool, window=None):
+    """B5's f32 arm off the contract point: GQA 2:1, a window, non-causal or
+    T < S."""
+    def build(rng):
+        np = _np()
+        q = _t(rng.normal(size=(1, T, 4, dh)).astype(np.float32))
+        k, v = (_t(rng.normal(size=(1, S, 2, dh)).astype(np.float32))
+                for _ in range(2))
+        return [q, k, v], {"causal": causal, "window": window}
+    return build
+
+
+def _mamba_wide(dtype: str, P: int, N: int):
+    """B6 past its tiles: the state in slices, off-16 widths padded."""
     def build(rng):
         import torch
         np = _np()
-        B, T, H, K, P = 2, 256, 2, 64, 64
+        B, T, H = 1, 300, 2
         dt = getattr(torch, dtype)
-        qk = [_t(rng.normal(size=(B, T, H, K)).astype(np.float32) / 8).to(dt)
-              for _ in range(2)]
+        return ([_t(rng.normal(size=(B, T, H, P)).astype(np.float32)).to(dt),
+                 _t(rng.uniform(0.6, 1.0, (B, T, H)).astype(np.float32)),
+                 _t(rng.normal(size=(B, T, N)).astype(np.float32) / 4).to(dt),
+                 _t(rng.normal(size=(B, T, N)).astype(np.float32) / 4).to(dt)],
+                {})
+    return build
+
+
+def _mlstm(dtype: str, K: int = 64, P: int = 64, T: int = 256):
+    def build(rng):
+        import torch
+        np = _np()
+        B, H = 2, 2
+        dt = getattr(torch, dtype)
+        qk = [_t(rng.normal(size=(B, T, H, K)).astype(np.float32)
+                 / (8 if K <= 64 else 2)).to(dt) for _ in range(2)]
         return ([*qk,
                  _t(rng.normal(size=(B, T, H, P)).astype(np.float32)).to(dt),
                  _t(-rng.uniform(0.0, 0.3, (B, T, H)).astype(np.float32)),
@@ -693,4 +726,23 @@ CONTRACTS = (
                    3e-2),
     KernelContract("mlstm_chunked[bf16]", "mlstm_chunked",
                    _mlstm("bfloat16"), 3e-2),
+    # the widths past the model kernels' tiles, and B5's 3xTF32 f32 arm
+    KernelContract("mamba2_scan[n256]", "mamba2_scan",
+                   _mamba_wide("float32", 64, 256), 2e-3),
+    KernelContract("mamba2_scan[bf16,n256]", "mamba2_scan",
+                   _mamba_wide("bfloat16", 64, 256), 3e-2),
+    KernelContract("mamba2_scan[bf16,p24,n144]", "mamba2_scan",
+                   _mamba_wide("bfloat16", 24, 144), 3e-2),
+    KernelContract("mlstm_chunked[k2048]", "mlstm_chunked",
+                   _mlstm("float32", 2048, 64, 130), 2e-3),
+    KernelContract("mlstm_chunked[bf16,k2048]", "mlstm_chunked",
+                   _mlstm("bfloat16", 2048, 64, 130), 3e-2),
+    KernelContract("mlstm_chunked[bf16,k1025,p512]", "mlstm_chunked",
+                   _mlstm("bfloat16", 1025, 512, 70), 3e-2),
+    KernelContract("flash_attention[dh64,window]", "flash_attention",
+                   _flash_wide(64, 200, 200, True, 48), 3e-5),
+    KernelContract("flash_attention[dh160,full]", "flash_attention",
+                   _flash_wide(160, 150, 150, False), 3e-5),
+    KernelContract("flash_attention[dh256,t<s]", "flash_attention",
+                   _flash_wide(256, 90, 200, True), 3e-5),
 )

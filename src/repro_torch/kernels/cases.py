@@ -591,6 +591,68 @@ def model_cases(seed: int = 31) -> List[Case]:
     return out
 
 
+def width_cases(seed: int = 37) -> List[Case]:
+    """The widths past the model kernels' tiles that the JAX kernels take,
+    as :func:`model_cases` draws them (both dtypes each):
+
+    * Mamba2 scan: a state past ``MAX_N`` (N = 256 and 144: two slices),
+      P below 16 and off 16 (8, 24, padded), P = 72 (padded to 80, then
+      five sub-heads), and N = 256 at Zamba2's P = 64 and 8 heads over five
+      chunks;
+    * mLSTM: K past ``MAX_K`` (1,025, 2,048 and 4,096: two to four slices)
+      at P = 64 (gates in (0.7, 1)) and 512 (the model's gate range);
+    * flash attention (the 3xTF32 f32 arm): dh 64, 128, 160 and 256, each
+      causal, with a window of 48, non-causal and with T < S (GQA 2:1).
+    """
+    rng = np.random.default_rng(seed)
+    out: List[Case] = []
+
+    def nrm(shape, sd):
+        return rng.normal(0, sd, shape).astype(np.float32)
+
+    def add(kernel, name, static=None, **arrays):
+        for dtype in ("float32", "bfloat16"):
+            out.append(dict(kernel=kernel, dtype=dtype, static=static or {},
+                            name=f"{name}_{'f32' if dtype == 'float32' else 'bf16'}",
+                            **arrays))
+
+    for name, (B, T, H, P, N, a_lo) in (
+            ("wide_p64_n256", (1, 300, 2, 64, 256, 0.8)),
+            ("off16_p24_n144", (2, 200, 3, 24, 144, 0.7)),
+            ("narrow_p8_n64", (1, 150, 2, 8, 64, 0.9)),
+            ("padded_p72_n128", (1, 260, 2, 72, 128, 0.8)),
+            ("zamba2_p64_n256_h8", (1, 600, 8, 64, 256, 0.6))):
+        add("mamba2_scan", name, xh=nrm((B, T, H, P), 0.5),
+            a=rng.uniform(a_lo, 1.0, (B, T, H)).astype(np.float32),
+            b=nrm((B, T, N), 0.3), c=nrm((B, T, N), 0.3))
+
+    for K in (1025, 2048, 4096):
+        for P, H, wide in ((64, 2, False), (512, 1, True)):
+            B, T = 1, 150
+            if wide:
+                a = 1.0 / (1.0 + np.exp(-rng.normal(0, 2.0, (B, T, H))))
+                i = np.exp(rng.uniform(-10.0, 10.0, (B, T, H)))
+            else:
+                a = rng.uniform(0.7, 1.0, (B, T, H))
+                i = rng.uniform(0.1, 1.0, (B, T, H))
+            add("mlstm_chunked", f"k{K}_p{P}", q=nrm((B, T, H, K), 1.0),
+                k=nrm((B, T, H, K), 0.3), v=nrm((B, T, H, P), 1.0),
+                a=a.astype(np.float32), i=i.astype(np.float32))
+
+    for dh in (64, 128, 160, 256):
+        for mode, (T, S, causal, window) in (
+                ("causal", (200, 200, True, None)),
+                ("window48", (200, 200, True, 48)),
+                ("full", (150, 150, False, None)),
+                ("t_below_s", (90, 200, True, None))):
+            B, H, Hk = 1, 4, 2
+            add("flash_attention", f"dh{dh}_{mode}",
+                dict(causal=causal, window=window),
+                q=nrm((B, T, H, dh), 0.5), k=nrm((B, S, Hk, dh), 0.5),
+                v=nrm((B, S, Hk, dh), 0.5))
+    return out
+
+
 #: atol = rtol of a model-stack kernel against its plain version, by dtype:
 #: the JAX package's bars (tests/test_kernels.py: 3e-5 for flash attention,
 #: 2e-3 for the scans in f32; 3e-2 for flash attention in bf16, kept for the

@@ -64,17 +64,52 @@
 //   element mask is applied only on a tile that crosses the diagonal, the
 //   window's edge or S, for the warpgroup's rows.
 //
-// f32: FFMA (flash_attention_kernel)
-// ----------------------------------
-// TF32's 10-bit mantissa cannot meet the f32 tolerance of 3e-5, so the f32
-// path keeps the first port's kernel: one block of 256 threads per
-// (64-query tile, head, batch row); per 64-key tile, K into shared memory,
-// S = Q K^T as a 4 x 4 register tile a thread (f32 FMAs), the online
-// softmax of flash_attention.py 80-91 with row max / sum over the 16
-// threads that share a row, P into shared memory, V into the buffer K
-// held, O += P V with each thread owning 4 rows x dh/16 columns; shared
-// rows padded to an odd stride (dh + 1, 65) against bank conflicts.  No
-// bf16 shape runs it.
+// f32: P V as 3xTF32 on the tensor cores (flash_attention_f32)
+// ------------------------------------------------------------
+// One TF32 product keeps 10 bits of mantissa and misses the f32 bar of 3e-5;
+// three of them on the split operands (x = hi + lo, each rounded to TF32)
+// keep ~22 bits (a_lo b_hi + a_hi b_lo + a_hi b_hi, CUTLASS's
+// OpMultiplyAddFastF32), at 495 / 3 = 165 TFLOP/s of f32-exact work where
+// FFMA gives 67.  That is how P V runs: mma.sync.m16n8k8 TF32, three
+// products a fragment pair, each output tile's sum over a key tile formed in
+// a fresh accumulator and added to O in f32 (summed in O itself through the
+// tensor cores, the largest difference from the plain version on the input
+// below doubled).  S = Q K^T does not: the softmax's exponent amplifies a
+// score's rounding, so where the scores are large the f32 bar against the
+// plain version holds only for scores rounded as its f32 product rounds
+// them, a chain of fmaf over d in order.  On the training path's input at
+// the reference's draw (2 x 1,024 tokens, 12 / 2 heads of 128; scores of
+// std 55, up to 298; NVIDIA H100 80GB HBM3, 700 W) the plain version is
+// 9.1e-4 from an f64 attention, 3xTF32 scores 6.6e-4 from it, and those left
+// 32,113 elements outside 3e-5 of the plain version; scores by in-order FFMA
+// none.  So S is FFMA, in order (tests/test_torch_width_split.py shows the
+// same on the CPU).
+// * One block of four warps per (64-query tile, head, batch row), on a 1-D
+//   grid that launches the latest query tile of every (head, batch row)
+//   first (under a causal mask the heaviest, so that the last wave holds
+//   the lightest and the SMs finish together); a warp owns 16 query rows,
+//   its scores (16 x BK), running max and sum and its 16 x dh output in
+//   registers.
+// * Q, and the K and V tiles in two stages, arrive as f32 through cp.async
+//   (zeros past T and S): tile j + 1 loads while tile j computes.  Rows are
+//   padded to a stride = 4 mod 32 floats, so that a warp's float4 reads of
+//   Q and K and its fragment reads of V hit 32 banks.
+// * A thread forms the scores of its accumulator fragment (rows g, g + 8;
+//   keys 8 n + 2 c, 8 n + 2 c + 1), four d a float4 read.  P V's reduction
+//   index (the keys) is permuted inside each k8 step: slot c holds key 2 c
+//   and slot c + 4 key 2 c + 1, on A and B alike, so that the scores'
+//   fragment is P's A fragment as it stands, with no shuffle.  P and V are
+//   split in registers (split_tf32: two integer operations an element
+//   where cvt.rna's NaN handling costs some eight).
+// * The online softmax stays f32 on the CUDA cores (expf, rows in a quad);
+//   masks, skipped tiles and the all-masked row are as the bf16 kernel's.
+// * Key tiles of 64 (dh <= 64), 32 (dh <= 128) or 16 (up to 256: the 16 x
+//   256 f32 output alone is 128 registers a thread); each width bucket (64,
+//   128, 160, 192, 256) has an instantiation that takes any multiple of 8
+//   up to it, and the first three an exact one whose loop bounds and
+//   strides are constants (at 192 and 256 that one spilled).
+// Bound: operations; B5's f32 rows in PERF.md state it at 165 TFLOP/s (the
+// f32-exact tensor-core rate) beside FFMA's 67.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -83,64 +118,80 @@
 
 #include "common.cuh"
 #include "hopper.cuh"
+#include "mma.cuh"
 
 namespace {
 
-constexpr int kBQ = 64;              // query rows per block
-constexpr int kBK = 64;              // keys per tile
-constexpr int kThreads = 256;        // a 16 x 16 grid of threads
 constexpr int kMaxHeadDim = 256;
-constexpr int kVec = 8;              // elements per load; dh % kVec == 0
-constexpr int kLdP = kBK + 1;
+constexpr int kVec = 8;              // dh % kVec == 0
 constexpr float kNegInf = -1e30f;
 
-__device__ __forceinline__ void load_vec(const float* __restrict__ src,
-                                         float* dst) {
-  const float4 a = reinterpret_cast<const float4*>(src)[0];
-  const float4 b = reinterpret_cast<const float4*>(src)[1];
-  dst[0] = a.x; dst[1] = a.y; dst[2] = a.z; dst[3] = a.w;
-  dst[4] = b.x; dst[5] = b.y; dst[6] = b.z; dst[7] = b.w;
+// ---------------------------------------------------- f32: 3xTF32 kernel ----
+
+constexpr int kBQ = 64;              // query rows per block: a warp per 16
+constexpr int kF32Threads = 2 * kBQ;
+
+// the row stride (floats) of the Q, K and V tiles: 4 mod 32, so that a
+// warp's float4 reads of Q and K rows and its fragment reads of V hit 32
+// banks
+__host__ __device__ __forceinline__ int ld_f32(int dh) {
+  return dh + (36 - dh % 32) % 32;
 }
-// rows [0, 64) of a (rows, row_stride) array from element `base`, dh
-// columns, into shared memory at stride ld; rows at or past n_rows are 0.
-template <typename T>
-__device__ __forceinline__ void load_tile(const T* __restrict__ src,
-                                          size_t base, size_t row_stride,
-                                          int n_rows, int dh, int ld,
-                                          float* dst) {
-  const int vpr = dh / kVec;
-  for (int i = threadIdx.x; i < 64 * vpr; i += kThreads) {
-    const int r = i / vpr, d = (i - r * vpr) * kVec;
-    float tmp[kVec];
-    if (r < n_rows) {
-      load_vec(src + base + (size_t)r * row_stride + d, tmp);
-    } else {
-#pragma unroll
-      for (int j = 0; j < kVec; ++j) tmp[j] = 0.0f;
-    }
-#pragma unroll
-    for (int j = 0; j < kVec; ++j) dst[r * ld + d + j] = tmp[j];
+// acc += the dot product of a and b, x to w in order (fmaf)
+__device__ __forceinline__ void fma4(float& acc, float4 a, float4 b) {
+  acc = fmaf(a.x, b.x, acc);
+  acc = fmaf(a.y, b.y, acc);
+  acc = fmaf(a.z, b.z, acc);
+  acc = fmaf(a.w, b.w, acc);
+}
+// keys per tile of the kernel that takes dh
+inline int f32_bk(int dh) { return dh <= 64 ? 64 : dh <= 128 ? 32 : 16; }
+
+// rows [0, rows) of a (.., stride) f32 array from element `base`, dh
+// columns, into shared memory at stride ld, 16 bytes a copy; rows at or past
+// n_rows are zeros
+__device__ __forceinline__ void load_rows_f32(const float* __restrict__ src,
+                                              size_t base, size_t stride,
+                                              int n_rows, int rows, int dh,
+                                              float* dst, int ld) {
+  const int ppr = dh / 4;
+  for (int i = threadIdx.x; i < rows * ppr; i += kF32Threads) {
+    const int r = i / ppr, c = 4 * (i - r * ppr);
+    const bool ok = r < n_rows;
+    cp_async16(dst + r * ld + c, src + base + (size_t)(ok ? r : 0) * stride + c,
+               ok);
   }
 }
 
-// NJ = output columns per thread: dh <= 16 * NJ.
-template <typename T, int NJ>
-__global__ void __launch_bounds__(kThreads)
-flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ out, int T_,
-                       int S, int H, int Hk, int dh, int causal, int window,
-                       int offset, float scale) {
-  extern __shared__ float smem[];
-  const int ld = dh + 1;
-  float* sQ = smem;                  // kBQ x ld
-  float* sKV = sQ + kBQ * ld;        // kBK x ld: K, then V
-  float* sP = sKV + kBK * ld;        // kBQ x kLdP
+// DHMAX: the widest dh of this instantiation; BK: keys per tile; kExact:
+// dh == DHMAX, so that loop bounds and strides are constants (a third
+// faster at dh 128 on an H100).  Two blocks an SM up to dh 192 (shared memory holds no
+// more), one at 256: named, so that ptxas may take the registers they leave.
+template <int DHMAX, int BK, bool kExact>
+__global__ void __launch_bounds__(kF32Threads, DHMAX >= 256 ? 1 : 2)
+flash_attention_f32(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, float* __restrict__ out,
+                    int T_, int S, int H, int Hk, int dh_, int causal,
+                    int window, int offset, float scale) {
+  constexpr int NT = BK / 8;         // n8 tiles of the scores (keys)
+  constexpr int NO = DHMAX / 8;      // n8 tiles of the output (columns)
+  extern __shared__ __align__(16) float fsm[];
+  const int dh = kExact ? DHMAX : dh_;
+  const int ld = ld_f32(dh), nd = dh / 8;
+  float* sQ = fsm;                   // kBQ x ld
+  float* sK = sQ + kBQ * ld;         // 2 stages of BK x ld
+  float* sV = sK + 2 * BK * ld;      // 2 stages of BK x ld
 
-  const int nq = (T_ + kBQ - 1) / kBQ;
-  const int t0 = (nq - 1 - (int)blockIdx.x) * kBQ;
-  const int h = blockIdx.y, b = blockIdx.z;
+  // a 1-D grid, the latest query tile of every (head, batch row) first:
+  // under a causal mask the blocks launched first carry the most keys, and
+  // the last wave holds the lightest ones
+  const int nq = (T_ + kBQ - 1) / kBQ, HB = (int)gridDim.x / nq;   // H B
+  const int rank = (int)blockIdx.x / HB, hb = (int)blockIdx.x - rank * HB;
+  const int t0 = (nq - 1 - rank) * kBQ;
+  const int h = hb % H, b = hb / H;
   const int kh = h / (H / Hk);
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, tq = lane & 3;
   const int t_last = min(t0 + kBQ, T_) - 1;
 
   // keys [lo(t), hi(t)) are valid for row t; both bounds grow with t
@@ -153,110 +204,173 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     s_begin = 0;
     s_end = S;
   }
+  const int first = s_begin / BK;
+  const int n_tiles = (s_end + BK - 1) / BK - first;
 
   const size_t q_row = (size_t)H * dh, kv_row = (size_t)Hk * dh;
-  load_tile(q, ((size_t)b * T_ + t0) * q_row + (size_t)h * dh, q_row,
-            T_ - t0, dh, ld, sQ);
-
-  float o[4][NJ], m[4], l[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.0f;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) o[i][j] = 0.0f;
-  }
-
   const size_t kv_base = (size_t)b * S * kv_row + (size_t)kh * dh;
-  for (int s0 = (s_begin / kBK) * kBK; s0 < s_end; s0 += kBK) {
-    __syncthreads();                   // Q is loaded / the last V is consumed
-    load_tile(k, kv_base + (size_t)s0 * kv_row, kv_row, S - s0, dh, ld, sKV);
-    __syncthreads();
+  auto load_kv = [&](int j) {
+    const int s0 = (first + j) * BK, st = j & 1;
+    load_rows_f32(k, kv_base + (size_t)s0 * kv_row, kv_row, S - s0, BK, dh,
+                  sK + st * BK * ld, ld);
+    load_rows_f32(v, kv_base + (size_t)s0 * kv_row, kv_row, S - s0, BK, dh,
+                  sV + st * BK * ld, ld);
+  };
+  load_rows_f32(q, ((size_t)b * T_ + t0) * q_row + (size_t)h * dh, q_row,
+                T_ - t0, kBQ, dh, sQ, ld);
+  load_kv(0);
+  cp_async_commit();
 
-    float sc[4][4];
+  // this thread's rows r_lo, r_hi; its warp's rows [w0, w0 + 15]
+  const int w0 = t0 + 16 * warp, r_lo = w0 + g, r_hi = r_lo + 8;
+  float o[NO][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+  for (int n = 0; n < NO; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.0f;
+  float m_lo = kNegInf, m_hi = kNegInf, l_lo = 0.0f, l_hi = 0.0f;
+  const float* q_lo = sQ + (16 * warp + g) * ld;
+  const float* q_hi = q_lo + 8 * ld;
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const int st = j & 1, s0 = (first + j) * BK;
+    cp_async_wait_all();
+    __syncthreads();                 // tile j is in; tile j - 1 is consumed
+    if (j + 1 < n_tiles) load_kv(j + 1);
+    cp_async_commit();
+    const float* ks = sK + st * BK * ld + 2 * tq * ld;
+    const float* vs = sV + st * BK * ld + 2 * tq * ld + g;
+
+    // S = Q K^T by FFMA, each score a chain of fmaf over d in order, as
+    // the plain version's f32 product forms it (see the design notes): the
+    // thread's fragment of the scores, rows g, g + 8 and keys 8 n + 2 c,
+    // + 1, four d a float4 read
+    float s[NT][4];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) sc[i][j] = 0.0f;
-#pragma unroll 4
-    for (int d = 0; d < dh; ++d) {
-      float qv[4], kv[4];
+    for (int n = 0; n < NT; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.0f;
+#pragma unroll(kExact ? 1 : 2)   // unrolled, the exact forms spilled
+    for (int d = 0; d < dh; d += 4) {
+      const float4 xa = *reinterpret_cast<const float4*>(q_lo + d);
+      const float4 xb = *reinterpret_cast<const float4*>(q_hi + d);
 #pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = sQ[(ty + 16 * i) * ld + d];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) kv[j] = sKV[(tx + 16 * j) * ld + d];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) sc[i][j] = fmaf(qv[i], kv[j], sc[i][j]);
+      for (int n = 0; n < NT; ++n) {
+        const float4 k0 = *reinterpret_cast<const float4*>(ks + 8 * n * ld + d);
+        const float4 k1 =
+            *reinterpret_cast<const float4*>(ks + (8 * n + 1) * ld + d);
+        fma4(s[n][0], xa, k0);
+        fma4(s[n][1], xa, k1);
+        fma4(s[n][2], xb, k0);
+        fma4(s[n][3], xb, k1);
+      }
     }
 
+    // scale, mask where the tile crosses an edge, row max over the quad
+    const bool whole = s0 + BK <= S &&
+                       (!causal || s0 + BK - 1 <= w0 + offset) &&
+                       (window < 0 || s0 >= w0 + 15 + offset - window + 1);
+    float mx_lo = -INFINITY, mx_hi = -INFINITY;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int t = t0 + ty + 16 * i;
-      float mx = -INFINITY;
+    for (int n = 0; n < NT; ++n) {
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int s = s0 + tx + 16 * j;
-        float x = sc[i][j] * scale;
-        if (s >= S) {
-          x = -INFINITY;
-        } else {
-          const int rel = t - s + offset;
-          bool ok = !causal || rel >= 0;
-          if (window >= 0) ok = ok && rel < window;
-          if (!ok) x = kNegInf;
+      for (int e = 0; e < 4; ++e) {
+        float x = s[n][e] * scale;
+        if (!whole) {
+          const int key = s0 + 8 * n + 2 * tq + (e & 1);
+          const int t = (e & 2) ? r_hi : r_lo;
+          if (key >= S) {
+            x = -INFINITY;
+          } else {
+            const int rel = t - key + offset;
+            bool ok = !causal || rel >= 0;
+            if (window >= 0) ok = ok && rel < window;
+            if (!ok) x = kNegInf;
+          }
         }
-        sc[i][j] = x;
-        mx = fmaxf(mx, x);
+        s[n][e] = x;
+        if (e & 2) mx_hi = fmaxf(mx_hi, x);
+        else mx_lo = fmaxf(mx_lo, x);
       }
-#pragma unroll
-      for (int w = 8; w > 0; w >>= 1) mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, w));
-      const float m_new = fmaxf(m[i], mx);
-      const float alpha = expf(m[i] - m_new);
-      float sum = 0.0f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = expf(sc[i][j] - m_new);
-        sP[(ty + 16 * i) * kLdP + tx + 16 * j] = p;
-        sum += p;
-      }
-#pragma unroll
-      for (int w = 8; w > 0; w >>= 1) sum += __shfl_xor_sync(kFull, sum, w);
-      l[i] = l[i] * alpha + sum;
-      m[i] = m_new;
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) o[i][j] *= alpha;
     }
-    __syncthreads();                   // K is consumed; P is written
-    load_tile(v, kv_base + (size_t)s0 * kv_row, kv_row, S - s0, dh, ld, sKV);
-    __syncthreads();
+#pragma unroll
+    for (int w = 1; w <= 2; w <<= 1) {
+      mx_lo = fmaxf(mx_lo, __shfl_xor_sync(kFull, mx_lo, w));
+      mx_hi = fmaxf(mx_hi, __shfl_xor_sync(kFull, mx_hi, w));
+    }
+    const float mn_lo = fmaxf(m_lo, mx_lo), mn_hi = fmaxf(m_hi, mx_hi);
+    const float a_lo = expf(m_lo - mn_lo), a_hi = expf(m_hi - mn_hi);
+    m_lo = mn_lo;
+    m_hi = mn_hi;
+    float sum_lo = 0.0f, sum_hi = 0.0f;
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = expf(s[n][e] - ((e & 2) ? mn_hi : mn_lo));
+        s[n][e] = p;
+        if (e & 2) sum_hi += p;
+        else sum_lo += p;
+      }
+    }
+    l_lo = l_lo * a_lo + sum_lo;
+    l_hi = l_hi * a_hi + sum_hi;
+#pragma unroll
+    for (int n = 0; n < NO; ++n) {
+      o[n][0] *= a_lo;
+      o[n][1] *= a_lo;
+      o[n][2] *= a_hi;
+      o[n][3] *= a_hi;
+    }
 
-#pragma unroll 4
-    for (int s = 0; s < kBK; ++s) {
-      float pv[4];
+    // O += P V over the tile's keys, k8 step kk = score tile kk: slot c <->
+    // key 8 kk + 2 c, slot c + 4 <-> 8 kk + 2 c + 1, so P's A fragment is
+    // the accumulator (d0, d2, d1, d3) and V's rows are read to match.  Each
+    // output tile sums the tile's steps in a fresh accumulator, then adds it
+    // to O in f32
+    uint32_t ph[NT][4], pl[NT][4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) pv[i] = sP[(ty + 16 * i) * kLdP + s];
+    for (int kk = 0; kk < NT; ++kk) {
+      split_tf32(s[kk][0], ph[kk][0], pl[kk][0]);
+      split_tf32(s[kk][2], ph[kk][1], pl[kk][1]);
+      split_tf32(s[kk][1], ph[kk][2], pl[kk][2]);
+      split_tf32(s[kk][3], ph[kk][3], pl[kk][3]);
+    }
 #pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        const int d = tx + 16 * j;
-        const float vv = d < dh ? sKV[s * ld + d] : 0.0f;
+    for (int n = 0; n < NO; ++n) {
+      if (kExact || n < nd) {
+        float t[4] = {0.0f, 0.0f, 0.0f, 0.0f};
 #pragma unroll
-        for (int i = 0; i < 4; ++i) o[i][j] = fmaf(pv[i], vv, o[i][j]);
+        for (int kk = 0; kk < NT; ++kk) {
+          const float* vr = vs + 8 * kk * ld + 8 * n;
+          uint32_t bh0, bl0, bh1, bl1;
+          split_tf32(vr[0], bh0, bl0);
+          split_tf32(vr[ld], bh1, bl1);
+          mma_3xtf32(t, ph[kk], pl[kk], bh0, bh1, bl0, bl1);
+        }
+        o[n][0] += t[0];
+        o[n][1] += t[1];
+        o[n][2] += t[2];
+        o[n][3] += t[3];
       }
     }
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int t = t0 + ty + 16 * i;
-    if (t > t_last) continue;
-    const float inv = 1.0f / fmaxf(l[i], 1e-30f);
-    T* dst = out + ((size_t)b * T_ + t) * q_row + (size_t)h * dh;
+  for (int w = 1; w <= 2; w <<= 1) {
+    l_lo += __shfl_xor_sync(kFull, l_lo, w);
+    l_hi += __shfl_xor_sync(kFull, l_hi, w);
+  }
+  const float inv_lo = 1.0f / fmaxf(l_lo, 1e-30f);
+  const float inv_hi = 1.0f / fmaxf(l_hi, 1e-30f);
+  float* dst_lo = out + ((size_t)b * T_ + r_lo) * q_row + (size_t)h * dh;
+  float* dst_hi = dst_lo + 8 * q_row;
 #pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      const int d = tx + 16 * j;
-      if (d < dh) store(dst + d, o[i][j] * inv);
+  for (int n = 0; n < NO; ++n) {
+    if (kExact || n < nd) {
+      const int d = 8 * n + 2 * tq;
+      if (r_lo <= t_last)
+        *reinterpret_cast<float2*>(dst_lo + d) =
+            make_float2(o[n][0] * inv_lo, o[n][1] * inv_lo);
+      if (r_hi <= t_last)
+        *reinterpret_cast<float2*>(dst_hi + d) =
+            make_float2(o[n][2] * inv_hi, o[n][3] * inv_hi);
     }
   }
 }
@@ -500,16 +614,24 @@ flash_attention_tc(const __grid_constant__ CUtensorMap tq,
 // ------------------------------------------------------------------ host ----
 
 inline size_t smem_bytes_f32(int dh) {
-  return sizeof(float) * ((size_t)(kBQ + kBK) * (dh + 1) + (size_t)kBQ * kLdP);
+  return sizeof(float) * (size_t)(kBQ + 4 * f32_bk(dh)) * ld_f32(dh);
 }
 
+// (dh bucket, keys per tile, an exact form at dh == bucket)
+#define FA_F32_SHAPES(X) \
+  X(64, 64, true) X(128, 32, true) X(160, 16, true) X(192, 16, false) \
+  X(256, 16, false)
+
 cudaError_t init_f32(int* max_dyn) {
-  cudaError_t e;
-  if ((e = allow_smem(flash_attention_kernel<float, 2>, max_dyn))) return e;
-  if ((e = allow_smem(flash_attention_kernel<float, 4>, max_dyn))) return e;
-  if ((e = allow_smem(flash_attention_kernel<float, 8>, max_dyn))) return e;
-  if ((e = allow_smem(flash_attention_kernel<float, 10>, max_dyn))) return e;
-  return allow_smem(flash_attention_kernel<float, 16>, max_dyn);
+  cudaError_t e = cudaSuccess;
+#define FA_ALLOW(D, BK, EXACT)                                              \
+  if (e == cudaSuccess)                                                     \
+    e = allow_smem(flash_attention_f32<D, BK, false>, max_dyn);             \
+  if (EXACT && e == cudaSuccess)                                            \
+    e = allow_smem(flash_attention_f32<D, BK, EXACT>, max_dyn);
+  FA_F32_SHAPES(FA_ALLOW)
+#undef FA_ALLOW
+  return e;
 }
 
 int launch_f32(const void* q, const void* k, const void* v, void* out, int B,
@@ -518,23 +640,28 @@ int launch_f32(const void* q, const void* k, const void* v, void* out, int B,
   if (B < 1 || T_ < 1 || S < 1 || Hk < 1 || H % Hk || dh % kVec ||
       dh < kVec || dh > kMaxHeadDim)
     return (int)cudaErrorInvalidValue;
-  const dim3 grid((T_ + kBQ - 1) / kBQ, H, B);
+  // query tiles x heads x batch rows, latest tile first
+  const dim3 grid((T_ + kBQ - 1) / kBQ * H * B);
   const size_t smem = smem_bytes_f32(dh);
   cudaStream_t st = (cudaStream_t)stream;
   const float* qq = (const float*)q;
   const float* kk = (const float*)k;
   const float* vv = (const float*)v;
   float* oo = (float*)out;
-#define FA_LAUNCH(NJ)                                                       \
-  flash_attention_kernel<float, NJ><<<grid, kThreads, smem, st>>>(          \
-      qq, kk, vv, oo, T_, S, H, Hk, dh, causal, window, offset, scale)
-  if (dh <= 32) FA_LAUNCH(2);
-  else if (dh <= 64) FA_LAUNCH(4);
-  else if (dh <= 128) FA_LAUNCH(8);
-  else if (dh <= 160) FA_LAUNCH(10);
-  else FA_LAUNCH(16);
+  // the narrowest instantiation that takes dh; its exact form at dh == D
+#define FA_LAUNCH(D, BK, EXACT)                                             \
+  if (dh <= D) {                                                            \
+    if (EXACT && dh == D)                                                   \
+      flash_attention_f32<D, BK, EXACT><<<grid, kF32Threads, smem, st>>>(   \
+          qq, kk, vv, oo, T_, S, H, Hk, dh, causal, window, offset, scale); \
+    else                                                                    \
+      flash_attention_f32<D, BK, false><<<grid, kF32Threads, smem, st>>>(   \
+          qq, kk, vv, oo, T_, S, H, Hk, dh, causal, window, offset, scale); \
+    return (int)cudaGetLastError();                                         \
+  }
+  FA_F32_SHAPES(FA_LAUNCH)
 #undef FA_LAUNCH
-  return (int)cudaGetLastError();
+  return (int)cudaErrorInvalidValue;
 }
 
 // cuTensorMapEncodeTiled, fetched from the driver through the runtime, so

@@ -15,6 +15,7 @@
 //   y    (B, T, H, P)   xh's type
 //   work f32: the chunk states (B, nc, H, P, N), then the chunk decays
 //        (B, nc, H); nc = ceil(T / Q)
+//   part f32 (S, B, T, H, P): each state slice's share of y, when S > 1
 //
 // Design: the SSD split, three launches, each parallel over (batch, chunk)
 // or (batch, head), where the TPU kernel walked the chunks of a (batch,
@@ -33,6 +34,17 @@
 //      the diagonal, where it is never evaluated).  C B^T is shared by the
 //      heads: it is computed once a block and serves every head of it.
 // A ragged last chunk reads a = 1 and zeros past T and writes no row past T.
+//
+// The state width is cut into S slices of at most kMaxN columns (NS each,
+// the last one narrower): y = C h^T + (C B^T o L) X is a sum over n, every
+// column of h evolves on its own under a decay that does not depend on n.
+// So with S > 1 the blocks of the two chunk passes take one slice each
+// (grid z = head groups x S): chunk_state writes its columns of the chunk
+// states, the state pass runs on all P N of them as before, chunk_scan
+// writes its slice's share of y in f32 to `part`, and a fourth launch
+// (sum_slices) adds the shares in slice order and rounds once.  No atomic,
+// so repeats are bit-equal.  With S = 1 (N <= kMaxN) the three launches and
+// their work are as they were.
 //
 // bf16 (the model's path): Q = 128, 8 warps, every product on the tensor
 // cores (mma.sync m16n8k16, bf16 in, f32 accumulate), operands through
@@ -171,25 +183,40 @@ __device__ __forceinline__ void load_x_a(const bf16* __restrict__ xh,
     if (t0 + q < T) cp_async4(sa + q, a + ((size_t)b * T + t0 + q) * H + h);
 }
 
+// rows [t0, t0 + kQ) x the nw columns at src of a (B, T, ld) array
 __device__ __forceinline__ void load_rows_bf16(const bf16* __restrict__ src,
                                                bf16* dst, int b, int t0,
-                                               int T, int N, int ldn) {
-  const RowCopy rc(N / 8);
+                                               int T, int nw, int ldn,
+                                               int ld) {
+  const RowCopy rc(nw / 8);
   for (int q = rc.q0; q < kQ; q += rc.step) {
     const int t = t0 + q;
     const bool ok = t < T;
     cp_async16(dst + q * ldn + 8 * rc.k,
-               src + ((size_t)b * T + (ok ? t : 0)) * N + 8 * rc.k, ok);
+               src + ((size_t)b * T + (ok ? t : 0)) * ld + 8 * rc.k, ok);
   }
 }
+
+// The state slice of a block of a chunk pass: grid z = head group x S
+struct Slice {
+  int n0, nw, h0, h1;
+  __device__ Slice(int N, int NS, int S, int H, int hpb) {
+    const int z = blockIdx.z, sl = z % S;
+    n0 = sl * NS;
+    nw = min(NS, N - n0);
+    h0 = (z / S) * hpb;
+    h1 = min(H, h0 + hpb);
+  }
+};
 
 __global__ void __launch_bounds__(kThreads, 2)
 chunk_state_bf16(const bf16* __restrict__ xh, const float* __restrict__ a,
                  const bf16* __restrict__ bmat, float* __restrict__ state,
                  float* __restrict__ decay, int T, int H, int P, int N,
-                 int nc, int hpb) {
+                 int NS, int S, int nc, int hpb) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int ldn = N + 8, ldp = P + 8;
+  const Slice sl(N, NS, S, H, hpb);
+  const int nw = sl.nw, ldn = nw + 8, ldp = P + 8;
   bf16* sB = reinterpret_cast<bf16*>(smem);
   bf16* sX = sB + kQ * ldn;                       // kStages buffers
   bf16* sLo = sX + kStages * kQ * ldp;
@@ -197,14 +224,14 @@ chunk_state_bf16(const bf16* __restrict__ xh, const float* __restrict__ a,
   float* sDte = sA + kStages * kQ;
 
   const int c = blockIdx.x, b = blockIdx.y, t0 = c * kQ;
-  const int h0 = blockIdx.z * hpb, h1 = min(H, h0 + hpb);
+  const int h0 = sl.h0, h1 = sl.h1;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
 
   // a cp.async group per head, one ahead (B rides in the first); the
   // buffer the next head loads into was last read by the head before this
   // one, which every thread finished before the barrier
   const RowCopy xc(P / 8);
-  load_rows_bf16(bmat, sB, b, t0, T, N, ldn);
+  load_rows_bf16(bmat + sl.n0, sB, b, t0, T, nw, ldn, N);
   load_x_a(xh, a, sX, sA, b, h0, t0, T, H, P, ldp, xc);
   cp_async_commit();
   for (int h = h0, buf = 0; h < h1; ++h, buf ^= 1) {
@@ -219,7 +246,8 @@ chunk_state_bf16(const bf16* __restrict__ xh, const float* __restrict__ a,
       const float total = warp_cumlog<kQ>(sA + buf * kQ, sDte, T - t0);
       __syncwarp();
       for (int q = lane; q < kQ; q += 32) sDte[q] = expf(total - sDte[q]);
-      if (lane == 0) decay[((size_t)b * nc + c) * H + h] = expf(total);
+      if (lane == 0 && sl.n0 == 0)
+        decay[((size_t)b * nc + c) * H + h] = expf(total);
     }
     __syncthreads();
     // X o exp(total - cum) as hi (in place of X) + lo: lane j of a warp
@@ -240,11 +268,11 @@ chunk_state_bf16(const bf16* __restrict__ xh, const float* __restrict__ a,
     // S (P x N) = Xw^T B: a warp takes 16 rows (p) x 32 columns (n) at a
     // time; A = Xw^T and B are stored with the reduced index s outermost,
     // so both come through ldmatrix.trans
-    const int n_groups = (N + 31) / 32, items = (P / 16) * n_groups;
+    const int n_groups = (nw + 31) / 32, items = (P / 16) * n_groups;
     const int mi = lane >> 3, r = lane & 7;
     for (int it = warp; it < items; it += kWarps) {
       const int mt = it / n_groups, ng = it - mt * n_groups;
-      const int n_pairs = min(2, (N - 32 * ng) / 16);   // of n8 tiles
+      const int n_pairs = min(2, (nw - 32 * ng) / 16);  // of n8 tiles
       float acc[4][4] = {};
       for (int ks = 0; ks < kQ / 16; ++ks) {
         uint32_t ahi[4], alo[4];
@@ -273,7 +301,7 @@ chunk_state_bf16(const bf16* __restrict__ xh, const float* __restrict__ a,
           }
         }
       }
-      float* out = state + state_off(b, c, h, nc, H, P, N);
+      float* out = state + state_off(b, c, h, nc, H, P, N) + sl.n0;
       const int g = lane >> 2, tq = lane & 3;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
@@ -314,10 +342,12 @@ inline size_t scan_bf16_smem(int P, int N) {
 __global__ void __launch_bounds__(kThreads, 1)
 chunk_scan_bf16(const bf16* __restrict__ xh, const float* __restrict__ a,
                 const bf16* __restrict__ bmat, const bf16* __restrict__ cmat,
-                const float* __restrict__ state, bf16* __restrict__ y, int T,
-                int H, int P, int N, int nc, int hpb) {
+                const float* __restrict__ state, bf16* __restrict__ y,
+                float* __restrict__ part, int T, int H, int P, int N, int NS,
+                int S, int nc, int hpb) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int ldn = N + 8, ldp = P + 8, ldh = N + 8;
+  const Slice sl(N, NS, S, H, hpb);
+  const int nw = sl.nw, ldn = nw + 8, ldp = P + 8, ldh = nw + 8;
   bf16* sC = reinterpret_cast<bf16*>(smem);
   bf16* sB = sC + kQ * ldn;
   bf16* sX = sB + kQ * ldn;                       // kStages buffers
@@ -327,22 +357,26 @@ chunk_scan_bf16(const bf16* __restrict__ xh, const float* __restrict__ a,
   float* sCum = sA + kStages * kQ;
 
   const int c = blockIdx.x, b = blockIdx.y, t0 = c * kQ;
-  const int h0 = blockIdx.z * hpb, h1 = min(H, h0 + hpb);
+  const int h0 = sl.h0, h1 = sl.h1;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int mi = lane >> 3, r = lane & 7, g = lane >> 2, tq = lane & 3;
+  // this slice's share of y (S > 1), else y itself
+  float* share = part ? part + (size_t)(blockIdx.z % S) * gridDim.y * T * H * P
+                      : nullptr;
 
-  const RowCopy xc(P / 8), hc(N / 4);
+  const RowCopy xc(P / 8), hc(nw / 4);
   auto load_head = [&](int h, int buf) {
     load_x_a(xh, a, sX + buf * kQ * ldp, sA + buf * kQ, b, h, t0, T, H, P,
              ldp, xc);
-    const float* src = state + state_off(b, c, h, nc, H, P, N) + 4 * hc.k;
+    const float* src =
+        state + state_off(b, c, h, nc, H, P, N) + sl.n0 + 4 * hc.k;
     float* dst = sH + buf * P * ldh + 4 * hc.k;
-    for (int p = hc.q0; p < P; p += hc.step)      // N / 4 pieces a row
+    for (int p = hc.q0; p < P; p += hc.step)      // nw / 4 pieces a row
       cp_async16(dst + p * ldh, src + (size_t)p * N, true);
   };
   // as chunk_state_bf16: a cp.async group per head, one ahead
-  load_rows_bf16(cmat, sC, b, t0, T, N, ldn);
-  load_rows_bf16(bmat, sB, b, t0, T, N, ldn);
+  load_rows_bf16(cmat + sl.n0, sC, b, t0, T, nw, ldn, N);
+  load_rows_bf16(bmat + sl.n0, sB, b, t0, T, nw, ldn, N);
   load_head(h0, 0);
   cp_async_commit();
 
@@ -360,7 +394,7 @@ chunk_scan_bf16(const bf16* __restrict__ xh, const float* __restrict__ a,
 #pragma unroll
       for (int j = 0; j < 2 * kWarps; ++j)
         G[j][0] = G[j][1] = G[j][2] = G[j][3] = 0.0f;
-      for (int ks = 0; ks < N / 16; ++ks) {
+      for (int ks = 0; ks < nw / 16; ++ks) {
         uint32_t af[4];
         ldsm_x4(af, sC + (16 * warp + ((mi & 1) << 3) + r) * ldn + 16 * ks +
                         ((mi >> 1) << 3));
@@ -403,9 +437,9 @@ chunk_scan_bf16(const bf16* __restrict__ xh, const float* __restrict__ a,
 #pragma unroll
       for (int j = 0; j < kMaxP / 16; ++j)
         acc[u][j][0] = acc[u][j][1] = acc[u][j][2] = acc[u][j][3] = 0.0f;
-    // C h^T (K = N): A = C's rows of each row tile, B = h (p, n), n
+    // C h^T (K = nw): A = C's rows of each row tile, B = h (p, n), n
     // innermost, read once for both row tiles
-    for (int ks = 0; ks < N / 16; ++ks) {
+    for (int ks = 0; ks < nw / 16; ++ks) {
       uint32_t hi[kMaxP / 16][2], lo[kMaxP / 16][2];
 #pragma unroll
       for (int j = 0; j < kMaxP / 16; ++j) {
@@ -498,14 +532,23 @@ chunk_scan_bf16(const bf16* __restrict__ xh, const float* __restrict__ a,
       for (int j = 0; j < kMaxP / 16; ++j) {
         if (j < ntile) {
           const int p = col0 + 8 * j + 2 * tq;
-          if (ta < T)
-            *reinterpret_cast<__nv_bfloat162*>(
-                y + (((size_t)b * T + ta) * H + h) * P + p) =
-                __floats2bfloat162_rn(acc[u][j][0], acc[u][j][1]);
-          if (tb < T)
-            *reinterpret_cast<__nv_bfloat162*>(
-                y + (((size_t)b * T + tb) * H + h) * P + p) =
-                __floats2bfloat162_rn(acc[u][j][2], acc[u][j][3]);
+          const size_t ia = (((size_t)b * T + ta) * H + h) * P + p;
+          const size_t ib = (((size_t)b * T + tb) * H + h) * P + p;
+          if (share) {
+            if (ta < T)
+              *reinterpret_cast<float2*>(share + ia) =
+                  make_float2(acc[u][j][0], acc[u][j][1]);
+            if (tb < T)
+              *reinterpret_cast<float2*>(share + ib) =
+                  make_float2(acc[u][j][2], acc[u][j][3]);
+          } else {
+            if (ta < T)
+              *reinterpret_cast<__nv_bfloat162*>(y + ia) =
+                  __floats2bfloat162_rn(acc[u][j][0], acc[u][j][1]);
+            if (tb < T)
+              *reinterpret_cast<__nv_bfloat162*>(y + ib) =
+                  __floats2bfloat162_rn(acc[u][j][2], acc[u][j][3]);
+          }
         }
       }
     }
@@ -523,19 +566,22 @@ inline size_t state_f32_smem(int P, int N) {
 __global__ void __launch_bounds__(kThreads32)
 chunk_state_f32(const float* __restrict__ xh, const float* __restrict__ a,
                 const float* __restrict__ bmat, float* __restrict__ state,
-                float* __restrict__ decay, int T, int H, int P, int N, int nc,
-                int hpb) {
+                float* __restrict__ decay, int T, int H, int P, int N, int NS,
+                int S, int nc, int hpb) {
   extern __shared__ float fsm[];
-  float* sB = fsm;                                // kQ32 x N
-  float* sX = sB + kQ32 * N;                      // kQ32 x P
+  const Slice sl(N, NS, S, H, hpb);
+  const int nw = sl.nw;
+  float* sB = fsm;                                // kQ32 x nw
+  float* sX = sB + kQ32 * nw;                     // kQ32 x P
   float* sA = sX + kQ32 * P;
   float* sDte = sA + kQ32;
   const int c = blockIdx.x, b = blockIdx.y, t0 = c * kQ32;
-  const int h0 = blockIdx.z * hpb, h1 = min(H, h0 + hpb);
+  const int h0 = sl.h0, h1 = sl.h1;
   const int tid = threadIdx.x;
-  for (int i = tid; i < kQ32 * N; i += kThreads32) {
-    const int q = i / N, t = t0 + q;
-    sB[i] = t < T ? bmat[((size_t)b * T + t) * N + (i - q * N)] : 0.0f;
+  for (int i = tid; i < kQ32 * nw; i += kThreads32) {
+    const int q = i / nw, t = t0 + q;
+    sB[i] = t < T ? bmat[((size_t)b * T + t) * N + sl.n0 + (i - q * nw)]
+                  : 0.0f;
   }
   for (int h = h0; h < h1; ++h) {
     __syncthreads();                              // the last head is done
@@ -551,16 +597,17 @@ chunk_state_f32(const float* __restrict__ xh, const float* __restrict__ a,
       const float total = warp_cumlog<kQ32>(sA, sDte, T - t0);
       __syncwarp();
       for (int q = tid; q < kQ32; q += 32) sDte[q] = expf(total - sDte[q]);
-      if (tid == 0) decay[((size_t)b * nc + c) * H + h] = expf(total);
+      if (tid == 0 && sl.n0 == 0)
+        decay[((size_t)b * nc + c) * H + h] = expf(total);
     }
     __syncthreads();
-    float* out = state + state_off(b, c, h, nc, H, P, N);
-    for (int i = tid; i < P * N; i += kThreads32) {
-      const int p = i / N, n = i - p * N;
+    float* out = state + state_off(b, c, h, nc, H, P, N) + sl.n0;
+    for (int i = tid; i < P * nw; i += kThreads32) {
+      const int p = i / nw, n = i - p * nw;
       float acc = 0.0f;
       for (int s = 0; s < kQ32; ++s)
-        acc = fmaf(sX[s * P + p] * sDte[s], sB[s * N + n], acc);
-      out[i] = acc;
+        acc = fmaf(sX[s * P + p] * sDte[s], sB[s * nw + n], acc);
+      out[(size_t)p * N + n] = acc;
     }
   }
 }
@@ -582,10 +629,12 @@ inline size_t scan_f32_smem(int P, int N) {
 __global__ void __launch_bounds__(kThreads32)
 chunk_scan_f32(const float* __restrict__ xh, const float* __restrict__ a,
                const float* __restrict__ bmat, const float* __restrict__ cmat,
-               const float* __restrict__ state, float* __restrict__ y, int T,
-               int H, int P, int N, int nc, int hpb) {
+               const float* __restrict__ state, float* __restrict__ y,
+               float* __restrict__ part, int T, int H, int P, int N, int NS,
+               int S, int nc, int hpb) {
   extern __shared__ float fsm[];
-  const int ldn = N + 1, ldw = kQ32 + 1;
+  const Slice sl(N, NS, S, H, hpb);
+  const int nw = sl.nw, ldn = nw + 1, ldw = kQ32 + 1;
   const size_t w_size = (size_t)kQ32 * ldw;
   const size_t bw = (size_t)kQ32 * ldn > w_size ? (size_t)kQ32 * ldn : w_size;
   float* sC = fsm;                                // kQ32 x ldn
@@ -596,12 +645,15 @@ chunk_scan_f32(const float* __restrict__ xh, const float* __restrict__ a,
   float* sCum = sH + P * ldn;
   float* sDst = sCum + kQ32;
   const int c = blockIdx.x, b = blockIdx.y, t0 = c * kQ32;
-  const int h0 = blockIdx.z * hpb, h1 = min(H, h0 + hpb);
+  const int h0 = sl.h0, h1 = sl.h1;
   const int tid = threadIdx.x;
+  // this slice's share of y (S > 1), else y itself
+  float* dst = part ? part + (size_t)(blockIdx.z % S) * gridDim.y * T * H * P
+                    : y;
 
-  for (int i = tid; i < kQ32 * N; i += kThreads32) {
-    const int q = i / N, n = i - q * N, t = t0 + q;
-    const size_t off = ((size_t)b * T + t) * N + n;
+  for (int i = tid; i < kQ32 * nw; i += kThreads32) {
+    const int q = i / nw, n = i - q * nw, t = t0 + q;
+    const size_t off = ((size_t)b * T + t) * N + sl.n0 + n;
     sC[q * ldn + n] = t < T ? cmat[off] : 0.0f;
     sW[q * ldn + n] = t < T ? bmat[off] : 0.0f;
   }
@@ -612,7 +664,7 @@ chunk_scan_f32(const float* __restrict__ xh, const float* __restrict__ a,
     if (s <= q) {
       const float* cq = sC + q * ldn;
       const float* bs = sW + s * ldn;
-      for (int n = 0; n < N; ++n) g = fmaf(cq[n], bs[n], g);
+      for (int n = 0; n < nw; ++n) g = fmaf(cq[n], bs[n], g);
     }
     sG[q * ldw + s] = g;
   }
@@ -623,10 +675,10 @@ chunk_scan_f32(const float* __restrict__ xh, const float* __restrict__ a,
       sX[i] = t < T ? xh[(((size_t)b * T + t) * H + h) * P + (i - q * P)]
                     : 0.0f;
     }
-    const float* src = state + state_off(b, c, h, nc, H, P, N);
-    for (int i = tid; i < P * N; i += kThreads32) {
-      const int p = i / N;
-      sH[p * ldn + (i - p * N)] = src[i];
+    const float* src = state + state_off(b, c, h, nc, H, P, N) + sl.n0;
+    for (int i = tid; i < P * nw; i += kThreads32) {
+      const int p = i / nw, n = i - p * nw;
+      sH[p * ldn + n] = src[(size_t)p * N + n];
     }
     if (tid < kQ32 && t0 + tid < T)
       sCum[tid] = a[((size_t)b * T + t0 + tid) * H + h];
@@ -650,9 +702,9 @@ chunk_scan_f32(const float* __restrict__ xh, const float* __restrict__ a,
       const float* cq = sC + q * ldn;
       const float* hp = sH + p * ldn;
       float ch = 0.0f;
-      for (int n = 0; n < N; ++n) ch = fmaf(cq[n], hp[n], ch);
+      for (int n = 0; n < nw; ++n) ch = fmaf(cq[n], hp[n], ch);
       acc = fmaf(sDst[q], ch, acc);
-      if (t < T) y[(((size_t)b * T + t) * H + h) * P + p] = acc;
+      if (t < T) dst[(((size_t)b * T + t) * H + h) * P + p] = acc;
     }
   }
 }
@@ -698,6 +750,39 @@ state_pass(float* __restrict__ state, const float* __restrict__ decay, int H,
   }
 }
 
+// --------------------------------------------------------- sum_slices ----
+//
+// y = the S slices' shares of it added in slice order, in f32, rounded once
+// to y's type; four elements a thread (P is a multiple of 16).
+
+constexpr int kSumThreads = 256;
+
+__device__ __forceinline__ void store4(float* y, size_t i, float4 v) {
+  reinterpret_cast<float4*>(y)[i] = v;
+}
+__device__ __forceinline__ void store4(bf16* y, size_t i, float4 v) {
+  __nv_bfloat162* p = reinterpret_cast<__nv_bfloat162*>(y) + 2 * i;
+  p[0] = __floats2bfloat162_rn(v.x, v.y);
+  p[1] = __floats2bfloat162_rn(v.z, v.w);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kSumThreads)
+sum_slices(const float4* __restrict__ part, T* __restrict__ y, int S,
+           size_t n4) {
+  const size_t i = (size_t)blockIdx.x * kSumThreads + threadIdx.x;
+  if (i >= n4) return;
+  float4 acc = part[i];
+  for (int s = 1; s < S; ++s) {
+    const float4 v = part[(size_t)s * n4 + i];
+    acc.x += v.x;
+    acc.y += v.y;
+    acc.z += v.z;
+    acc.w += v.w;
+  }
+  store4(y, i, acc);
+}
+
 // ------------------------------------------------------------ launch ----
 
 inline int heads_per_block(int B, int nc, int H) {
@@ -712,32 +797,37 @@ inline int heads_per_block(int B, int nc, int H) {
   return (H + groups - 1) / groups;
 }
 
-inline bool shape_ok(int B, int T, int H, int P, int N) {
-  return B >= 1 && T >= 1 && H >= 1 && P >= 16 && N >= 16 && P % 16 == 0 &&
-         N % 16 == 0 && P <= kMaxP && N <= kMaxN;
+// P and a slice width NS: multiples of 16 up to kMaxP and kMaxN
+inline bool shape_ok(int B, int T, int H, int P, int NS) {
+  return B >= 1 && T >= 1 && H >= 1 && P >= 16 && NS >= 16 && P % 16 == 0 &&
+         NS % 16 == 0 && P <= kMaxP && NS <= kMaxN;
 }
 
 template <typename T>
 int launch(const void* xh, const void* a, const void* b, const void* c,
-           void* y, int B, int T_, int H, int P, int N, void* work,
-           void* stream) {
-  if (!shape_ok(B, T_, H, P, N)) return (int)cudaErrorInvalidValue;
+           void* y, int B, int T_, int H, int P, int N, int NS, void* work,
+           void* part, void* stream) {
+  if (!shape_ok(B, T_, H, P, NS) || N < NS || N % 16)
+    return (int)cudaErrorInvalidValue;
+  const int S = (N + NS - 1) / NS;
+  if (S > 1 && !part) return (int)cudaErrorInvalidValue;
   constexpr bool kBf16 = sizeof(T) == 2;
   const int Q = kBf16 ? kQ : kQ32;
   const int nc = (T_ + Q - 1) / Q;
   float* state = (float*)work;
   float* decay = state + (size_t)B * nc * H * P * N;
-  const int hpb = heads_per_block(B, nc, H);
-  const dim3 grid(nc, B, (H + hpb - 1) / hpb);
+  float* share = S > 1 ? (float*)part : nullptr;
+  const int hpb = heads_per_block(B * S, nc, H);
+  const dim3 grid(nc, B, (H + hpb - 1) / hpb * S);
   cudaStream_t s = (cudaStream_t)stream;
   if (kBf16) {
-    chunk_state_bf16<<<grid, kThreads, state_bf16_smem(P, N), s>>>(
+    chunk_state_bf16<<<grid, kThreads, state_bf16_smem(P, NS), s>>>(
         (const bf16*)xh, (const float*)a, (const bf16*)b, state, decay, T_, H,
-        P, N, nc, hpb);
+        P, N, NS, S, nc, hpb);
   } else {
-    chunk_state_f32<<<grid, kThreads32, state_f32_smem(P, N), s>>>(
+    chunk_state_f32<<<grid, kThreads32, state_f32_smem(P, NS), s>>>(
         (const float*)xh, (const float*)a, (const float*)b, state, decay, T_,
-        H, P, N, nc, hpb);
+        H, P, N, NS, S, nc, hpb);
   }
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
@@ -747,14 +837,20 @@ int launch(const void* xh, const void* a, const void* b, const void* c,
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   if (kBf16) {
-    chunk_scan_bf16<<<grid, kThreads, scan_bf16_smem(P, N), s>>>(
+    chunk_scan_bf16<<<grid, kThreads, scan_bf16_smem(P, NS), s>>>(
         (const bf16*)xh, (const float*)a, (const bf16*)b, (const bf16*)c,
-        state, (bf16*)y, T_, H, P, N, nc, hpb);
+        state, (bf16*)y, share, T_, H, P, N, NS, S, nc, hpb);
   } else {
-    chunk_scan_f32<<<grid, kThreads32, scan_f32_smem(P, N), s>>>(
+    chunk_scan_f32<<<grid, kThreads32, scan_f32_smem(P, NS), s>>>(
         (const float*)xh, (const float*)a, (const float*)b, (const float*)c,
-        state, (float*)y, T_, H, P, N, nc, hpb);
+        state, (float*)y, share, T_, H, P, N, NS, S, nc, hpb);
   }
+  if (S == 1) return (int)cudaGetLastError();
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  const size_t n4 = (size_t)B * T_ * H * P / 4;
+  sum_slices<T><<<(unsigned)((n4 + kSumThreads - 1) / kSumThreads),
+                  kSumThreads, 0, s>>>((const float4*)part, (T*)y, S, n4);
   return (int)cudaGetLastError();
 }
 
@@ -777,9 +873,9 @@ int mamba2_scan_init(int* max_dyn) {
 // Chunk length of the bf16 (bf16 != 0) or the f32 path.
 int mamba2_scan_chunk(int bf16) { return bf16 ? kQ : kQ32; }
 
-// Largest dynamic shared memory a block of the path takes at (P, N), or -1
-// for a shape the kernels do not take (P, N multiples of 16, P <= 64, N <=
-// 128).
+// Largest dynamic shared memory a block of the path takes at a head width P
+// and a state slice of N columns, or -1 for a shape the kernels do not take
+// (P, N multiples of 16, P <= 64, N <= 128).
 int mamba2_scan_smem_bytes(int bf16, int P, int N) {
   if (!shape_ok(1, 1, 1, P, N)) return -1;
   const size_t st = bf16 ? state_bf16_smem(P, N) : state_f32_smem(P, N);
@@ -787,18 +883,20 @@ int mamba2_scan_smem_bytes(int bf16, int P, int N) {
   return (int)(st > sc ? st : sc);
 }
 
-// `work`: (B * nc * H * (P * N + 1)) floats, nc = ceil(T / chunk).  Three
-// launches on `stream`.
+// `work`: (B * nc * H * (P * N + 1)) floats, nc = ceil(T / chunk).  The
+// state is cut into S = ceil(N / NS) slices of NS columns (N, NS multiples
+// of 16, NS <= 128); `part`: (S * B * T * H * P) floats when S > 1 (else
+// not read).  Three launches on `stream`, four when S > 1.
 int mamba2_scan_f32(const void* xh, const void* a, const void* b,
                     const void* c, void* y, int B, int T, int H, int P, int N,
-                    void* work, void* stream) {
-  return launch<float>(xh, a, b, c, y, B, T, H, P, N, work, stream);
+                    int NS, void* work, void* part, void* stream) {
+  return launch<float>(xh, a, b, c, y, B, T, H, P, N, NS, work, part, stream);
 }
 
 int mamba2_scan_bf16(const void* xh, const void* a, const void* b,
                      const void* c, void* y, int B, int T, int H, int P,
-                     int N, void* work, void* stream) {
-  return launch<bf16>(xh, a, b, c, y, B, T, H, P, N, work, stream);
+                     int N, int NS, void* work, void* part, void* stream) {
+  return launch<bf16>(xh, a, b, c, y, B, T, H, P, N, NS, work, part, stream);
 }
 
 }  // extern "C"

@@ -28,6 +28,21 @@
 // A ragged last chunk reads a = 1, i = 0 and zeros past T and writes no row
 // past T.
 //
+// K past kMaxK: the numerator q C and the normaliser q . n are sums over k,
+// and row k of C and entry k of n evolve on their own under the same gates.
+// So K is cut into S slices of KS columns (a multiple of kKs, the last one
+// narrower) that the kernels take: the recurrence's blocks take one slice
+// each (grid z = batch row x S) and write, unnormalised, their slice's part
+// of the numerator (f32, chunk x P) and of the normaliser (f32, by the
+// blocks of the first P slice); a last launch (mlstm_combine) adds the
+// parts in slice order and only then divides by max(|q . n|, 1).  q's
+// scale K^-0.5 is the whole K's.  In bf16 the scores are formed over the
+// whole K as before and their part (W V, the row sums of W) is the first
+// slice's; in f32 each slice forms its own scores over its columns (q k^T
+// is a sum over k too).  No atomic, so repeats are bit-equal.  With K <=
+// kMaxK the launches and their work are as they were (the kSplit = false
+// instantiations).
+//
 // bf16 (the model's path): two launches, every product on the tensor cores
 // (mma.sync m16n8k16, bf16 in, f32 accumulate).
 //   1. mlstm_scores_bf16, a block per (chunk, head, batch row), parallel:
@@ -271,19 +286,25 @@ inline size_t recur_smem(int K, int pt) {
          2 * (size_t)kRecBytes;
 }
 
-template <int kPt>
+// kSplit: this block's columns are K slice (blockIdx.z % S) of width KS;
+// it writes its parts of the numerator and normaliser to num / den.
+template <int kPt, bool kSplit>
 __global__ void __launch_bounds__(kRecurThreads, 1)
 mlstm_recur_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v,
                  const unsigned char* __restrict__ work, bf16* __restrict__ y,
-                 int T, int H, int K, int P, int nc, float scale) {
+                 int T, int H, int K, int P, int nc, float scale, int KS,
+                 float* __restrict__ num, float* __restrict__ den) {
   constexpr int kNT = kPt / 32;            // y: n8 tiles a warp
   constexpr int kMT = kPt / 16;            // C update: m tiles (of p) ...
   constexpr int kWpm = kRecurWarps / kMT;  // ... warps on each ...
   constexpr int kCN = 8 / kWpm;            // ... n8 tiles (of k) a warp
   constexpr int kLdV = kPt + 8;
   extern __shared__ __align__(16) unsigned char smem[];
-  const int Kp = ((K + kKs - 1) / kKs) * kKs, ldc = Kp + 8;
+  const int S = kSplit ? (K + KS - 1) / KS : 1;
+  const int ksl = kSplit ? (int)blockIdx.z % S : 0;
+  const int k0 = ksl * KS, Kw = kSplit ? min(KS, K - k0) : K;
+  const int Kp = ((Kw + kKs - 1) / kKs) * kKs, ldc = Kp + 8;
   float* sC = reinterpret_cast<float*>(smem);
   float* sN = sC + kPt * ldc;
   float* sNp = sN + Kp;                              // kRecurWarps x kKs
@@ -295,10 +316,13 @@ mlstm_recur_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
   unsigned char* sRec =
       reinterpret_cast<unsigned char*>(sV + 2 * kQ * kLdV);   // 2 buffers
 
-  const int p0 = blockIdx.x * kPt, h = blockIdx.y, b = blockIdx.z;
+  const int p0 = blockIdx.x * kPt, h = blockIdx.y;
+  const int b = kSplit ? (int)blockIdx.z / S : (int)blockIdx.z;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int mi = lane >> 3, r = lane & 7, g = lane >> 2, tq = lane & 3;
   const int nks = Kp / kKs, steps = nc * nks;
+  // the slice's parts: rows (b, t, h) of a (S, B, T, H[, P]) array
+  const size_t part_rows = kSplit ? (size_t)(gridDim.z / S) * T * H : 0;
 
   for (int i = tid; i < kPt * ldc; i += kRecurThreads) sC[i] = 0.0f;
   for (int i = tid; i < Kp; i += kRecurThreads) sN[i] = 0.0f;
@@ -314,10 +338,10 @@ mlstm_recur_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
   };
   auto load_slice = [&](int step) {   // q and k, columns of slice j
     const int c = step / nks, j = step - c * nks, buf = step & 1;
-    load_rows(q, sQ + buf * kQ * kLdS, kLdS, b, h, c * kQ, j * kKs, kKs, T,
-              H, K);
-    load_rows(k, sK + buf * kQ * kLdS, kLdS, b, h, c * kQ, j * kKs, kKs, T,
-              H, K);
+    load_rows(q, sQ + buf * kQ * kLdS, kLdS, b, h, c * kQ, k0 + j * kKs, kKs,
+              T, H, K);
+    load_rows(k, sK + buf * kQ * kLdS, kLdS, b, h, c * kQ, k0 + j * kKs, kKs,
+              T, H, K);
   };
   load_chunk(0);
   load_slice(0);
@@ -425,9 +449,18 @@ mlstm_recur_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
       // threads of a row are lanes 4 i .. 4 i + 3)
       float s = qn + __shfl_xor_sync(kFull, qn, 1);
       s += __shfl_xor_sync(kFull, s, 2);
-      if (j + 1 == nks && (tid & 3) == 0)
-        sDen[qn_row] =
-            fmaxf(fabsf(nrm[qn_row] + ecum[qn_row] * scale * s), 1.0f);
+      if (j + 1 == nks && (tid & 3) == 0) {
+        if (kSplit) {      // this slice's part, unnormalised
+          const int t = c * kQ + qn_row;
+          const float d = (ksl == 0 ? nrm[qn_row] : 0.0f) +
+                          ecum[qn_row] * scale * s;
+          if (blockIdx.x == 0 && t < T)
+            den[ksl * part_rows + row_off(b, t, h, T, H)] = d;
+        } else {
+          sDen[qn_row] =
+              fmaxf(fabsf(nrm[qn_row] + ecum[qn_row] * scale * s), 1.0f);
+        }
+      }
     }
     __syncthreads();                 // C[:, slice] and n read; K o dte made
 
@@ -495,7 +528,7 @@ mlstm_recur_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
 #pragma unroll
     for (int ss = 0; ss < kRowTiles; ++ss) {
-      if (ss <= rt[1]) {
+      if (ss <= rt[1] && (!kSplit || ksl == 0)) {   // W V: the first slice's
         uint32_t bb[4];
         ldsm_x4_t(bb, vs + (16 * ss + ((mi & 1) << 3) + r) * kLdV + col0 +
                           ((mi >> 1) << 3));
@@ -524,13 +557,23 @@ mlstm_recur_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
       for (int half = 0; half < 2; ++half) {
         const int qq = 16 * rt[u] + g + 8 * half, t = t0 + qq;
         if (t >= T) continue;
-        const float den = sDen[qq];
+        if (kSplit) {
+          float* nr = num + (ksl * part_rows + row_off(b, t, h, T, H)) * P;
+#pragma unroll
+          for (int n = 0; n < kNT; ++n) {
+            const int p = p0 + col0 + 8 * n + 2 * tq;
+            if (p < P) nr[p] = accy[u][n][2 * half];
+            if (p + 1 < P) nr[p + 1] = accy[u][n][2 * half + 1];
+          }
+          continue;
+        }
+        const float dn = sDen[qq];
         bf16* yr = y + row_off(b, t, h, T, H) * P;
 #pragma unroll
         for (int n = 0; n < kNT; ++n) {
           const int p = p0 + col0 + 8 * n + 2 * tq;
-          const float y0 = accy[u][n][2 * half] / den;
-          const float y1 = accy[u][n][2 * half + 1] / den;
+          const float y0 = accy[u][n][2 * half] / dn;
+          const float y1 = accy[u][n][2 * half + 1] / dn;
           if (P % 2 == 0 && p + 1 < P) {
             *reinterpret_cast<__nv_bfloat162*>(yr + p) =
                 __floats2bfloat162_rn(y0, y1);
@@ -556,15 +599,17 @@ mlstm_recur_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 // rows [0, 64) x columns [k0, k0 + 32) of a (B, T, H, K) tensor at batch b,
 // head h, steps c0.. into dst (64 x kLdT), times mul[row] when given; zero
-// past T and past K.
+// past T and past column kend.
 __device__ __forceinline__ void load_ktile(const float* __restrict__ src,
                                            int b, int h, int c0, int k0,
-                                           int T_, int H, int K, float scale,
-                                           const float* mul, float* dst) {
+                                           int T_, int H, int K, int kend,
+                                           float scale, const float* mul,
+                                           float* dst) {
   for (int i = threadIdx.x; i < kQ * kKt; i += kThreads32) {
     const int r = i / kKt, kk = i - r * kKt, t = c0 + r, kc = k0 + kk;
     float x = 0.0f;
-    if (t < T_ && kc < K) x = src[row_off(b, t, h, T_, H) * K + kc] * scale;
+    if (t < T_ && kc < kend)
+      x = src[row_off(b, t, h, T_, H) * K + kc] * scale;
     if (mul) x *= mul[r];
     dst[r * kLdT + kk] = x;
   }
@@ -575,15 +620,23 @@ inline size_t ffma_smem(int K) {
                           kQ * kPt32 + kQ * kLdW + 5 * kQ);
 }
 
+// kSplit: as mlstm_recur_bf16's; the slice forms its own scores over its
+// columns, and its parts go to num / den.
+template <bool kSplit>
 __global__ void __launch_bounds__(kThreads32, 1)
 mlstm_ffma(const float* __restrict__ q, const float* __restrict__ k,
            const float* __restrict__ v, const float* __restrict__ a,
            const float* __restrict__ ig, float* __restrict__ y, int T_, int H,
-           int K, int P, float scale) {
+           int K, int P, float scale, int KS, float* __restrict__ num,
+           float* __restrict__ den) {
   extern __shared__ float smem32[];
-  float* sC = smem32;                  // K x kPt32, the carried state slice
-  float* sN = sC + K * kPt32;          // K, the carried normaliser
-  float* sQt = sN + K;                 // kQ x kLdT
+  const int S = kSplit ? (K + KS - 1) / KS : 1;
+  const int ksl = kSplit ? (int)blockIdx.z % S : 0;
+  const int kb = ksl * KS, kend = kSplit ? min(K, kb + KS) : K;
+  const int Kw = kend - kb;
+  float* sC = smem32;                  // Kw x kPt32, the carried state slice
+  float* sN = sC + Kw * kPt32;         // Kw, the carried normaliser
+  float* sQt = sN + Kw;                // kQ x kLdT
   float* sKt = sQt + kQ * kLdT;        // kQ x kLdT
   float* sV = sKt + kQ * kLdT;         // kQ x kPt32
   float* sW = sV + kQ * kPt32;         // kQ x kLdW
@@ -593,14 +646,16 @@ mlstm_ffma(const float* __restrict__ q, const float* __restrict__ k,
   float* sDte = sDst + kQ;             // kQ: exp(cum_last - cum) * i
   float* sNrm = sDte + kQ;             // kQ: q . n, then max(|nrm|, 1)
 
-  const int p0 = blockIdx.x * kPt32, h = blockIdx.y, b = blockIdx.z;
+  const int p0 = blockIdx.x * kPt32, h = blockIdx.y;
+  const int b = kSplit ? (int)blockIdx.z / S : (int)blockIdx.z;
+  const size_t part_rows = kSplit ? (size_t)(gridDim.z / S) * T_ * H : 0;
   const int tid = threadIdx.x;
   // thread layouts: Q K^T entries (tid / 64 + 4 j, tid % 64), j < 16;
   // (q, p) entries (tid / 32 + 8 j, tid % 32), j < 8
   const int s_own = tid & 63, q_base = tid >> 6;
   const int p_own = tid & 31, qp_base = tid >> 5;
-  for (int i = tid; i < K * kPt32; i += kThreads32) sC[i] = 0.0f;
-  for (int i = tid; i < K; i += kThreads32) sN[i] = 0.0f;
+  for (int i = tid; i < Kw * kPt32; i += kThreads32) sC[i] = 0.0f;
+  for (int i = tid; i < Kw; i += kThreads32) sN[i] = 0.0f;
 
   for (int c0 = 0; c0 < T_; c0 += kQ) {
     __syncthreads();                   // the last chunk's reads are done
@@ -628,11 +683,11 @@ mlstm_ffma(const float* __restrict__ q, const float* __restrict__ k,
     for (int j = 0; j < 16; ++j) qk[j] = 0.0f;
 #pragma unroll
     for (int j = 0; j < 8; ++j) qc[j] = 0.0f;
-    for (int k0 = 0; k0 < K; k0 += kKt) {
-      load_ktile(q, b, h, c0, k0, T_, H, K, scale, nullptr, sQt);
-      load_ktile(k, b, h, c0, k0, T_, H, K, 1.0f, nullptr, sKt);
+    for (int k0 = 0; k0 < Kw; k0 += kKt) {
+      load_ktile(q, b, h, c0, kb + k0, T_, H, K, kend, scale, nullptr, sQt);
+      load_ktile(k, b, h, c0, kb + k0, T_, H, K, kend, 1.0f, nullptr, sKt);
       __syncthreads();
-      const int nk = min(kKt, K - k0);
+      const int nk = min(kKt, Kw - k0);
       for (int kk = 0; kk < nk; ++kk) {
         const float kv = sKt[s_own * kLdT + kk];
 #pragma unroll
@@ -665,7 +720,14 @@ mlstm_ffma(const float* __restrict__ q, const float* __restrict__ k,
         float s = sW[qq * kLdW + lane] + sW[qq * kLdW + lane + 32];
 #pragma unroll
         for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(kFull, s, o);
-        if (lane == 0) sNrm[qq] = fmaxf(fabsf(s + sDst[qq] * sNrm[qq]), 1.0f);
+        if (kSplit) {      // this slice's part, unnormalised
+          const int t = c0 + qq;
+          if (lane == 0 && blockIdx.x == 0 && t < T_)
+            den[ksl * part_rows + row_off(b, t, h, T_, H)] =
+                s + sDst[qq] * sNrm[qq];
+        } else if (lane == 0) {
+          sNrm[qq] = fmaxf(fabsf(s + sDst[qq] * sNrm[qq]), 1.0f);
+        }
       }
     }
     __syncthreads();
@@ -677,17 +739,22 @@ mlstm_ffma(const float* __restrict__ q, const float* __restrict__ k,
       for (int s = 0; s <= qq; ++s)
         acc = fmaf(wq[s], sV[s * kPt32 + p_own], acc);
       acc = fmaf(sDst[qq], qc[j], acc);
-      if (t < T_ && p0 + p_own < P)
-        y[row_off(b, t, h, T_, H) * P + p0 + p_own] = acc / sNrm[qq];
+      if (t < T_ && p0 + p_own < P) {
+        if (kSplit)
+          num[(ksl * part_rows + row_off(b, t, h, T_, H)) * P + p0 + p_own] =
+              acc;
+        else
+          y[row_off(b, t, h, T_, H) * P + p0 + p_own] = acc / sNrm[qq];
+      }
     }
 
     const float decay = expf(total);
-    for (int k0 = 0; k0 < K; k0 += kKt) {
+    for (int k0 = 0; k0 < Kw; k0 += kKt) {
       // no barrier needed before this load: sKt was last read before the
       // barrier that ended the contraction loop
-      load_ktile(k, b, h, c0, k0, T_, H, K, 1.0f, sDte, sKt);
+      load_ktile(k, b, h, c0, kb + k0, T_, H, K, kend, 1.0f, sDte, sKt);
       __syncthreads();
-      const int nk = min(kKt, K - k0);
+      const int nk = min(kKt, Kw - k0);
 #pragma unroll
       for (int j = 0; j < kKt / 8; ++j) {
         const int kk = qp_base + 8 * j;
@@ -709,8 +776,41 @@ mlstm_ffma(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-inline bool shape_ok(int B, int T, int H, int K, int P) {
-  return B >= 1 && T >= 1 && H >= 1 && K >= 1 && P >= 1 && K <= kMaxK;
+// ------------------------------------------------------------ combine ----
+//
+// y = (sum_s num_s) / max(|sum_s den_s|, 1), the S slices' parts added in
+// slice order in f32, an element of y a thread.
+
+constexpr int kCombineThreads = 256;
+
+template <typename T>
+__global__ void __launch_bounds__(kCombineThreads)
+mlstm_combine(const float* __restrict__ num, const float* __restrict__ den,
+              T* __restrict__ y, int S, size_t rows, int P) {
+  const size_t i = (size_t)blockIdx.x * kCombineThreads + threadIdx.x;
+  if (i >= rows * P) return;
+  const size_t r = i / P;
+  float n = num[i], d = den[r];
+  for (int s = 1; s < S; ++s) {
+    n += num[(size_t)s * rows * P + i];
+    d += den[(size_t)s * rows + r];
+  }
+  store(y + i, n / fmaxf(fabsf(d), 1.0f));
+}
+
+// K slices of KS columns: KS <= kMaxK, and a multiple of kKs when it cuts K
+inline bool shape_ok(int B, int T, int H, int K, int P, int KS) {
+  return B >= 1 && T >= 1 && H >= 1 && K >= 1 && P >= 1 && KS >= 1 &&
+         KS <= kMaxK && (KS >= K || KS % kKs == 0);
+}
+
+template <typename T>
+cudaError_t launch_combine(const float* num, const float* den, void* y, int S,
+                           int B, int T_, int H, int P, cudaStream_t s) {
+  const size_t rows = (size_t)B * T_ * H, n = rows * P;
+  mlstm_combine<T><<<(unsigned)((n + kCombineThreads - 1) / kCombineThreads),
+                     kCombineThreads, 0, s>>>(num, den, (T*)y, S, rows, P);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -722,10 +822,13 @@ extern "C" {
 // max_dyn.
 int mlstm_init(int* max_dyn) {
   *max_dyn = 1 << 30;
-  cudaError_t e = allow_smem(mlstm_ffma, max_dyn);
+  cudaError_t e = allow_smem(mlstm_ffma<false>, max_dyn);
+  if (e == cudaSuccess) e = allow_smem(mlstm_ffma<true>, max_dyn);
   if (e == cudaSuccess) e = allow_smem(mlstm_scores_bf16, max_dyn);
-  if (e == cudaSuccess) e = allow_smem(mlstm_recur_bf16<64>, max_dyn);
-  if (e == cudaSuccess) e = allow_smem(mlstm_recur_bf16<32>, max_dyn);
+  if (e == cudaSuccess) e = allow_smem(mlstm_recur_bf16<64, false>, max_dyn);
+  if (e == cudaSuccess) e = allow_smem(mlstm_recur_bf16<32, false>, max_dyn);
+  if (e == cudaSuccess) e = allow_smem(mlstm_recur_bf16<64, true>, max_dyn);
+  if (e == cudaSuccess) e = allow_smem(mlstm_recur_bf16<32, true>, max_dyn);
   return (int)e;
 }
 
@@ -734,39 +837,61 @@ int mlstm_init(int* max_dyn) {
 int mlstm_chunk() { return kQ; }
 int mlstm_record_bytes() { return kRecBytes; }
 
-// Largest dynamic shared memory a block of the path takes at K (the bf16
-// recurrence with a P slice of pt = 64 or 32 columns), or -1 for a shape the
-// kernels do not take (K > 1024, or another pt).
+// Largest dynamic shared memory a block of the path takes at a K slice of
+// K columns (the bf16 recurrence with a P slice of pt = 64 or 32 columns),
+// or -1 for a shape the kernels do not take (K > 1024, or another pt).
 int mlstm_smem_bytes(int bf16, int K, int pt) {
-  if (!shape_ok(1, 1, 1, K, 1)) return -1;
+  if (!shape_ok(1, 1, 1, K, 1, K)) return -1;
   if (!bf16) return (int)ffma_smem(K);
   if (pt != 64 && pt != 32) return -1;
   const size_t rec = recur_smem(K, pt);
   return (int)(rec > kScoreSmem ? rec : kScoreSmem);
 }
 
-// f32: one launch; `work` and `pt` are not read.
+// K is cut into S = ceil(K / KS) slices of KS columns (KS >= K: one, the
+// path as it was); with S > 1 `num` and `den` take the slices' parts,
+// (S * B * T * H * P) and (S * B * T * H) floats.
+// f32: one launch, two when S > 1; `work` and `pt` are not read.
 int mlstm_f32(const void* q, const void* k, const void* v, const void* a,
               const void* i, void* y, int B, int T, int H, int K, int P,
-              float scale, void* work, int pt, void* stream) {
+              float scale, void* work, int pt, int KS, void* num, void* den,
+              void* stream) {
   (void)work;
   (void)pt;
-  if (!shape_ok(B, T, H, K, P)) return (int)cudaErrorInvalidValue;
-  const dim3 grid((P + kPt32 - 1) / kPt32, H, B);
-  mlstm_ffma<<<grid, kThreads32, ffma_smem(K), (cudaStream_t)stream>>>(
+  if (!shape_ok(B, T, H, K, P, KS)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (KS >= K) {
+    const dim3 grid((P + kPt32 - 1) / kPt32, H, B);
+    mlstm_ffma<false><<<grid, kThreads32, ffma_smem(K), s>>>(
+        (const float*)q, (const float*)k, (const float*)v, (const float*)a,
+        (const float*)i, (float*)y, T, H, K, P, scale, K, nullptr, nullptr);
+    return (int)cudaGetLastError();
+  }
+  if (!num || !den) return (int)cudaErrorInvalidValue;
+  const int S = (K + KS - 1) / KS;
+  const dim3 grid((P + kPt32 - 1) / kPt32, H, B * S);
+  mlstm_ffma<true><<<grid, kThreads32, ffma_smem(KS), s>>>(
       (const float*)q, (const float*)k, (const float*)v, (const float*)a,
-      (const float*)i, (float*)y, T, H, K, P, scale);
-  return (int)cudaGetLastError();
+      (const float*)i, (float*)y, T, H, K, P, scale, KS, (float*)num,
+      (float*)den);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  return (int)launch_combine<float>((const float*)num, (const float*)den, y,
+                                    S, B, T, H, P, s);
 }
 
-// bf16: two launches on `stream`, the scores into `work` ((B * nc * H *
-// mlstm_record_bytes()) bytes, nc = ceil(T / 64), 16-byte aligned), then the
-// recurrence with a P slice of pt (64 or 32) columns.
+// bf16: two launches on `stream` (three when S > 1), the scores over the
+// whole K into `work` ((B * nc * H * mlstm_record_bytes()) bytes, nc =
+// ceil(T / 64), 16-byte aligned), then the recurrence with a P slice of pt
+// (64 or 32) columns (and a K slice a block when S > 1), then the combine.
 int mlstm_bf16(const void* q, const void* k, const void* v, const void* a,
                const void* i, void* y, int B, int T, int H, int K, int P,
-               float scale, void* work, int pt, void* stream) {
-  if (!shape_ok(B, T, H, K, P) || (pt != 64 && pt != 32))
+               float scale, void* work, int pt, int KS, void* num, void* den,
+               void* stream) {
+  if (!shape_ok(B, T, H, K, P, KS) || (pt != 64 && pt != 32))
     return (int)cudaErrorInvalidValue;
+  const bool split = KS < K;
+  if (split && (!num || !den)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const int nc = (T + kQ - 1) / kQ;
   mlstm_scores_bf16<<<dim3(nc, H, B), kScoreThreads, kScoreSmem, s>>>(
@@ -774,16 +899,24 @@ int mlstm_bf16(const void* q, const void* k, const void* v, const void* a,
       (unsigned char*)work, T, H, K, nc, scale);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  const dim3 grid((P + pt - 1) / pt, H, B);
-  if (pt == 64)
-    mlstm_recur_bf16<64><<<grid, kRecurThreads, recur_smem(K, 64), s>>>(
-        (const bf16*)q, (const bf16*)k, (const bf16*)v,
-        (const unsigned char*)work, (bf16*)y, T, H, K, P, nc, scale);
-  else
-    mlstm_recur_bf16<32><<<grid, kRecurThreads, recur_smem(K, 32), s>>>(
-        (const bf16*)q, (const bf16*)k, (const bf16*)v,
-        (const unsigned char*)work, (bf16*)y, T, H, K, P, nc, scale);
-  return (int)cudaGetLastError();
+  const int S = split ? (K + KS - 1) / KS : 1;
+  const int width = split ? KS : K;
+  const dim3 grid((P + pt - 1) / pt, H, B * S);
+  const bf16 *qq = (const bf16*)q, *kk = (const bf16*)k, *vv = (const bf16*)v;
+  const unsigned char* rec = (const unsigned char*)work;
+  float *nm = (float*)num, *dn = (float*)den;
+#define RECUR(PT, SPLIT)                                                    \
+  mlstm_recur_bf16<PT, SPLIT><<<grid, kRecurThreads, recur_smem(width, PT), \
+                                s>>>(qq, kk, vv, rec, (bf16*)y, T, H, K, P,  \
+                                     nc, scale, width, nm, dn)
+  if (pt == 64 && !split) RECUR(64, false);
+  else if (!split) RECUR(32, false);
+  else if (pt == 64) RECUR(64, true);
+  else RECUR(32, true);
+#undef RECUR
+  e = cudaGetLastError();
+  if (e != cudaSuccess || !split) return (int)e;
+  return (int)launch_combine<bf16>(nm, dn, y, S, B, T, H, P, s);
 }
 
 }  // extern "C"

@@ -5,8 +5,14 @@ Counterpart of the JAX package's ``repro.kernels.flash_attention``
 an online softmax.  bf16 runs on the tensor cores (``wgmma``, K/V through
 TMA), one block of two warpgroups per (128-query tile, head, batch row),
 the head dimension zero-padded to a multiple of 64 in shared memory; f32
-runs FFMA, one block per (64-query tile, head, batch row).  Unlike the
-Pallas kernel it takes GQA K/V as given, ``(B, S, Hk, dh)``.
+runs P V on the tensor cores as 3xTF32 (``mma.sync`` m16n8k8, each operand
+split into two TF32 values, three products a pair: ~22 bits of each
+product) and Q K^T by FFMA with d in order (the plain version's rounding of
+the scores, which the softmax's exponent amplifies), one block of four
+warps per (64-query tile, head, batch row), K/V tiles through
+``cp.async`` in two stages.  Both take
+dh a multiple of 8 up to 256.  Unlike the Pallas kernel it takes GQA K/V as
+given, ``(B, S, Hk, dh)``.
 The wrapper checks device, dtype, shape, contiguity, alignment and the
 kernel's limits, allocates the output with ``torch.empty``, launches on
 PyTorch's current stream without synchronising, raises when the launch is
@@ -34,8 +40,8 @@ _ENTRY = {torch.float32: "flash_attention_f32",
 _ARGS = [_P] * 4 + [_I] * 9 + [ctypes.c_float, _P]
 #: the kernel takes a head dimension that is a multiple of VEC up to MAX_DH
 VEC, MAX_DH = 8, 256
-#: the f32 kernel's query and key tiles
-BLOCK_Q = BLOCK_K = 64
+#: the f32 kernel's query rows per block
+BLOCK_Q = 64
 #: the bf16 kernel: query rows per block, K/V ring stages
 TC_BLOCK_Q, TC_STAGES = 128, 2
 
@@ -52,15 +58,23 @@ def tc_tiles(dh: int):
     return dhp, (128 if dhp <= 128 else 64)
 
 
+def f32_tiles(dh: int):
+    """``(keys per tile, row stride in floats)`` of the f32 kernel: the
+    stride is 4 modulo 32, so that a warp's reads hit 32 banks."""
+    return (64 if dh <= 64 else 32 if dh <= 128 else 16), \
+        dh + (36 - dh % 32) % 32
+
+
 def smem_bytes(dh: int, dtype=torch.float32) -> int:
-    """Dynamic shared memory of one block.  f32: the Q tile and the K/V
-    tile at a row stride of dh + 1, and the 64 x 65 probabilities, all
-    f32.  bf16: the 128-row Q tile and two stages of K and V tiles at the
-    padded head dimension, plus 1 KB to align them to the swizzle atom."""
+    """Dynamic shared memory of one block.  f32: the 64-row Q tile and two
+    stages of K and V tiles, at the row stride.  bf16: the 128-row Q tile
+    and two stages of K and V tiles at the padded head dimension, plus 1 KB
+    to align them to the swizzle atom."""
     if dtype == torch.bfloat16:
         dhp, bk = tc_tiles(dh)
         return 2 * dhp * (TC_BLOCK_Q + TC_STAGES * 2 * bk) + 1024
-    return 4 * ((BLOCK_Q + BLOCK_K) * (dh + 1) + BLOCK_Q * (BLOCK_K + 1))
+    bk, ld = f32_tiles(dh)
+    return 4 * (BLOCK_Q + 4 * bk) * ld
 
 
 def flash_attention_kernel(q, k, v, causal: bool = True,

@@ -449,6 +449,17 @@ def gla_chunked(
     (``repro.models.xlstm.gla_chunked``).  Returns ``(y, C_final
     (B, H, K, P), n_final (B, H, K))``; a ragged T is padded with ``a = 1``,
     ``i = 0`` and zeros."""
+    T, P = q.shape[1], v.shape[-1]
+    y, nrm, C, nv = _gla_parts(q, k, v, a, i, chunk, c0, n0)
+    y = y / torch.clamp(nrm.abs(), min=1.0)[..., None]
+    B, nc = y.shape[:2]
+    return y.reshape(B, nc * chunk, q.shape[2], P)[:, :T].to(v.dtype), C, nv
+
+
+def _gla_parts(q, k, v, a, i, chunk, c0=None, n0=None):
+    """:func:`gla_chunked` before its division, by chunk: the numerator
+    ``(B, nc, chunk, H, P)`` and the normaliser ``(B, nc, chunk, H)`` in f32,
+    and the final C and n."""
     B, T, H, K = q.shape
     P = v.shape[-1]
     qc = _chunks(q, chunk) * (K ** -0.5)
@@ -480,8 +491,7 @@ def gla_chunked(
                          torch.stack(C_prev, dim=1)) * dstart[..., None]
     nrm = nrm + torch.einsum("bnchk,bnhk->bnch", qc,
                              torch.stack(n_prev, dim=1)) * dstart
-    y = y / torch.clamp(nrm.abs(), min=1.0)[..., None]
-    return y.reshape(B, nc * chunk, H, P)[:, :T].to(v.dtype), C, nv
+    return y, nrm, C, nv
 
 
 def mlstm_chunked_ref(q, k, v, a, i) -> torch.Tensor:

@@ -384,7 +384,7 @@ def _usage(stack=0):
 
 
 def _sass():
-    return {"flash_attention": {"HGMMA": 1, "UTMALDG": 1},
+    return {"flash_attention": {"HGMMA": 1, "UTMALDG": 1, "HMMA.TF32": 1},
             "paged_attention": {"LDGSTS": 1}, "mamba2_scan": {"HMMA": 1},
             "mlstm": {"HMMA": 1}, "pbm_timeline": {}}
 
@@ -400,3 +400,23 @@ def test_the_build_gate():
     sass = _sass()
     del sass["flash_attention"]["UTMALDG"]
     assert K.build_evidence_ok(_usage(), sass)[0] is False
+    sass = _sass()
+    del sass["flash_attention"]["HMMA.TF32"]
+    assert K.build_evidence_ok(_usage(), sass) == (
+        False, "flash_attention: no HMMA.TF32 in its SASS")
+
+
+def test_sass_counts_tell_tf32_warp_mma_apart(monkeypatch):
+    """``HMMA.TF32`` counts the warp MMAs on TF32 operands (the f32 arm of
+    flash attention), ``HMMA`` every warp MMA, predicated ones too."""
+    sass = """
+        /*0a20*/  HMMA.1688.F32.TF32 R4, R8, R12, R4 ;
+        /*0a30*/  HMMA.16816.F32.BF16 R20, R24, R28, R20 ;
+        /*0a40*/  @P0 HMMA.1688.F32.TF32 R4, R8, R14, R4 ;
+        /*0a50*/  HGMMA.64x128x16.F32.BF16 R24, gdesc[UR4], RZ ;
+        /*0a60*/  UTMALDG.4D [UR8], [UR4] ;
+    """
+    monkeypatch.setattr(K, "_cuobjdump", lambda flag, name: sass)
+    counts = K.sass_counts("flash_attention")
+    assert counts["HMMA"] == 3 and counts["HMMA.TF32"] == 2
+    assert counts["HGMMA"] == 1 and counts["UTMALDG"] == 1

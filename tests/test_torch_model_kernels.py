@@ -227,23 +227,23 @@ def _scan_args(P, N, dtype, device, B=1, T=40, H=3):
             (0.3 * torch.randn(B, T, N, generator=g)).to(dtype).to(device)]
 
 
-#: widths the CUDA scan refuses: narrower than 16, not a multiple of 16, or
-#: a state wider than MAX_N (a head wider than MAX_P runs as sub-heads)
-REFUSED_WIDTHS = [(8, 64), (24, 64), (40, 64), (64, 256), (64, 8),
-                  (64, 144)]
+#: widths the kernels' tiles do not take: narrower than 16, not a multiple
+#: of 16, or a state wider than MAX_N.  The wrapper refused them until it
+#: padded the off-16 widths and cut the state into slices
+#: (``mamba2_scan.plan``): now they reach the device check
+TILE_WIDTHS = [(8, 64), (24, 64), (40, 64), (64, 256), (64, 8), (64, 144)]
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("P,N", REFUSED_WIDTHS)
+@pytest.mark.parametrize("P,N", TILE_WIDTHS)
 def test_mamba2_scan_refuses_widths_its_kernels_do_not_take(P, N, dtype):
-    """Checked before the device is: a ``meta`` tensor stands in for a CUDA
-    one, and the message names the limits."""
+    """The widths the kernels' tiles do not take are refused no more: a
+    ``meta`` tensor, standing in for a CUDA one, is refused by the device
+    check alone, before any launch."""
     args = [t.to("meta") for t in _scan_args(P, N, getattr(torch, dtype),
                                              "cpu")]
     before = ops.launch_counts()["mamba2_scan"]
-    with pytest.raises(ValueError, match=r"multiples of 16 with N <= 128 "
-                                         r"\(P > 64 as sub-heads of at "
-                                         r"most 64\)"):
+    with pytest.raises(ValueError, match="expected a CUDA tensor"):
         ops.mamba2_scan(*args)
     assert ops.launch_counts()["mamba2_scan"] == before
 
@@ -324,11 +324,12 @@ def _mlstm_args(K, P, dtype=torch.bfloat16, B=1, T=70, H=2):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("K", [1025, 2048])
 def test_mlstm_refuses_widths_its_kernels_do_not_take(K, dtype):
-    """K > MAX_K is refused before the device is looked at (a ``meta``
-    tensor stands in for a CUDA one), with the limits in the message."""
+    """K > MAX_K, which the wrapper refused until it cut K into slices
+    (``mlstm.k_slices``), is refused no more: a ``meta`` tensor, standing
+    in for a CUDA one, is refused by the device check alone."""
     args = [t.to("meta") for t in _mlstm_args(K, 64, getattr(torch, dtype))]
     before = ops.launch_counts()["mlstm_chunked"]
-    with pytest.raises(ValueError, match="K <= 1024 and any P"):
+    with pytest.raises(ValueError, match="expected a CUDA tensor"):
         ops.mlstm_chunked(*args)
     assert ops.launch_counts()["mlstm_chunked"] == before
 
@@ -351,16 +352,40 @@ def test_mlstm_width_limit_is_the_librarys():
            "mlstm.cu").read_text()
     assert re.findall(r"constexpr int kMaxK = (\d+);", src) == [
         str(mlstm.MAX_K)]
+    assert re.findall(r"constexpr int kKs = (\d+);", src) == [
+        str(mlstm.K_STEP)]
 
 
 @pytest.mark.gpu
 def test_cuda_mamba2_scan_refuses_widths_its_kernels_do_not_take():
+    """On the card those widths run (padded, the state in slices) and
+    agree with the plain version, as the wide mLSTM and every case of
+    ``cases.width_cases`` do."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU and nvcc")
-    for P, N in REFUSED_WIDTHS:
-        args = _scan_args(P, N, torch.bfloat16, "cuda")
-        with pytest.raises(ValueError, match="multiples of 16"):
-            ops.mamba2_scan(*args)
+    for dtype, tol in ((torch.float32, 2e-3), (torch.bfloat16, 3e-2)):
+        for P, N in TILE_WIDTHS:
+            args = _scan_args(P, N, dtype, "cuda")
+            got = ops.mamba2_scan(*args)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(
+                got.float(), ref.mamba2_scan_ref(*args).float(), atol=tol,
+                rtol=tol, msg=f"P={P}, N={N}, {dtype}")
+        for K in (1025, 2048):
+            args = [t.cuda() for t in _mlstm_args(K, 64, dtype)]
+            got = ops.mlstm_chunked(*args)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(
+                got.float(), ref.mlstm_chunked_ref(*args).float(), atol=tol,
+                rtol=tol, msg=f"K={K}, {dtype}")
+    for case in cases.width_cases():
+        args = cases.model_tensors(case, "cuda")
+        got = getattr(ops, case["kernel"])(*args, **case["static"])
+        torch.cuda.synchronize()
+        want = PORT[case["kernel"]](*args, **case["static"])
+        tol = cases.MODEL_TOL[case["kernel"]][case["dtype"]]
+        torch.testing.assert_close(got.float(), want.float(), atol=tol,
+                                   rtol=tol, msg=case["name"])
 
 
 @pytest.mark.gpu
