@@ -66,10 +66,24 @@ One JSON object per phase, one per line:
                       columns and off-16 / narrow heads, the mLSTM's K
                       past 1,024, flash attention's f32 arm at dh 64 /
                       128 / 160 / 256 causal, windowed, non-causal and
-                      T < S
+                      T < S, and both arms past its kernels' widths: dh
+                      12 and 100 (zero-padded to a multiple of 8), 264,
+                      320 and 512 (the f32 kernel's output in slices of
+                      256; bf16 upcast to it)
 6. ``sim_small``      a tiny sweep of the four policies on ``cuda`` and,
                       asked for explicitly, on ``cpu``, under both
                       steppers: the two must agree
+6a. ``sim_graphs``    the runner on the card replays captured CUDA graphs
+                      (the JAX runner's ``jax.jit``): held to its own
+                      eager steps (``eager_loop``), every state leaf
+                      bit-equal with the same loop stats and launch
+                      counts, at sim_small's point and the telemetry
+                      tests' tiny point (both steppers; plain, telemetry,
+                      sanitize), the
+                      calibrated 24 lanes cut at ``GRAPH_CHECK_SLICES``
+                      and the (1, 4) mesh runner; then in a fresh child
+                      process the CUDA kernels of one replay of each
+                      graph against those of its body run eagerly
 6b. ``sanitize``      ``make_runner(sanitize=True)`` at the JAX package's
                       sanitize points (micro 4 M tuples, TPC-H 0.02), both
                       steppers x four policies: no NaN, no index outside
@@ -96,11 +110,10 @@ One JSON object per phase, one per line:
                       0.4 held to the port's event engine (run on the
                       host in worker processes meanwhile) within
                       ``validate.ERROR_BARS``
-10. ``sim_fixed``     the fixed-dt stepper on the card at the same scale: the
-                      lanes of those 12 that fit its time budget (cscan at
-                      0.2 and 0.4 always), held to the same event runs
-                      within the same bars; the line names the lanes left
-                      out and why
+10. ``sim_fixed``     the fixed-dt stepper on the card at the same scale:
+                      all 12 validated points, held to the same event
+                      runs within the same bars (``left_out`` empty),
+                      its ms a fine step measured on the run itself
 11. ``sim_telemetry`` the simulator's telemetry (``repro_torch.obs``): (a)
                       counters off vs on at the tiny point of the
                       telemetry tests, four policies, both steppers —
@@ -180,8 +193,9 @@ One JSON object per phase, one per line:
                       attention also at a deployment's batch
                       (B = 32, 1024-4096 tokens); B4's to B7's bf16 inputs
                       held to f32 as in 4; B6 and B7 also at a width
-                      past their tiles (``WIDTH_SHAPES``), timed and held
-                      (B5's f32 arm is timed at the training input in
+                      past their tiles and B5 past its kernels' widths
+                      (``WIDTH_SHAPES``), timed per call and queued, and
+                      held (B5's f32 arm is timed at the training input in
                       ``train``; at the other geometries by
                       ``tools/time_attention_f32.py``)
 
@@ -212,18 +226,19 @@ sys.path.insert(0, os.path.join(HERE, "src"))
 
 TIME_LIMIT_S = 1200.0          # the whole script, kernel build included
 #: what the whole script aims at, to stay under 900 s: sim_full is cut to
-#: what is left of it (never below 8 slices, where the 24-lane calibrated
-#: sweep's ~300 s keeps it); eight model families and the page split's
-#: phase add ~150 s to the earlier phases' ~690 s, so the aim sits that
-#: much above the 680 s it was before them
+#: what is left of it (never below 8 slices); since the runner replays
+#: captured graphs the 24-lane calibrated sweep takes ~40-60 s of the
+#: ~300 it took eagerly, and the fixed stepper holds every validated point
 TARGET_S = 840.0
 #: kept for the phases after sim_full (tpch_probe, page_split, kernels),
 #: and for the kernels phase's timing of the model-stack kernels
 TAIL_S, MODEL_KERNELS_S = 120.0, 100.0
-#: a scale-1.0 macro-step (P = 3072) over a scale-0.25 one (P = 768): 7.40
-#: against 4.94 ms on an H100 80GB HBM3 at 700 W (sim_full and
-#: sim_calibrated of one run of this script); sim_full's budget reads it
-FULL_STEP_COST = 1.5
+#: a scale-1.0 macro-step (P = 3072) over a scale-0.25 one (P = 768),
+#: which sim_full's budget reads: 1.74 against 1.54 ms replayed from the
+#: runner's graphs on an H100 80GB HBM3 at 700 W (sim_full and
+#: sim_calibrated of one run of this script; eagerly it was 7.40 against
+#: 4.94)
+FULL_STEP_COST = 1.13
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate
 FP32_OPS_PER_S = 67e12         # H100 SXM float32 rate outside the tensor cores
 #: f32-exact products on the tensor cores as 3xTF32: a third of the dense
@@ -348,9 +363,11 @@ FRACS = (0.1, 0.2, 0.4, 0.6, 0.8, 1.0)
 LANE_POLICIES = tuple(p for p in POLICIES for _f in FRACS)
 #: the buffer points held to the event engine (validate.DEFAULT_FRACS)
 VALIDATED_FRACS = (0.1, 0.2, 0.4)
-#: sim_fixed: lanes that always run, and the card time it aims at
-FIXED_MUST = (("cscan", 0.2), ("cscan", 0.4))
-FIXED_BUDGET_S = 60.0
+#: sim_fixed: the lanes it runs (every validated point)
+FIXED_MUST = tuple((p, f) for f in VALIDATED_FRACS for p in POLICIES)
+#: sim_graphs: the slices the calibrated sweep's graph-versus-eager check
+#: runs (some 200 macro-steps of its 24 lanes)
+GRAPH_CHECK_SLICES = 12
 #: worker processes for the event engine's reference runs (host, pure
 #: Python, while the card runs the sweep)
 EVENT_WORKERS = 4
@@ -360,10 +377,10 @@ CALIBRATED_SCALE = 0.25
 #: on) takes before its windows, those of a timed window and those of the
 #: profiled one (the profiler's own processing grows with the events)
 TELEMETRY_BUDGET_S = 45.0
-TELEMETRY_SLICES = 12
-TELEMETRY_WARM, TELEMETRY_WINDOW, TELEMETRY_PROFILED = 100, 25, 10
+TELEMETRY_SLICES = 24
+TELEMETRY_WARM, TELEMETRY_WINDOW, TELEMETRY_PROFILED = 100, 50, 20
 #: the horizon stepper's slices in ``tpch_probe`` and ``page_split`` (b)
-TPCH_SLICES = 8
+TPCH_SLICES = 16
 T0 = time.time()
 
 
@@ -526,7 +543,16 @@ class Recorder:
     which one of those lanes has work (``pbm_timeline.lane_paths``: not
     idle) is also kept in ``busy``: a sweep's cooperative lanes finish
     long before its slowest lane, and a sample spread over the whole run
-    finds them idle."""
+    finds them idle.
+
+    The simulator's runner replays captured CUDA graphs, in which a
+    wrapper runs once, at capture.  There the inputs are cloned inside the
+    graph (a slot that every replay of that graph refreshes: some copies
+    a step on the device, in the runs recorded only), and every replay of
+    a graph counts as one call of each kernel it holds: a sampled one
+    clones the slot after the replay.  The warm-up run that precedes each
+    capture, on a side stream and on copies of the buffers that the run
+    then drops, is neither counted nor sampled."""
 
     STRIDE, CAP = 97, 12
 
@@ -536,33 +562,66 @@ class Recorder:
         self.busy = {}         # the same, the focus lanes at work
         self.focus = focus
         self._calls = {}
+        self._slots = {}       # graph -> [(kernel, (clones, static)), ...]
+        self._capturing = None
         self.seconds = 0.0
 
     def __enter__(self):
+        import torch
         from repro_torch.kernels import ops
         self._ops = ops
+        self._stream = torch.cuda.current_stream()
         self._orig = {n: getattr(ops, n) for n in self.names}
         for name, fn in self._orig.items():
             setattr(ops, name, self._wrap(name, fn))
+        graph = torch.cuda.CUDAGraph
+        self._graph_orig = (graph.capture_begin, graph.replay)
+        begin, replay = self._graph_orig
+        recorder = self
+
+        def capture_begin(g, *a, **k):
+            recorder._capturing = g
+            return begin(g, *a, **k)
+
+        def replayed(g):
+            replay(g)
+            for name, slot in recorder._slots.get(g, ()):
+                recorder._sample(name, slot)
+        graph.capture_begin, graph.replay = capture_begin, replayed
         return self
 
     def __exit__(self, *exc):
+        import torch
         for name, fn in self._orig.items():
             setattr(self._ops, name, fn)
+        graph = torch.cuda.CUDAGraph
+        graph.capture_begin, graph.replay = self._graph_orig
 
     def _wrap(self, name, fn):
+        import torch
+
         def wrapped(*args, **static):
-            i = self._calls[name] = self._calls.get(name, 0) + 1
-            if i % self.STRIDE == 0:
-                t0 = time.perf_counter()
-                key = (name, args[0].shape[1])
-                sample = ([a.clone() for a in args], dict(static))
-                self._keep(self.samples.setdefault(key, []), sample)
-                if self.focus is not None and self._focus_busy(name, sample):
-                    self._keep(self.busy.setdefault(key, []), sample)
-                self.seconds += time.perf_counter() - t0
+            if torch.cuda.is_current_stream_capturing():
+                slot = ([a.clone() for a in args], dict(static))
+                self._slots.setdefault(self._capturing, []).append(
+                    (name, slot))
+                return fn(*args, **static)
+            if torch.cuda.current_stream() == self._stream:
+                self._sample(name, (args, static))
             return fn(*args, **static)
         return wrapped
+
+    def _sample(self, name, call):
+        args, static = call
+        i = self._calls[name] = self._calls.get(name, 0) + 1
+        if i % self.STRIDE == 0:
+            t0 = time.perf_counter()
+            key = (name, args[0].shape[1])
+            sample = ([a.clone() for a in args], dict(static))
+            self._keep(self.samples.setdefault(key, []), sample)
+            if self.focus is not None and self._focus_busy(name, sample):
+                self._keep(self.busy.setdefault(key, []), sample)
+            self.seconds += time.perf_counter() - t0
 
     def _keep(self, got, sample):
         if len(got) >= self.CAP:    # keep the run covered: thin out
@@ -1445,13 +1504,18 @@ def _model_bound_ms(kernel, args, static, f32_rate=None):
 #: bf16; and that mLSTM in f32 at 1 x 1,024
 WIDTH_SHAPES = (("mamba2_scan", "bfloat16", (4, 4096, 80, 64, 256)),
                 ("mlstm_chunked", "bfloat16", (4, 4096, 4, 2048, 512)),
-                ("mlstm_chunked", "float32", (1, 1024, 4, 2048, 512)))
+                ("mlstm_chunked", "float32", (1, 1024, 4, 2048, 512)),
+                # B5 (B, T, H, Hk, dh), causal: a dh off 8 (padded) and
+                # one past 256 (the f32 kernel's output slices; bf16 on it)
+                ("flash_attention", "bfloat16", (4, 4096, 16, 16, 100)),
+                ("flash_attention", "float32", (1, 4096, 8, 8, 512)),
+                ("flash_attention", "bfloat16", (1, 4096, 8, 8, 512)))
 
 
 def width_rows(name: str, dev) -> list:
     """``WIDTH_SHAPES``' rows of kernel ``name``: held to the plain version
     (at the dtype's bar; bf16 also normwise against f32) and timed per
-    call, with the bound.  Their paths' CUDA launches a call are counted in
+    call, with the bound and, for B5, one SDPA call on the same inputs.  Their paths' CUDA launches a call are counted in
     ``model_fuzz`` (``width_paths``)."""
     import torch
     kernel, plain = model_fns()[name]
@@ -1461,7 +1525,13 @@ def width_rows(name: str, dev) -> list:
             continue
         g = torch.Generator(device=dev).manual_seed(5)
         dt = getattr(torch, dtype)
-        if name == "mamba2_scan":
+        static = {}
+        if name == "flash_attention":
+            B, T, H, Hk, dh = shape
+            static = {"causal": True}
+            args = [(0.5 * torch.randn(B, L, h, dh, generator=g, device=dev)
+                     ).to(dt) for L, h in ((T, H), (T, Hk), (T, Hk))]
+        elif name == "mamba2_scan":
             B, T, H, P, N = shape
             args = [(0.5 * torch.randn(B, T, H, P, generator=g, device=dev)
                      ).to(dt),
@@ -1478,17 +1548,32 @@ def width_rows(name: str, dev) -> list:
                     torch.randn(B, T, H, P, generator=g, device=dev).to(dt),
                     0.7 + 0.3 * torch.rand(B, T, H, generator=g, device=dev),
                     0.1 + 0.9 * torch.rand(B, T, H, generator=g, device=dev)]
-        held = _held_to_plain(name, args, {}, dtype)
+        held = _held_to_plain(name, args, static, dtype)
         if dtype == "bfloat16":
-            held.update(_vs_f32(plain, kernel(*args), args, {}))
+            held.update(_vs_f32(plain, kernel(*args, **static), args, static))
             held["mismatches"] += not _normwise_worst(held) <= NORMWISE_TOL
         torch.cuda.empty_cache()
-        bound, bound_by = _model_bound_ms(name, args, {})
-        rows.append({"shape": list(shape), "dtype": dtype,
-                     "path": _width_path(name, args, dtype), **held,
-                     "ms": _time_budget_ms(lambda: kernel(*args), dev),
+        bound, bound_by = _model_bound_ms(name, args, static)
+        path = _width_path(name, args, dtype)
+        if name == "flash_attention":
+            from repro_torch.kernels import flash_attention as fa
+            dhp, run_dtype = fa.launch_plan(shape[-1], args[0].dtype)
+            how = "sliced" if dhp > fa.MAX_DH else "padded"
+            path = (f"flash_attention[{how},{dtype} on "
+                    f"{str(run_dtype).replace('torch.', '')}]")
+
+        def call():
+            return kernel(*args, **static)
+        sdpa = (_sdpa_call(*args, static) if name == "flash_attention"
+                else None)
+        rows.append({"shape": list(shape), "dtype": dtype, "static": static,
+                     "path": path, **held,
+                     "ms": _time_budget_ms(call, dev),
+                     **_queued_row(call, sdpa),
+                     "library_ms": (None if sdpa is None
+                                    else _time_budget_ms(sdpa, dev)),
                      "bound_ms": bound, "bound_by": bound_by})
-        del args
+        del args, sdpa
         torch.cuda.empty_cache()
     return rows
 
@@ -1801,9 +1886,9 @@ def model_kernel_entries(dev, calls: FirstCalls, serve: dict,
                 main["cuda_launches_per_call"]
             entries[-1]["width_paths"] = {
                 p: w for p, w in width_paths.items() if p.startswith(name)}
-            wide = width_rows(name, dev)
-            entries[-1]["width_shapes"] = wide
-            entries[-1]["mismatches"] += sum(r["mismatches"] for r in wide)
+        wide = width_rows(name, dev)
+        entries[-1]["width_shapes"] = wide
+        entries[-1]["mismatches"] += sum(r["mismatches"] for r in wide)
     return entries
 
 
@@ -2759,52 +2844,36 @@ def phase_sim_micro(phase: str, scale: float, dev, recorder: Recorder,
     return out
 
 
-def phase_sim_fixed(dev, events: "EventRuns", ms_per_step: float) -> dict:
-    """The fixed-dt stepper on the card at the calibrated scale, held to
-    the event engine within the same bars.  Every fine step is a full
-    eager step, so a lane's run costs its stream time over dt steps: the
-    lanes run are ``FIXED_MUST`` and every other validated point whose
-    event run ends within what ``FIXED_BUDGET_S`` of the card's time
-    covers at ``ms_per_step`` (sim_calibrated's time a step)."""
+def phase_sim_fixed(dev, events: "EventRuns") -> dict:
+    """The fixed-dt stepper on the card at the calibrated scale, every
+    validated point (``FIXED_MUST``) held to the event engine within the
+    same bars.  A lane's run costs its stream time over dt fine steps, each
+    a replay of the captured fine step; no lane is left out."""
     from repro_torch.core.array_sim import validate
     scale = CALIBRATED_SCALE
     spec, ws = micro_workload(scale, n_streams=8, queries=16)
     ev = events.results()
     dt = float(spec.page_size.max()) / 700e6
-    budget_sim_s = FIXED_BUDGET_S * 1e3 / ms_per_step * dt
-    reach = max(budget_sim_s, max(ev[k][0].sim_time for k in FIXED_MUST))
-    lanes, left_out = [], []
-    for f in VALIDATED_FRACS:
-        for p in POLICIES:
-            t_end = ev[(p, f)][0].sim_time
-            if (p, f) in FIXED_MUST or t_end <= reach:
-                lanes.append((p, f))
-            else:
-                left_out.append({
-                    "policy": p, "frac": f, "event_sim_s": t_end,
-                    "why": f"its event run ends at {t_end:.2f} s of "
-                           f"simulated time, beyond the {reach:.2f} s "
-                           f"that {FIXED_BUDGET_S:.0f} s of the card "
-                           f"covers at {ms_per_step:.2f} ms a fine step"})
+    lanes = list(FIXED_MUST)
     _, cfgs = sweep_configs(spec, ws, None, dev, lanes=lanes)
+    kw = dict(time_slice=0.1 * scale, bandwidth_ref=700e6, stepper="fixed")
+    reach = max(ev[k][0].sim_time for k in lanes)
     # the livelock guard at twice the longest event run: a lane that needs
     # more is not comparable and fails the phase as truncated
     max_slices = int(2.0 * reach / (0.1 * scale)) + 8
     results, wall, launches, steps, stats = run_sweep_counted(
-        spec, cfgs, dev, time_slice=0.1 * scale, bandwidth_ref=700e6,
-        stepper="fixed", max_slices=max_slices)
+        spec, cfgs, dev, max_slices=max_slices, **kw)
     held = held_to_events(lanes, results, ev, "fixed")
     out = {"phase": "sim_fixed", "scale": scale, "P": spec.n_pages,
-           "L": len(lanes), "rows": held, "left_out": left_out,
+           "L": len(lanes), "rows": held, "left_out": [],
            "wall_s": wall, "fine_steps": steps, **stats,
            "ms_per_fine_step": wall / max(1, steps) * 1e3,
-           "launches": launches, "max_slices": max_slices,
-           "budget_s": FIXED_BUDGET_S, "dt": dt,
+           "longest_event_sim_s": reach,
+           "launches": launches, "max_slices": max_slices, "dt": dt,
            "within_error_bars": all(r["ok"] for r in held),
            "bars": {f"{r['policy']}@{r['buffer_frac']}": validate.bar_of(r)
                     for r in held}}
     out["ok"] = (out["within_error_bars"] and len(held) == len(lanes)
-                 and all(m in lanes for m in FIXED_MUST)
                  and launches["batched_evict"] > 0)
     emit(out)
     if not out["ok"]:
@@ -2832,6 +2901,287 @@ def nest_steps(run, cfgs, lc, live, carry, n: int, taken: int = 0):
         else:
             carry = run.cheap(carry, cfgs, inner, lc)
     return carry
+
+
+def eager_loop(run, spec, cfgs):
+    """A runner's loop nest driven eagerly from its own steps (``run.cheap``
+    / ``run.full``, its conditions ``run.cond`` / ``run.inner_cond``):
+    the reference the runner's captured graphs are held to.  Returns
+    ``(output, stats)`` as the runner returns them; a sanitized runner's
+    checks run after every step and their flag rides in every read, as
+    the runner's own eager loop does them."""
+    from repro_torch.core.array_sim import sim
+    L = cfgs.policy.shape[0]
+    lc, carry = run.cheap.lane_consts(cfgs), run.init_carry(cfgs)
+    san = (sim._Sanitizer(spec, L, cfgs.policy.device) if run.sanitize
+           else None)
+    stats = {"cheap_steps": 0, "refresh_steps": 0, "host_reads": 0}
+
+    def read(count):
+        if san is not None:
+            count = san.fold(count)
+        v = int(count)
+        stats["host_reads"] += 1
+        if v >> 32:
+            san.raise_hit()
+        return v
+
+    def step(fn, carry, mask):
+        carry = fn(carry, cfgs, mask, lc)
+        if san is not None:
+            san.check(carry, fn.probe, mask)
+        return carry
+
+    while True:
+        live = run.cond(carry, cfgs)
+        n_live = read(live.sum())
+        if n_live == 0:
+            break
+        mask = None if n_live == L else live
+        if run.stepper == "fixed":
+            for _ in range(run.cheap.n_inner - 1):
+                carry = step(run.cheap, carry, mask)
+            carry = step(run.full, carry, mask)
+            stats["cheap_steps"] += run.cheap.n_inner - 1
+            stats["refresh_steps"] += 1
+            continue
+        while True:
+            inner = live & run.inner_cond(carry)
+            n_in = read(inner.sum())
+            if n_in == 0:
+                break
+            carry = step(run.cheap, carry, None if n_in == L else inner)
+            stats["cheap_steps"] += 1
+        carry = step(run.full, carry, mask)
+        stats["refresh_steps"] += 1
+    if san is not None:
+        stats["neg_zero_keys"] = san.neg_zero.tolist()
+    return ((carry[0], carry[-1]) if run.telemetry else carry[0]), stats
+
+
+def graph_vs_eager(label: str, run, spec, cfgs, shard=None) -> dict:
+    """``run(cfgs)`` (replays of its captured graphs) against
+    :func:`eager_loop` on the same lanes: every state leaf, the loop's
+    stats and the buffer-pool kernels' launch counts, with the wall time
+    of each.  ``shard`` (a mesh runner's lane-shard runner) is the runner
+    whose steps the eager loop drives."""
+    import torch
+    from repro_torch.kernels import ops
+    ops.reset_launch_counts()
+    t0 = time.time()
+    got = run(cfgs)
+    torch.cuda.synchronize()
+    graph_s = time.time() - t0
+    graph_launches = {k: v for k, v in ops.launch_counts().items()
+                      if k in SIM_KERNELS}
+    graph_stats = dict(run.stats)
+    ops.reset_launch_counts()
+    t0 = time.time()
+    want, stats = eager_loop(shard or run, spec, cfgs)
+    torch.cuda.synchronize()
+    eager_s = time.time() - t0
+    eager_launches = {k: v for k, v in ops.launch_counts().items()
+                      if k in SIM_KERNELS}
+    steps = stats["cheap_steps"] + stats["refresh_steps"]
+    own = shard or run
+    keys = sorted(str(k) for rep in own._replays.values()
+                  for k in rep.graphs)
+    if shard is not None:       # the mesh runner keeps the step counts
+        stats = {k: stats[k] for k in graph_stats}
+    row = {"point": label, "stepper": own.stepper,
+           "telemetry": own.telemetry, "sanitize": own.sanitize,
+           "L": int(cfgs.policy.shape[0]), "macro_steps": steps,
+           "graphs": keys, "unequal_leaves": unequal_leaves(want, got),
+           "stats": graph_stats, "stats_equal": graph_stats == stats,
+           "launches": graph_launches,
+           "launches_equal": graph_launches == eager_launches,
+           "graph_s": graph_s, "eager_s": eager_s,
+           "graph_ms_per_step": graph_s / max(1, steps) * 1e3,
+           "eager_ms_per_step": eager_s / max(1, steps) * 1e3}
+    row["ok"] = (not row["unequal_leaves"] and row["stats_equal"]
+                 and row["launches_equal"] and steps > 0)
+    return row
+
+
+def phase_sim_graphs(dev) -> dict:
+    """The simulator's runner replays captured CUDA graphs (the
+    counterpart of the JAX runner's ``jax.jit``); held here to its own
+    eager steps driven by :func:`eager_loop`, every state leaf bit-equal,
+    with the same loop stats (host reads, -0.0 keys) and launch counts:
+    (a) ``sim_small``'s point, both steppers, plain, telemetry on and
+    sanitize on; (b) the telemetry tests' tiny point, the same; (c) the calibrated 24-lane sweep cut at
+    ``GRAPH_CHECK_SLICES`` slices, horizon stepper; (d) the ('lanes',
+    'page') mesh runner of shape (1, 4) at (a)'s point, both steppers;
+    (e) in a fresh child process (``--count-graph-kernels``), the CUDA
+    kernels one replay of each captured graph launches against those of
+    the same body run eagerly, by the profiler, for every runner whose
+    launch counts a gate reads (:func:`count_graph_kernels`)."""
+    from repro_torch.core.array_sim import (
+        Mesh, compile_workload, make_config, make_runner, stack_configs)
+    from repro_torch.core.workload import make_lineitem_db, micro_streams
+    t_phase = time.time()
+    rows = []
+    scale = 0.03
+    spec, ws = micro_workload(scale, 3, 3)
+    _, cfgs = sweep_configs(spec, ws, (0.2, 0.4, 0.8), dev)
+    for stepper in ("fixed", "horizon"):
+        for extra in ({}, {"telemetry": True}, {"sanitize": True}):
+            run = make_runner(spec, time_slice=0.1 * scale, stepper=stepper,
+                              policies=POLICIES, device=dev, **extra)
+            rows.append(graph_vs_eager("sim_small", run, spec, cfgs))
+    db = make_lineitem_db(scale_tuples=2_000_000)
+    spec_t = compile_workload(db, micro_streams(
+        db, n_streams=2, queries_per_stream=1, seed=3))
+    cfgs_t = stack_configs([make_config(spec_t, 16 << 20, 700e6, p,
+                                        device=dev) for p in POLICIES])
+    for stepper in ("fixed", "horizon"):
+        for extra in ({}, {"telemetry": True}, {"sanitize": True}):
+            run = make_runner(spec_t, time_slice=0.01, stepper=stepper,
+                              policies=POLICIES, device=dev, **extra)
+            rows.append(graph_vs_eager("telemetry_tiny", run, spec_t, cfgs_t))
+    spec_c, ws_c = micro_workload(CALIBRATED_SCALE, n_streams=8, queries=16)
+    _, cfgs_c = sweep_configs(spec_c, ws_c, FRACS, dev)
+    run = make_runner(spec_c, time_slice=0.1 * CALIBRATED_SCALE,
+                      bandwidth_ref=700e6, stepper="horizon",
+                      policies=POLICIES, max_slices=GRAPH_CHECK_SLICES,
+                      device=dev)
+    rows.append(graph_vs_eager("calibrated_cut", run, spec_c, cfgs_c))
+    mesh = Mesh([[dev] * 4], ("lanes", "page"))
+    for stepper in ("fixed", "horizon"):
+        run = make_runner(spec, time_slice=0.1 * scale, stepper=stepper,
+                          policies=POLICIES, mesh=mesh)
+        rows.append(graph_vs_eager("mesh_1x4", run, spec, cfgs,
+                                   shard=run.runners[dev]))
+    counts = graph_kernels_child()
+    out = {"phase": "sim_graphs", "rows": rows, "kernel_counts": counts,
+           "seconds": time.time() - t_phase}
+    out["ok"] = all(r["ok"] for r in rows) and counts["ok"]
+    emit(out)
+    if not out["ok"]:
+        fail("sim_graphs", "a captured run differs from the eager steps, "
+                           "or a graph launches other kernels than its "
+                           "body run eagerly")
+    return out
+
+
+def count_graph_kernels(dev) -> dict:
+    """The child's side of :func:`graph_kernels_child`: for each runner
+    whose launch counts a gate reads — ``sim_small``'s point under both
+    steppers, ``sim_calibrated``'s 24-lane horizon runner run to its end,
+    and ``tpch_big``'s (P = 35,328, the page-split kernels) cut where that
+    phase cuts it — one run captures the runner's graphs; then for each
+    graph the CUDA kernels one replay launches and those of the same body
+    run eagerly on copies of the buffers (``torch.profiler``), and the
+    buffer-pool kernels the runner counts a replay."""
+    from repro_torch.core.array_sim import compile_workload, make_runner
+    from repro_torch.core.workload import (
+        make_tpch_db, tpch_accessed_bytes, tpch_streams)
+    out = {"graphs": [], "ok": True}
+
+    def profile(point, spec, cfgs, **kw):
+        run = make_runner(spec, policies=POLICIES, device=dev, **kw)
+        run(cfgs)
+        for row in _graph_rows(run):
+            row.update(point=point, P=spec.n_pages, stepper=kw["stepper"])
+            out["ok"] &= row["ok"]
+            out["graphs"].append(row)
+
+    scale = 0.03
+    spec, ws = micro_workload(scale, 3, 3)
+    _, cfgs = sweep_configs(spec, ws, (0.2, 0.4, 0.8), dev)
+    for stepper in ("fixed", "horizon"):
+        profile("sim_small", spec, cfgs, time_slice=0.1 * scale,
+                stepper=stepper)
+    spec, ws = micro_workload(CALIBRATED_SCALE, n_streams=8, queries=16)
+    _, cfgs = sweep_configs(spec, ws, FRACS, dev)
+    profile("sim_calibrated", spec, cfgs,
+            time_slice=0.1 * CALIBRATED_SCALE, bandwidth_ref=700e6,
+            stepper="horizon")
+    big = TPCH_BIG
+    db = make_tpch_db(scale=big["scale"])
+    streams = tpch_streams(db, n_streams=big["n_streams"], seed=big["seed"])
+    spec = compile_workload(db, streams)
+    _, cfgs = sweep_configs(spec, tpch_accessed_bytes(db, streams), FRACS,
+                            dev, bandwidth=600e6)
+    profile("tpch_big", spec, cfgs, time_slice=0.1, bandwidth_ref=600e6,
+            stepper="horizon", wake_exact=True,
+            max_slices=big["max_slices"])
+    return out
+
+
+#: the CUDA kernel that ends each call of a buffer-pool wrapper: its
+#: single-stage kernel, or the page split's finish (once a call either way)
+CALL_KERNELS = {
+    "batched_evict": ("batched_evict_kernel", "split_evict_finish"),
+    "fifo_grant": ("fifo_grant_kernel", "split_grant_finish"),
+    "wake_solve": ("wake_solve_kernel", "split_wake_finish")}
+
+
+def _graph_rows(run) -> list:
+    """For each graph a runner captured: the CUDA kernels of one replay
+    against those of its body run eagerly on copies of the buffers, and
+    each buffer-pool wrapper's calls a replay (``CALL_KERNELS``) against
+    the launches the runner counts for it."""
+    import torch
+    from repro_torch.core.array_sim import sim
+    rows = []
+    for rep in run._replays.values():
+        for key, (_, counted) in sorted(rep.graphs.items()):
+            b = dict(rep.bufs)
+            b["carry"] = sim._tree_map(torch.clone, b["carry"])
+            for name in ("live", "inner", "n_live", "n_in"):
+                b[name] = b[name].clone()
+            replay = _graph_names(cuda_kernels_per_call(
+                lambda rep=rep, key=key: rep.replay(key), reps=5))
+            body = _graph_names(cuda_kernels_per_call(
+                lambda rep=rep, key=key, b=b: rep._body(*key, b), reps=5))
+            hand = {name: sum(n for k, n in replay.items()
+                              if any(c in k for c in CALL_KERNELS[name]))
+                    for name in counted}
+            row = {"graph": list(key),
+                   "replay_kernels": sum(replay.values()),
+                   "eager_kernels": sum(body.values()),
+                   "counted_launches": counted,
+                   "hand_kernels_a_replay": hand,
+                   "split_kernels_a_replay": sum(
+                       n for k, n in replay.items() if "split_" in k),
+                   "unequal": {k: [replay.get(k, 0.0), body.get(k, 0.0)]
+                               for k in set(replay) | set(body)
+                               if replay.get(k, 0.0) != body.get(k, 0.0)}}
+            row["ok"] = (not row["unequal"] and row["replay_kernels"] > 0
+                         and all(hand[k] == n for k, n in counted.items()))
+            rows.append(row)
+    return rows
+
+
+#: a device-to-device copy that the eager stream runs as a copy engine's
+#: memcpy, a replay runs as a kernel node of the graph under this name
+GRAPH_KERNEL_ALIASES = {"memcpy32_post": "Memcpy DtoD (Device -> Device)"}
+
+
+def _graph_names(kernels: dict) -> dict:
+    """``cuda_kernels_per_call``'s counts with a replay's names for a
+    device-to-device copy read as the eager stream's."""
+    out = {}
+    for k, n in kernels.items():
+        k = GRAPH_KERNEL_ALIASES.get(k, k)
+        out[k] = out.get(k, 0.0) + n
+    return out
+
+
+def graph_kernels_child() -> dict:
+    """:func:`count_graph_kernels` in a fresh process: the profiler records
+    fewer kernels than ran late in a long process
+    (``tools/profiler_window_drift.py``)."""
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                           "--count-graph-kernels"],
+                          capture_output=True, text=True, timeout=600)
+    lines = proc.stdout.strip().splitlines()
+    if proc.returncode != 0 or not lines:
+        fail("sim_graphs", f"the graph kernel count exited "
+                           f"{proc.returncode}: {proc.stdout[-1000:]} "
+                           f"{proc.stderr[-1500:]}")
+    return json.loads(lines[-1])
 
 
 def profile_nest(runs: dict, cfgs, warm: int, n: int, n_prof: int) -> dict:
@@ -3313,6 +3663,8 @@ def main() -> int:
                     help="cut sim_full at this many slices")
     ap.add_argument("--count-launches", metavar="PATH",
                     help=argparse.SUPPRESS)     # the kernels phase's child
+    ap.add_argument("--count-graph-kernels", action="store_true",
+                    help=argparse.SUPPRESS)     # the sim_graphs phase's
     args = ap.parse_args()
 
     import torch
@@ -3324,6 +3676,10 @@ def main() -> int:
         print(json.dumps(count_launches(args.count_launches,
                                         torch.device("cuda"))), flush=True)
         return 0
+    if args.count_graph_kernels:
+        print(json.dumps(count_graph_kernels(torch.device("cuda"))),
+              flush=True)
+        return 0
     dev = torch.device("cuda")
     # full-f32 matrix products on the serving path (PyTorch's default,
     # stated): TF32 would not meet the f32 tolerances
@@ -3334,7 +3690,8 @@ def main() -> int:
         pbm_timeline)
 
     all_phases = ["env", "build", "contracts", "kernels_fuzz", "paged_fuzz",
-                  "model_fuzz", "sim_small", "sanitize", "serve_small",
+                  "model_fuzz", "sim_small", "sim_graphs", "sanitize",
+                  "serve_small",
                   "model_serve", "sim_calibrated", "sim_fixed",
                   "sim_telemetry", "serve_full", "train", "examples",
                   "sim_full", "tpch_probe", "page_split", "kernels"]
@@ -3389,6 +3746,8 @@ def main() -> int:
         phase_model_fuzz(dev)
     if "sim_small" in phases:
         phase_sim_small(dev)
+    if "sim_graphs" in phases:
+        phase_sim_graphs(dev)
     if "sanitize" in phases:
         phase_sanitize(dev)
     if "serve_small" in phases:
@@ -3415,9 +3774,7 @@ def main() -> int:
             launches, main_p = calibrated["launches"], calibrated["P"]
             by_phase["sim_calibrated"] = launches
         if "sim_fixed" in phases:
-            ms = (calibrated["ms_per_macro_step"] if calibrated is not None
-                  else 10.0)
-            by_phase["sim_fixed"] = phase_sim_fixed(dev, events, ms)
+            by_phase["sim_fixed"] = phase_sim_fixed(dev, events)
     finally:
         if events is not None:
             events.close()

@@ -644,13 +644,16 @@ def _mamba(dtype: str):
     return build
 
 
-def _flash_wide(dh: int, T: int, S: int, causal: bool, window=None):
-    """B5's f32 arm off the contract point: GQA 2:1, a window, non-causal or
-    T < S."""
+def _flash_wide(dh: int, T: int, S: int, causal: bool, window=None,
+                dtype: str = "float32"):
+    """B5 off the contract point: GQA 2:1, a window, non-causal or T < S;
+    a dh off 8 (padded) or past 256 (the f32 kernel's output slices)."""
     def build(rng):
+        import torch
         np = _np()
-        q = _t(rng.normal(size=(1, T, 4, dh)).astype(np.float32))
-        k, v = (_t(rng.normal(size=(1, S, 2, dh)).astype(np.float32))
+        dt = getattr(torch, dtype)
+        q = _t(rng.normal(size=(1, T, 4, dh)).astype(np.float32)).to(dt)
+        k, v = (_t(rng.normal(size=(1, S, 2, dh)).astype(np.float32)).to(dt)
                 for _ in range(2))
         return [q, k, v], {"causal": causal, "window": window}
     return build
@@ -745,4 +748,16 @@ CONTRACTS = (
                    _flash_wide(160, 150, 150, False), 3e-5),
     KernelContract("flash_attention[dh256,t<s]", "flash_attention",
                    _flash_wide(256, 90, 200, True), 3e-5),
+    # B5 past its kernels' widths: dh off 8 (padded), past 256 (sliced;
+    # bf16 on the f32 kernel)
+    KernelContract("flash_attention[dh12]", "flash_attention",
+                   _flash_wide(12, 200, 200, True), 3e-5),
+    KernelContract("flash_attention[bf16,dh100,window]", "flash_attention",
+                   _flash_wide(100, 200, 200, True, 48, "bfloat16"), 3e-2),
+    KernelContract("flash_attention[dh264,full]", "flash_attention",
+                   _flash_wide(264, 150, 150, False), 3e-5),
+    KernelContract("flash_attention[bf16,dh320,t<s]", "flash_attention",
+                   _flash_wide(320, 90, 200, True, None, "bfloat16"), 3e-2),
+    KernelContract("flash_attention[dh512]", "flash_attention",
+                   _flash_wide(512, 130, 130, True), 3e-5),
 )

@@ -52,6 +52,30 @@ Rules
   package's ``jit-host-callback``; ``# analysis: obs`` on a ``def`` is
   the deliberate debugging escape and silences only this rule.
 
+Capture rules
+-------------
+On a CUDA device the simulator's runner captures its steps as CUDA
+graphs and replays them (``sim._Replays``).  A capture records what the
+step launches and refuses what it cannot replay: a copy from pageable
+host memory, and any read back.  A warm-up run of each step before its
+capture makes what is made once (a cached device constant, a kernel
+library's set-up) with the same arguments the capture passes.  So in a
+step region:
+
+* ``capture-host-copy``: ``torch.tensor(...)``, ``torch.as_tensor`` /
+  ``torch.from_numpy`` of host data, or ``.to(device)`` / ``.cuda()`` of
+  host data (a receiver the taint model calls static): a host-to-device
+  copy at every replay-less call, refused under capture.  The body of a
+  ``functools.lru_cache``d factory is exempt: it runs once, in the
+  warm-up;
+* ``capture-first-use``: a call of such a factory (one defined in the
+  same file) with an argument that carries step data: its cache key
+  differs call by call, so no warm-up makes the entry the capture asks
+  for;
+* ``capture-host-read``: ``.tolist()`` of anything (of step data it is
+  also a ``sync-coercion``; of a constant tensor on the card it is still
+  a read back).
+
 Taint model
 -----------
 Verbatim from the JAX package: function parameters are the roots, minus
@@ -91,7 +115,8 @@ __all__ = ["lint_paths", "lint_source", "repo_src_root", "RULES"]
 #: pragma rule are the JAX package's, verbatim)
 RULES = (
     "sync-coercion", "sync-control-flow", "sync-dynamic-shape",
-    "host-call", "step-print", "unknown-analysis-pragma",
+    "host-call", "step-print", "capture-host-copy", "capture-first-use",
+    "capture-host-read", "unknown-analysis-pragma",
     "deprecated-static-policy", "deprecated-int-policy-id",
     "deprecated-time-passed",
 )
@@ -111,7 +136,8 @@ STATIC_META_ATTRS = {"shape", "dtype", "ndim", "device", "is_cuda",
 #: tensor methods that read metadata only (no device access)
 STATIC_METHODS = {"dim", "size", "numel", "nelement", "stride",
                   "is_contiguous", "is_floating_point", "is_complex",
-                  "data_ptr", "element_size", "get_device", "storage_offset"}
+                  "data_ptr", "element_size", "get_device", "storage_offset",
+                  "untyped_storage"}
 #: host modules that must not be applied to a tensor in a step region
 #: (attribute constants like ``np.inf`` and calls on Python numbers are
 #: fine: they touch no device)
@@ -296,13 +322,17 @@ class _TracedChecker(ast.NodeVisitor):
 
     def __init__(self, rel: str, kind: str, findings: List[Finding],
                  scope: _Scope, src_lines: Sequence[str] = (),
-                 allow_callbacks: bool = False):
+                 allow_callbacks: bool = False,
+                 cached: frozenset = frozenset(), in_cached: bool = False):
         self.rel = rel
         self.kind = kind
         self.findings = findings
         self.scope = scope
         self.src_lines = src_lines
         self.allow_callbacks = allow_callbacks
+        #: the file's lru_cached factories; whether this is one's body
+        self.cached = cached
+        self.in_cached = in_cached
         self._tested: Set[int] = set()
         #: names bound to a ``torch.is_tensor(x)`` test -> ``x``
         self.guards: Dict[str, str] = {}
@@ -636,7 +666,46 @@ class _TracedChecker(ast.NodeVisitor):
                 "belongs in the carried counters (repro_torch.obs); mark a "
                 "deliberate debugging escape with `# analysis: obs`",
             )
+        self._capture_rules(node, func, args_tainted)
         self.generic_visit(node)
+
+    def _capture_rules(self, node: ast.Call, func: ast.expr,
+                       args_tainted: bool) -> None:
+        """The capture rules (module docstring)."""
+        if isinstance(func, ast.Name) and func.id in self.cached \
+                and args_tainted:
+            self._emit(
+                "capture-first-use", node,
+                f"`{func.id}()` is an lru_cached factory called with step "
+                "data: its key differs call by call, so the warm-up before "
+                "a capture never makes the entry the capture asks for (key "
+                "it on static geometry, dtypes and devices)")
+        if isinstance(func, ast.Attribute) and func.attr == "tolist" \
+                and not self.tainted(func.value):
+            self._emit(
+                "capture-host-read", node,
+                "`.tolist()` inside a step region (a read back, which a "
+                "captured step cannot make: keep the values a tensor, or "
+                "hoist them to the builder)")
+        if self.in_cached:
+            return
+        name = ast.unparse(func)
+        host = False
+        if name == "torch.tensor":
+            host = True
+        elif name in ("torch.as_tensor", "torch.asarray",
+                      "torch.from_numpy"):
+            host = bool(node.args) and not self.tainted(node.args[0])
+        elif isinstance(func, ast.Attribute) and func.attr in ("to", "cuda") \
+                and not self.tainted(func.value):
+            host = func.attr == "cuda" or _names_device(node)
+        if host:
+            self._emit(
+                "capture-host-copy", node,
+                f"`{name}()` of host data inside a step region (a copy "
+                "from pageable host memory at every call, which a captured "
+                "step refuses: make it once in the builder, or in an "
+                "lru_cached factory keyed on static values)")
 
     # nested defs inherit the enclosing taint environment (and may carry
     # their own pragma: `# analysis: obs` scopes the callback escape to
@@ -649,6 +718,7 @@ class _TracedChecker(ast.NodeVisitor):
             node, self.rel, self.kind, self.findings, parent=self.scope,
             src_lines=self.src_lines,
             allow_callbacks=self.allow_callbacks or prag == "obs",
+            cached=self.cached,
         )
 
     visit_AsyncFunctionDef = visit_FunctionDef
@@ -658,15 +728,45 @@ class _TracedChecker(ast.NodeVisitor):
         for a in node.args.args + node.args.kwonlyargs:
             scope.set(a.arg, True)
         sub = _TracedChecker(self.rel, self.kind, self.findings, scope,
-                             self.src_lines, self.allow_callbacks)
+                             self.src_lines, self.allow_callbacks,
+                             self.cached, self.in_cached)
         sub.visit(node.body)
+
+
+def _names_device(node: ast.Call) -> bool:
+    """Whether a ``.to(...)`` call names a device: a ``device=`` keyword,
+    or a first argument that is a string, or a name or attribute that
+    reads as one (``dev``, ``device``, ``x.device``)."""
+    if any(k.arg == "device" for k in node.keywords):
+        return True
+    if not node.args:
+        return False
+    a = node.args[0]
+    if isinstance(a, ast.Constant):
+        return isinstance(a.value, str)
+    ident = a.id if isinstance(a, ast.Name) else \
+        a.attr if isinstance(a, ast.Attribute) else ""
+    return ident in ("dev", "device") or ident.endswith(("_dev", "_device"))
+
+
+def _lru_cached(fn: ast.FunctionDef) -> bool:
+    """Whether ``fn`` is decorated with ``functools.lru_cache`` / ``cache``
+    (called or bare, dotted or not)."""
+    for d in fn.decorator_list:
+        target = d.func if isinstance(d, ast.Call) else d
+        name = target.attr if isinstance(target, ast.Attribute) else \
+            target.id if isinstance(target, ast.Name) else ""
+        if name in ("lru_cache", "cache"):
+            return True
+    return False
 
 
 def _check_traced_function(fn: ast.FunctionDef, rel: str, kind: str,
                            findings: List[Finding],
                            parent: Optional[_Scope] = None,
                            src_lines: Sequence[str] = (),
-                           allow_callbacks: bool = False) -> None:
+                           allow_callbacks: bool = False,
+                           cached: frozenset = frozenset()) -> None:
     scope = _Scope(parent)
     static = _static_params(fn, kind)
     args = fn.args
@@ -678,7 +778,8 @@ def _check_traced_function(fn: ast.FunctionDef, rel: str, kind: str,
     if args.kwarg is not None:
         scope.set(args.kwarg.arg, True, container=True)
     checker = _TracedChecker(rel, kind, findings, scope, src_lines,
-                             allow_callbacks)
+                             allow_callbacks, cached,
+                             in_cached=_lru_cached(fn))
     for stmt in fn.body:
         checker.visit(stmt)
 
@@ -785,19 +886,21 @@ def lint_source(source: str, rel: str) -> List[Finding]:
     _DeprecatedChecker(rel, findings).visit(tree)
 
     kind = _file_kind(rel)
+    cached = frozenset(fn.name for fn in _walk_defs(tree.body)
+                       if _lru_cached(fn))
     if kind in ("kernels", "traced"):
         for fn in _walk_defs(tree.body):
             prag = _pragma(src_lines, fn)
             if prag != "host":
                 _check_traced_function(
                     fn, rel, kind, findings, src_lines=src_lines,
-                    allow_callbacks=(prag == "obs"))
+                    allow_callbacks=(prag == "obs"), cached=cached)
     elif kind == "sim":
         for fn in _walk_defs(tree.body):
             prag = _pragma(src_lines, fn)
             if prag == "traced":
                 _check_traced_function(fn, rel, kind, findings,
-                                       src_lines=src_lines)
+                                       src_lines=src_lines, cached=cached)
             elif fn.name in _SIM_BUILDERS:
                 for sub in fn.body:
                     if isinstance(sub, (ast.FunctionDef,
@@ -807,7 +910,7 @@ def lint_source(source: str, rel: str) -> List[Finding]:
                             continue
                         _check_traced_function(
                             sub, rel, kind, findings, src_lines=src_lines,
-                            allow_callbacks=(sp == "obs"))
+                            allow_callbacks=(sp == "obs"), cached=cached)
     return findings
 
 

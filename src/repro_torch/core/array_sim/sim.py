@@ -27,10 +27,12 @@ machine:
   lane whose own condition is false is frozen with ``torch.where`` on
   every carry leaf, never skipped — a finished lane's state is
   bit-stable while slower lanes continue.
-* **Eager PyTorch**, no tracing: ``refresh`` stays a static Python flag
-  (two step functions, cheap and slice-boundary); every entry point takes
-  an explicit ``device`` whose default is ``"cuda"`` and raises when
-  there is no GPU instead of carrying on on the CPU.
+* **PyTorch, no tracing**: ``refresh`` stays a static Python flag
+  (two step functions, cheap and slice-boundary); on a CUDA device the
+  runner captures each step as a CUDA graph and replays it (the JAX
+  runner's ``jax.jit``), on the CPU it runs eagerly; every entry point
+  takes an explicit ``device`` whose default is ``"cuda"`` and raises
+  when there is no GPU instead of carrying on on the CPU.
 * Sums over the pool (bytes resident, evictable, pending) are taken in
   float64 and rounded once to f32, so they do not depend on the order a
   device reduces in: a CPU run and a CUDA run of one config see the same
@@ -50,6 +52,7 @@ Policy names resolve through
 from __future__ import annotations
 
 import time as _time
+from contextlib import nullcontext as _nullcontext
 from dataclasses import dataclass, field
 from typing import List, NamedTuple, Optional, Sequence, Tuple
 
@@ -1336,8 +1339,15 @@ def make_runner(
     are frozen by a per-lane select, so a finished lane's state is
     bit-stable.  Each loop condition is one number read back from the
     device: once a slice, and under the horizon stepper once a
-    macro-step (the eager step is bound by launch latency on the host, so
-    the device queue is short when the read happens).
+    macro-step.  On a CUDA device the runner replays captured CUDA graphs,
+    the counterpart of the JAX runner's ``jax.jit``: one per step variant
+    the nest takes and config signature, each holding the step, its
+    outputs copied back into the carry's static buffers and the loop
+    condition that follows, so that between two replays the host reads
+    that one number and launches nothing (:class:`_Replays`; a capture
+    that fails raises).  On the CPU the same nest runs eagerly.  The
+    kernels' launch counts (``kernels.ops.launch_counts``) read the same
+    either way.
 
     ``policies`` is the set of registry policies the runner's lanes may
     select (default: every array policy, the cooperative one included);
@@ -1494,10 +1504,11 @@ class _Sanitizer:
         key = tuple(names)
         first = self.first.get(key)
         if first is None:
-            first = torch.full(bad.shape, -1, dtype=torch.int32,
-                               device=bad.device)
+            first = self.first[key] = torch.full(
+                bad.shape, -1, dtype=torch.int32, device=bad.device)
+        # in place: a captured step writes the buffer the host reads
         steps = carry[0].steps.unsqueeze(1)
-        self.first[key] = torch.where((first < 0) & bad, steps, first)
+        torch.where((first < 0) & bad, steps, first, out=first)
         self.hit |= bad.any(dim=1)
         keys = probe.get("B1.keys")
         if keys is not None and keys.is_floating_point():
@@ -1505,6 +1516,21 @@ class _Sanitizer:
             if live is not None:
                 nz = nz & live.unsqueeze(1)
             self.neg_zero += nz.sum(dim=1)
+
+    def adopt(self, other: "_Sanitizer") -> None:
+        """Make the hit slots ``other``'s checks made (a warm-up's), so
+        that a captured check finds them made and writes them in place."""
+        for key, first in other.first.items():
+            if key not in self.first:
+                self.first[key] = torch.full_like(first, -1)
+        self.kinds.update(other.kinds)
+
+    def reset(self) -> None:
+        """No hit yet: a new run on the same buffers."""
+        self.hit.zero_()
+        self.neg_zero.zero_()
+        for first in self.first.values():
+            first.fill_(-1)
 
     def fold(self, count: torch.Tensor) -> torch.Tensor:
         """``count`` with the hit flag above bit 32: one read for both."""
@@ -1520,6 +1546,261 @@ class _Sanitizer:
         raise SanitizeError(
             f"make_runner(sanitize=True): {self.kinds[name]} in leaf "
             f"`{name}` of lane {lane} at its step {step}")
+
+
+def _tree_map(fn, x):
+    """``fn`` over every tensor leaf of a carry or config tree."""
+    if torch.is_tensor(x):
+        return fn(x)
+    if x is None:
+        return None
+    kids = [_tree_map(fn, kid) for kid in x]
+    return type(x)(*kids) if hasattr(x, "_fields") else tuple(kids)
+
+
+def _tree_leaves(x) -> list:
+    out = []
+    _tree_map(out.append, x)
+    return out
+
+
+def _copy_into(dst, src) -> None:  # analysis: traced
+    """Every leaf of the tree ``src`` copied into the same leaf of the
+    tree ``dst``.  A leaf that ``src`` hands through unchanged is its own
+    buffer and is not copied; one that is (a view of) another buffer of
+    ``dst`` is cloned before any buffer is written."""
+    pairs = list(zip(_tree_leaves(dst), _tree_leaves(src), strict=True))
+    owned = set()                       # host addresses, read no device
+    for d, _ in pairs:
+        owned.add(d.untyped_storage().data_ptr())
+    moves = []
+    for d, s in pairs:
+        if s is d:
+            continue
+        if s.shape != d.shape or s.dtype != d.dtype:
+            raise RuntimeError(
+                f"a step changed a carry leaf from {tuple(d.shape)} "
+                f"{d.dtype} to {tuple(s.shape)} {s.dtype}")
+        if s.untyped_storage().data_ptr() in owned:
+            s = s.clone()
+        moves.append((d, s))
+    for d, s in moves:
+        d.copy_(s)
+
+
+class _LoopParts(NamedTuple):
+    """What a runner's loop nest is made of, for :class:`_Replays`."""
+
+    spec: SimSpec
+    cheap: object            # make_step(refresh=False)
+    full: object             # make_step(refresh=True)
+    n_inner: int
+    horizon: bool
+    init_carry: object       # cfg -> carry
+    cond: object             # (carry, cfg) -> (L,) bool: the lane runs on
+    inner_cond: object       # carry -> (L,) bool: the slice goes on
+    sanitize: bool
+    telemetry: bool
+    dev: torch.device
+
+
+def _captures(dev: torch.device) -> bool:
+    """Whether a runner on ``dev`` replays captured graphs: on a CUDA
+    device always, on the CPU never."""
+    return dev.type == "cuda"
+
+
+class _CudaGraph:
+    """One step body captured as a CUDA graph into the runner's pool."""
+
+    def __init__(self, body, stream, pool):
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph, pool=pool, stream=stream):
+            body()
+
+    def replay(self) -> None:
+        self.graph.replay()
+
+
+def _take(count: torch.Tensor, stats: dict, san) -> int:
+    """One read of a loop condition's count (the sanitizer's hit flag
+    folded above bit 32): raises on a hit."""
+    v = int(count)
+    stats["host_reads"] += 1
+    if v >> 32:
+        san.raise_hit()
+    return v
+
+
+class _Replays:
+    """A runner's loop nest on one config signature as replays of
+    captured CUDA graphs: the port's counterpart of the JAX runner's
+    ``jax.jit``.
+
+    The config, the lane constants, the carry, the loop's masks and its
+    counts live in static buffers.  Each step variant the nest takes
+    (cheap or refresh, every lane or a mask) is captured once, at its
+    first use, after one warm-up run of the same body on copies of the
+    buffers on a side stream (it makes every cached device constant and
+    each kernel library's set-up before the capture, which allows
+    neither).  A body
+    is the step, the sanitizer's checks, the step's outputs copied back
+    into the carry's buffers, and the loop condition that follows it with
+    its count: between two replays the host reads one count and launches
+    nothing, as often as the eager loop reads.  A capture that fails
+    raises.
+
+    The kernel wrappers count their launches where they launch, which in
+    a graph happens once, at capture: each graph's launches are counted
+    there (the warm-up's and the capture's taken back out) and added to
+    ``kernels.ops.launch_counts()`` at every replay."""
+
+    def __init__(self, parts: _LoopParts, cfg: ArraySimConfig):
+        self.parts = parts
+        L = cfg.policy.shape[0]
+        dev = parts.dev
+        self.cfg = _tree_map(torch.clone, cfg)
+        # every leaf its own storage: the steps write them in place
+        self.bufs = dict(
+            carry=_tree_map(torch.clone, parts.init_carry(self.cfg)),
+            live=torch.zeros(L, dtype=torch.bool, device=dev),
+            inner=torch.zeros(L, dtype=torch.bool, device=dev),
+            n_live=torch.zeros((), dtype=torch.int64, device=dev),
+            n_in=torch.zeros((), dtype=torch.int64, device=dev),
+            san=_Sanitizer(parts.spec, L, dev) if parts.sanitize else None)
+        self.lc = parts.cheap.lane_consts(self.cfg)
+        self.graphs = {}        # (body, masked) -> (graph, launches)
+        # one memory pool for every graph: no intermediate of one outlives
+        # its replay, so they may share its blocks
+        cuda = dev.type == "cuda"
+        self.pool = torch.cuda.graph_pool_handle() if cuda else None
+        self.stream = torch.cuda.Stream(dev) if cuda else None
+
+    # ------------------------------------------------------------ bodies --
+    # analysis: traced -- runs inside a capture, as the methods below do
+    def _fold(self, b: dict, count: torch.Tensor) -> torch.Tensor:
+        return count if b["san"] is None else b["san"].fold(count)
+
+    def _step(self, fn, b: dict, mask) -> None:  # analysis: traced
+        out = fn(b["carry"], self.cfg, mask, self.lc)
+        if b["san"] is not None:
+            b["san"].check(out, fn.probe, mask)
+        _copy_into(b["carry"], out)
+
+    def _set_live(self, b: dict) -> None:  # analysis: traced
+        live = self.parts.cond(b["carry"], self.cfg)
+        b["live"].copy_(live)
+        b["n_live"].copy_(self._fold(b, live.sum()))
+
+    def _set_inner(self, b: dict) -> None:  # analysis: traced
+        inner = b["live"] & self.parts.inner_cond(b["carry"])
+        b["inner"].copy_(inner)
+        b["n_in"].copy_(self._fold(b, inner.sum()))
+
+    # analysis: traced
+    def _body(self, kind: str, masked: bool, b: dict) -> None:
+        """The body of graph ``(kind, masked)``: "cheap" (a fine step, or
+        a macro-step and the slice's next count) or "full" (the refresh
+        step and the next slice's counts)."""
+        p = self.parts
+        if kind == "cheap":
+            mask = b["inner"] if p.horizon else b["live"]
+            self._step(p.cheap, b, mask if masked else None)
+            if p.horizon:
+                self._set_inner(b)
+            return
+        self._step(p.full, b, b["live"] if masked else None)
+        self._set_live(b)
+        if p.horizon:
+            self._set_inner(b)
+
+    # ----------------------------------------------------------- capture --
+    def _capture(self, key):
+        p = self.parts
+        before = kops.launch_counts()
+        warm = dict(self.bufs, carry=_tree_map(torch.clone, self.bufs["carry"]))
+        for name in ("live", "inner", "n_live", "n_in"):
+            warm[name] = self.bufs[name].clone()
+        if p.sanitize:
+            warm["san"] = _Sanitizer(p.spec, self.cfg.policy.shape[0], p.dev)
+        if self.stream is not None:
+            self.stream.wait_stream(torch.cuda.current_stream(p.dev))
+            with torch.cuda.stream(self.stream):
+                self._body(*key, warm)
+            torch.cuda.current_stream(p.dev).wait_stream(self.stream)
+        else:
+            self._body(*key, warm)
+        if p.sanitize:
+            self.bufs["san"].adopt(warm["san"])
+        del warm
+        mid = kops.launch_counts()
+        graph = _CudaGraph(lambda: self._body(*key, self.bufs), self.stream,
+                           self.pool)
+        after = kops.launch_counts()
+        launches = {k: n - mid[k] for k, n in after.items() if n != mid[k]}
+        kops.add_launch_counts({k: before[k] - n for k, n in after.items()})
+        self.graphs[key] = (graph, launches)
+        return self.graphs[key]
+
+    def replay(self, key) -> None:
+        """One replay of the body ``key``, captured at its first use; its
+        kernels' launches added to ``kernels.ops.launch_counts()``."""
+        graph, launches = self.graphs.get(key) or self._capture(key)
+        graph.replay()
+        kops.add_launch_counts(launches)
+
+    # -------------------------------------------------------------- run ---
+    def reset(self, cfg: ArraySimConfig) -> None:
+        """The buffers at the start of a run of ``cfg``."""
+        _copy_into(self.cfg, cfg)
+        _copy_into(self.lc, self.parts.cheap.lane_consts(self.cfg))
+        _copy_into(self.bufs["carry"], self.parts.init_carry(self.cfg))
+        if self.bufs["san"] is not None:
+            self.bufs["san"].reset()
+
+    def run(self, cfg: ArraySimConfig, stats: dict):
+        """The loop nest on ``cfg`` (its signature this object's): the
+        final carry's state (and telemetry), ``stats`` filled in."""
+        with (torch.cuda.device(self.parts.dev) if self.stream is not None
+              else _nullcontext()):
+            return self._run(cfg, stats)
+
+    def _run(self, cfg: ArraySimConfig, stats: dict):
+        p, b = self.parts, self.bufs
+        L = cfg.policy.shape[0]
+        san = b["san"]
+        self.reset(cfg)
+        self._set_live(b)
+        n_live = _take(b["n_live"], stats, san)     # one read per slice
+        n_in = 0
+        if p.horizon and n_live:
+            self._set_inner(b)
+            n_in = _take(b["n_in"], stats, san)     # one per macro-step
+        while n_live:
+            masked = n_live < L
+            if not p.horizon:
+                for _ in range(p.n_inner - 1):
+                    self.replay(("cheap", masked))
+                self.replay(("full", masked))
+                stats["cheap_steps"] += p.n_inner - 1
+                stats["refresh_steps"] += 1
+                n_live = _take(b["n_live"], stats, san)
+                continue
+            if n_in:
+                self.replay(("cheap", n_in < L))
+                stats["cheap_steps"] += 1
+                n_in = _take(b["n_in"], stats, san)
+                continue
+            self.replay(("full", masked))
+            stats["refresh_steps"] += 1
+            n_live = _take(b["n_live"], stats, san)
+            if n_live:
+                n_in = _take(b["n_in"], stats, san)
+        if san is not None:
+            stats["neg_zero_keys"] = san.neg_zero.tolist()
+        # out of the buffers, which the next run overwrites
+        carry = _tree_map(torch.clone, b["carry"])
+        return (carry[0], carry[-1]) if p.telemetry else carry[0]
 
 
 def _runner(spec, device, page_shards: int = 1, sanitize: bool = False, *,
@@ -1567,6 +1848,11 @@ def _runner(spec, device, page_shards: int = 1, sanitize: bool = False, *,
         return (rem_u > 1) & (next_h < rem_u)
 
     signatures = []
+    parts = _LoopParts(spec=spec, cheap=cheap, full=full, n_inner=n_inner,
+                       horizon=stepper == "horizon", init_carry=init_carry,
+                       cond=cond, inner_cond=inner_cond, sanitize=sanitize,
+                       telemetry=telemetry, dev=dev)
+    replays = {}            # config signature -> _Replays (CUDA only)
 
     # analysis: host -- the loop nest: its reads are the ones it means
     def run(cfg: ArraySimConfig):
@@ -1584,21 +1870,22 @@ def _runner(spec, device, page_shards: int = 1, sanitize: bool = False, *,
                 "shape/dtype between calls (stack configs with "
                 "stack_configs / keep leaves f32/i32 scalars); every "
                 "(stepper x policy-set) must compile exactly once")
+        stats = run.stats = {"cheap_steps": 0, "refresh_steps": 0,
+                             "host_reads": 0}
+        if _captures(dev):
+            rep = replays.get(sig)
+            if rep is None:
+                rep = replays[sig] = _Replays(parts, cfg)
+            return rep.run(cfg, stats)
         L = cfg.policy.shape[0]
         lc = cheap.lane_consts(cfg)
         carry = init_carry(cfg)
         san = _Sanitizer(spec, L, dev) if sanitize else None
-        stats = run.stats = {"cheap_steps": 0, "refresh_steps": 0,
-                             "host_reads": 0}
 
         def read(count):  # analysis: host -- the loop nest's own reads
             if san is not None:
                 count = san.fold(count)
-            v = int(count)
-            stats["host_reads"] += 1
-            if v >> 32:
-                san.raise_hit()
-            return v
+            return _take(count, stats, san)
 
         def step(fn, carry, mask):
             carry = fn(carry, cfg, mask, lc)
@@ -1647,6 +1934,7 @@ def _runner(spec, device, page_shards: int = 1, sanitize: bool = False, *,
     run.cheap, run.full = cheap, full
     run.init_carry, run.cond, run.inner_cond = init_carry, cond, inner_cond
     run.lane_mesh, run.page_axis = None, None
+    run._replays = replays          # config signature -> _Replays (CUDA)
     return run
 
 

@@ -591,6 +591,10 @@ def model_cases(seed: int = 31) -> List[Case]:
     return out
 
 
+#: flash attention's head widths past its kernels' own (off 8, past 256)
+PAST_TILE_DH = (12, 100, 264, 320, 512)
+
+
 def width_cases(seed: int = 37) -> List[Case]:
     """The widths past the model kernels' tiles that the JAX kernels take,
     as :func:`model_cases` draws them (both dtypes each):
@@ -602,7 +606,10 @@ def width_cases(seed: int = 37) -> List[Case]:
     * mLSTM: K past ``MAX_K`` (1,025, 2,048 and 4,096: two to four slices)
       at P = 64 (gates in (0.7, 1)) and 512 (the model's gate range);
     * flash attention (the 3xTF32 f32 arm): dh 64, 128, 160 and 256, each
-      causal, with a window of 48, non-causal and with T < S (GQA 2:1).
+      causal, with a window of 48, non-causal and with T < S (GQA 2:1);
+      and the widths past the kernels' own, both arms: dh 12 and 100
+      (zero-padded to 16 and 104), 264, 320 and 512 (the f32 kernel's
+      output in slices of 256; bf16 on operands upcast to f32).
     """
     rng = np.random.default_rng(seed)
     out: List[Case] = []
@@ -639,7 +646,7 @@ def width_cases(seed: int = 37) -> List[Case]:
                 k=nrm((B, T, H, K), 0.3), v=nrm((B, T, H, P), 1.0),
                 a=a.astype(np.float32), i=i.astype(np.float32))
 
-    for dh in (64, 128, 160, 256):
+    for dh in (64, 128, 160, 256, *PAST_TILE_DH):
         for mode, (T, S, causal, window) in (
                 ("causal", (200, 200, True, None)),
                 ("window48", (200, 200, True, 48)),

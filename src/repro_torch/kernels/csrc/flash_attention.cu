@@ -48,8 +48,10 @@
 //   (dh, heads, sequence, batch): rows past T or S and columns past dh
 //   arrive as zeros and never as the next batch row's keys.  The head
 //   dimension is padded to 64, 128, 192 or 256 (DHP) by that zero fill in
-//   shared memory, so every dh the wrapper takes (multiples of 8 up to 256)
-//   runs here; dh 160 (Zamba2's shared block) computes on 192 columns.
+//   shared memory, so every multiple of 8 up to 256 runs here; dh 160
+//   (Zamba2's shared block) computes on 192 columns.  (The wrapper pads a
+//   dh off 8 with zero columns, and runs a bf16 call past 256 on the f32
+//   kernel on operands upcast to f32.)
 // * K and V tiles go through a ring of two stages, each with a "full"
 //   mbarrier per operand (TMA transaction bytes) and an "empty" mbarrier
 //   that all 256 threads arrive at when the stage's products are done; one
@@ -108,6 +110,13 @@
 //   128, 160, 192, 256) has an instantiation that takes any multiple of 8
 //   up to it, and the first three an exact one whose loop bounds and
 //   strides are constants (at 192 and 256 that one spilled).
+// * Past 256 (kSliced) the output's columns go in slices of 256, one block
+//   a slice, the slice the grid's fastest index: each block forms the
+//   scores over the whole dh (the same in-order FFMA chain, Q and K tiles at
+//   the full width in shared memory) and P V for its slice's columns (V
+//   tiles at the slice's width), key tiles of 8 so that Q, K and V fit: at
+//   dh 512 a block takes 181,760 bytes.  The scores are formed once a
+//   slice.
 // Bound: operations; B5's f32 rows in PERF.md state it at 165 TFLOP/s (the
 // f32-exact tensor-core rate) beside FFMA's 67.
 
@@ -122,7 +131,8 @@
 
 namespace {
 
-constexpr int kMaxHeadDim = 256;
+constexpr int kMaxHeadDim = 256;     // bf16 (wgmma); the f32 register tile
+constexpr int kWideBK = 8;           // keys per tile of the f32 arm past it
 constexpr int kVec = 8;              // dh % kVec == 0
 constexpr float kNegInf = -1e30f;
 
@@ -167,7 +177,10 @@ __device__ __forceinline__ void load_rows_f32(const float* __restrict__ src,
 // dh == DHMAX, so that loop bounds and strides are constants (a third
 // faster at dh 128 on an H100).  Two blocks an SM up to dh 192 (shared memory holds no
 // more), one at 256: named, so that ptxas may take the registers they leave.
-template <int DHMAX, int BK, bool kExact>
+// kSliced (dh past DHMAX = kMaxHeadDim): the scores take the whole dh, the
+// block's output the columns [c0, c0 + DHMAX) of one slice, its V tiles
+// those columns alone; the slices are the grid's fastest index.
+template <int DHMAX, int BK, bool kExact, bool kSliced = false>
 __global__ void __launch_bounds__(kF32Threads, DHMAX >= 256 ? 1 : 2)
 flash_attention_f32(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ v, float* __restrict__ out,
@@ -176,17 +189,23 @@ flash_attention_f32(const float* __restrict__ q, const float* __restrict__ k,
   constexpr int NT = BK / 8;         // n8 tiles of the scores (keys)
   constexpr int NO = DHMAX / 8;      // n8 tiles of the output (columns)
   extern __shared__ __align__(16) float fsm[];
-  const int dh = kExact ? DHMAX : dh_;
-  const int ld = ld_f32(dh), nd = dh / 8;
+  const int dh = kExact ? DHMAX : dh_;          // the scores' width
+  int ns = 1;                                   // output slices
+  if constexpr (kSliced) ns = (dh + DHMAX - 1) / DHMAX;
+  const int sl = kSliced ? (int)blockIdx.x % ns : 0;
+  const int bid = kSliced ? (int)blockIdx.x / ns : (int)blockIdx.x;
+  const int c0 = sl * DHMAX, dv = kSliced ? min(DHMAX, dh - c0) : dh;
+  const int ld = ld_f32(dh), ldv = kSliced ? ld_f32(DHMAX) : ld;
+  const int nd = dv / 8;
   float* sQ = fsm;                   // kBQ x ld
   float* sK = sQ + kBQ * ld;         // 2 stages of BK x ld
-  float* sV = sK + 2 * BK * ld;      // 2 stages of BK x ld
+  float* sV = sK + 2 * BK * ld;      // 2 stages of BK x ldv
 
   // a 1-D grid, the latest query tile of every (head, batch row) first:
   // under a causal mask the blocks launched first carry the most keys, and
   // the last wave holds the lightest ones
-  const int nq = (T_ + kBQ - 1) / kBQ, HB = (int)gridDim.x / nq;   // H B
-  const int rank = (int)blockIdx.x / HB, hb = (int)blockIdx.x - rank * HB;
+  const int nq = (T_ + kBQ - 1) / kBQ, HB = (int)gridDim.x / ns / nq;
+  const int rank = bid / HB, hb = bid - rank * HB;
   const int t0 = (nq - 1 - rank) * kBQ;
   const int h = hb % H, b = hb / H;
   const int kh = h / (H / Hk);
@@ -213,8 +232,8 @@ flash_attention_f32(const float* __restrict__ q, const float* __restrict__ k,
     const int s0 = (first + j) * BK, st = j & 1;
     load_rows_f32(k, kv_base + (size_t)s0 * kv_row, kv_row, S - s0, BK, dh,
                   sK + st * BK * ld, ld);
-    load_rows_f32(v, kv_base + (size_t)s0 * kv_row, kv_row, S - s0, BK, dh,
-                  sV + st * BK * ld, ld);
+    load_rows_f32(v, kv_base + c0 + (size_t)s0 * kv_row, kv_row, S - s0, BK,
+                  dv, sV + st * BK * ldv, ldv);
   };
   load_rows_f32(q, ((size_t)b * T_ + t0) * q_row + (size_t)h * dh, q_row,
                 T_ - t0, kBQ, dh, sQ, ld);
@@ -237,7 +256,7 @@ flash_attention_f32(const float* __restrict__ q, const float* __restrict__ k,
     if (j + 1 < n_tiles) load_kv(j + 1);
     cp_async_commit();
     const float* ks = sK + st * BK * ld + 2 * tq * ld;
-    const float* vs = sV + st * BK * ld + 2 * tq * ld + g;
+    const float* vs = sV + st * BK * ldv + 2 * tq * ldv + g;
 
     // S = Q K^T by FFMA, each score a chain of fmaf over d in order, as
     // the plain version's f32 product forms it (see the design notes): the
@@ -338,10 +357,10 @@ flash_attention_f32(const float* __restrict__ q, const float* __restrict__ k,
         float t[4] = {0.0f, 0.0f, 0.0f, 0.0f};
 #pragma unroll
         for (int kk = 0; kk < NT; ++kk) {
-          const float* vr = vs + 8 * kk * ld + 8 * n;
+          const float* vr = vs + 8 * kk * ldv + 8 * n;
           uint32_t bh0, bl0, bh1, bl1;
           split_tf32(vr[0], bh0, bl0);
-          split_tf32(vr[ld], bh1, bl1);
+          split_tf32(vr[ldv], bh1, bl1);
           mma_3xtf32(t, ph[kk], pl[kk], bh0, bh1, bl0, bl1);
         }
         o[n][0] += t[0];
@@ -359,7 +378,7 @@ flash_attention_f32(const float* __restrict__ q, const float* __restrict__ k,
   }
   const float inv_lo = 1.0f / fmaxf(l_lo, 1e-30f);
   const float inv_hi = 1.0f / fmaxf(l_hi, 1e-30f);
-  float* dst_lo = out + ((size_t)b * T_ + r_lo) * q_row + (size_t)h * dh;
+  float* dst_lo = out + ((size_t)b * T_ + r_lo) * q_row + (size_t)h * dh + c0;
   float* dst_hi = dst_lo + 8 * q_row;
 #pragma unroll
   for (int n = 0; n < NO; ++n) {
@@ -614,6 +633,9 @@ flash_attention_tc(const __grid_constant__ CUtensorMap tq,
 // ------------------------------------------------------------------ host ----
 
 inline size_t smem_bytes_f32(int dh) {
+  if (dh > kMaxHeadDim)              // Q and K at dh, V at one slice
+    return sizeof(float) * ((size_t)(kBQ + 2 * kWideBK) * ld_f32(dh) +
+                            (size_t)2 * kWideBK * ld_f32(kMaxHeadDim));
   return sizeof(float) * (size_t)(kBQ + 4 * f32_bk(dh)) * ld_f32(dh);
 }
 
@@ -631,6 +653,9 @@ cudaError_t init_f32(int* max_dyn) {
     e = allow_smem(flash_attention_f32<D, BK, EXACT>, max_dyn);
   FA_F32_SHAPES(FA_ALLOW)
 #undef FA_ALLOW
+  if (e == cudaSuccess)
+    e = allow_smem(flash_attention_f32<kMaxHeadDim, kWideBK, false, true>,
+                   max_dyn);
   return e;
 }
 
@@ -638,10 +663,12 @@ int launch_f32(const void* q, const void* k, const void* v, void* out, int B,
                int T_, int S, int H, int Hk, int dh, int causal, int window,
                int offset, float scale, void* stream) {
   if (B < 1 || T_ < 1 || S < 1 || Hk < 1 || H % Hk || dh % kVec ||
-      dh < kVec || dh > kMaxHeadDim)
+      dh < kVec)
     return (int)cudaErrorInvalidValue;
-  // query tiles x heads x batch rows, latest tile first
-  const dim3 grid((T_ + kBQ - 1) / kBQ * H * B);
+  // query tiles x heads x batch rows (x output slices past kMaxHeadDim),
+  // latest tile first
+  const int ns = (dh + kMaxHeadDim - 1) / kMaxHeadDim;
+  const dim3 grid((T_ + kBQ - 1) / kBQ * H * B * ns);
   const size_t smem = smem_bytes_f32(dh);
   cudaStream_t st = (cudaStream_t)stream;
   const float* qq = (const float*)q;
@@ -661,7 +688,10 @@ int launch_f32(const void* q, const void* k, const void* v, void* out, int B,
   }
   FA_F32_SHAPES(FA_LAUNCH)
 #undef FA_LAUNCH
-  return (int)cudaErrorInvalidValue;
+  flash_attention_f32<kMaxHeadDim, kWideBK, false, true>
+      <<<grid, kF32Threads, smem, st>>>(qq, kk, vv, oo, T_, S, H, Hk, dh,
+                                        causal, window, offset, scale);
+  return (int)cudaGetLastError();
 }
 
 // cuTensorMapEncodeTiled, fetched from the driver through the runtime, so

@@ -35,7 +35,8 @@ from .paged_attention import paged_attention_kernel
 
 __all__ = ["batched_evict", "fifo_grant", "wake_solve", "paged_attention",
            "flash_attention", "mamba2_scan", "mlstm_chunked",
-           "launch_counts", "reset_launch_counts", "recompute_counts",
+           "launch_counts", "reset_launch_counts", "add_launch_counts",
+           "recompute_counts",
            "reset_recompute_counts", "KERNELS"]
 
 #: every kernel wrapper by name; each counts its own launches
@@ -53,6 +54,15 @@ def launch_counts() -> dict:
 def reset_launch_counts() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
+
+
+def add_launch_counts(counts: dict) -> None:
+    """Add ``counts`` (kernel name -> launches, negative to take some
+    back) to the kernels' counts.  A wrapper counts where it launches; in
+    a captured CUDA graph that is once, at capture, so the simulator's
+    runner adds each graph's launches at every replay."""
+    for name, n in counts.items():
+        KERNELS[name].launches += n
 
 
 def recompute_counts() -> dict:

@@ -72,6 +72,21 @@ FIRES = {
     "host_call": ("import numpy as np\ndef f(x):\n    return np.asarray(x)\n",
                   "host-call"),
     "print": ("def f(x):\n    print('step')\n    return x\n", "step-print"),
+    "host_tensor": ("import torch\ndef f(x):\n"
+                    "    return x + torch.tensor([1, 2], device=x.device)\n",
+                    "capture-host-copy"),
+    "host_to_device": ("import torch\ndef f(x, dev):\n"
+                       "    return x + torch.arange(4).to(dev)\n",
+                       "capture-host-copy"),
+    "first_use": ("import functools, torch\n"
+                  "@functools.lru_cache(maxsize=None)\n"
+                  "def g(n, device):\n"
+                  "    return torch.tensor([1] * n, device=device)\n"
+                  "def f(x):\n    return x + g(x.sum(), x.device)\n",
+                  "capture-first-use"),
+    "const_tolist": ("import torch\nC = torch.ones(3)\n"
+                     "def f(x):\n    return C.tolist()\n",
+                     "capture-host-read"),
     "pragma": ("def f(x):  # analysis: hosted\n    return x\n",
                "unknown-analysis-pragma"),
     "static_policy": ("def f(r):\n    return r(static_policy='lru')\n",
@@ -111,6 +126,14 @@ SILENT = {
                   "    print(x.shape)\n    return x\n",
     "wants_grad": "def f(q):\n    if wants_grad(q):\n        return q\n"
                   "    return q * 2\n",
+    "cached_factory": "import functools, torch\n"
+                      "@functools.lru_cache(maxsize=None)\n"
+                      "def g(n, device):\n"
+                      "    return torch.tensor([1] * n, device=device)\n"
+                      "def f(x):\n    return x + g(x.shape[0], x.device)\n",
+    "step_data_as_tensor": "import torch\ndef f(x):\n"
+                           "    return torch.as_tensor(x, device=x.device)\n",
+    "dtype_cast": "import torch\ndef f(x):\n    return x.to(torch.int32)\n",
 }
 
 
@@ -129,6 +152,27 @@ def test_host_files_are_not_step_regions():
            "    def core(s):\n        return s.item()\n    return core\n")
     assert _rules(sim, "repro_torch/core/array_sim/sim.py") == [
         "sync-coercion"]
+
+
+def test_a_planted_step_region_fails_the_capture_lint():
+    """The step builder's nested functions are the region a runner
+    captures: a host copy, a cached factory keyed on step data and a read
+    back there are each flagged; the builder's own body is host code."""
+    sim = ("import functools, torch\n"
+           "@functools.lru_cache(maxsize=None)\n"
+           "def _table(n, device):\n"
+           "    return torch.arange(n, device=device)\n"
+           "def make_step(spec, dev):\n"
+           "    made = torch.tensor([1, 2], device=dev)\n"
+           "    def core(state):\n"
+           "        w = torch.tensor([3.0], device=dev)\n"
+           "        t = _table(state.steps.max(), dev)\n"
+           "        return state.t * w + made.tolist()[0] + t\n"
+           "    return core\n")
+    got = lint_source(sim, "repro_torch/core/array_sim/sim.py")
+    assert sorted((f.rule, f.line) for f in got) == [
+        ("capture-first-use", 9), ("capture-host-copy", 8),
+        ("capture-host-read", 10)]
 
 
 def test_the_tree_is_clean():

@@ -463,3 +463,26 @@ def test_the_bf16_normwise_bar_can_be_met(dh):
     one_block[:, 384:512, 5] = cut[:, 384:512, 5]
     assert _normwise_max_block(one_block, want) > 1e-2
     assert _normwise_max_block(one_block, want) > 2 * normwise(one_block)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dh", cases.PAST_TILE_DH)
+def test_cuda_flash_attention_past_its_kernels_widths(dh):
+    """On the card, every ``cases.width_cases`` case of B5 at a width past
+    its kernels' own (dh off 8: padded; past 256: the f32 kernel's output
+    slices, bf16 upcast to it) against the plain version on the same
+    inputs: f32 within 3e-5, bf16 within 3e-2."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc (run on the card: "
+                    "python3 chip_smoke.py --phases env,build,model_fuzz)")
+    picked = [c for c in cases.width_cases() if c["kernel"] ==
+              "flash_attention" and c["name"].startswith(f"dh{dh}_")]
+    assert len(picked) == 8
+    for case in picked:
+        args = cases.model_tensors(case, "cuda")
+        got = ops.flash_attention(*args, **case["static"])
+        want = ref.flash_attention_ref(*args, **case["static"])
+        assert got.dtype == want.dtype and got.shape == want.shape
+        tol = cases.MODEL_TOL["flash_attention"][case["dtype"]]
+        torch.testing.assert_close(got.float(), want.float(), atol=tol,
+                                   rtol=tol, msg=case["name"])

@@ -331,3 +331,109 @@ def test_tf32_rounding_is_to_nearest_ties_away():
                       1.0 + half - 2.0 ** -23, 3.0], dtype=torch.float32)
     want = torch.tensor([one, -one, one + 2.0 ** -10, 1.0, 3.0])
     assert torch.equal(_tf32(x), want)
+
+
+# ------------------------------------------------- B5 past its widths ----
+
+#: the T = S cases of B5's new widths (the Pallas body and the oracle place
+#: the queries differently when T != S, ROADMAP §C)
+PAST_TILE_INTERPRET = [f"flash_attention-dh{dh}_{mode}_{t}"
+                       for dh in (12, 100, 320)
+                       for mode in ("causal", "window48", "full")
+                       for t in ("f32", "bf16")]
+
+
+@functools.lru_cache(maxsize=None)
+def _interpret(static):
+    from repro.kernels.flash_attention import flash_attention_kernel
+    return jax.jit(functools.partial(flash_attention_kernel, block_q=64,
+                                     block_kv=64, interpret=True,
+                                     **dict(static)))
+
+
+@pytest.mark.parametrize("cid", PAST_TILE_INTERPRET)
+def test_plain_version_equals_interpret_mode_kernel_past_the_widths(cid):
+    """dh off 8 and past 256: the plain version (which the wrapper's
+    padded and sliced launches are held to on the card) against the JAX
+    package's Pallas kernel in interpret mode, at MODEL_TOL."""
+    case = WIDTH_CASES[WIDTH_IDS.index(cid)]
+    dtype = jnp.dtype(case["dtype"])
+    q, k, v = (jnp.asarray(case[f], dtype) for f in ("q", "k", "v"))
+    g = q.shape[2] // k.shape[2]
+    want = _interpret(tuple(sorted(case["static"].items())))(
+        q, jnp.repeat(k, g, axis=2), jnp.repeat(v, g, axis=2))
+    got = ref.flash_attention_ref(*cases.model_tensors(case, "cpu"),
+                                  **case["static"])
+    tol = cases.MODEL_TOL["flash_attention"][case["dtype"]]
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), atol=tol,
+                               rtol=tol)
+
+
+@pytest.mark.parametrize("dh", [12, 100, 20])
+@pytest.mark.parametrize("causal,window", [(True, None), (True, 48),
+                                           (False, None)])
+def test_zero_columns_leave_the_attention_as_it_was(dh, causal, window):
+    """The wrapper's plan for a dh off 8 (``flash_attention.launch_plan``):
+    q, k and v zero-padded to the next multiple of 8, scores scaled by the
+    true dh, the output cut back.  On the CPU's plain version (the scale
+    carried into q, as the kernel applies it after the dot) the padded
+    columns change no score and no kept output column."""
+    from repro_torch.kernels import flash_attention as fa
+    dhp, dtype = fa.launch_plan(dh, torch.float32)
+    assert dhp % fa.VEC == 0 and dh < dhp < dh + fa.VEC
+    assert dtype == torch.float32
+    rng = np.random.default_rng(dh)
+    q, k, v = (torch.from_numpy(rng.normal(0, 0.5, (1, 150, h, dh))
+                                .astype(np.float32)) for h in (4, 2, 2))
+    want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    pad = [_pad(x, dhp) for x in (q, k, v)]
+    pad[0] = pad[0] * ((dh ** -0.5) / (dhp ** -0.5))
+    got = ref.flash_attention_ref(*pad, causal=causal, window=window)
+    assert torch.equal(got[..., dh:], torch.zeros_like(got[..., dh:]))
+    torch.testing.assert_close(got[..., :dh], want, atol=1e-6, rtol=1e-6)
+
+
+@pytest.mark.parametrize("dh,dtype,plan", [
+    (12, torch.float32, (16, torch.float32)),
+    (100, torch.bfloat16, (104, torch.bfloat16)),
+    (256, torch.bfloat16, (256, torch.bfloat16)),
+    (264, torch.bfloat16, (264, torch.float32)),
+    (510, torch.float32, (512, torch.float32)),
+    (512, torch.bfloat16, (512, torch.float32))])
+def test_launch_plan_pads_to_8_and_takes_bf16_past_256_to_the_f32_arm(
+        dh, dtype, plan):
+    from repro_torch.kernels import flash_attention as fa
+    assert fa.launch_plan(dh, dtype) == plan
+
+
+def test_shared_memory_takes_dh_512_and_refuses_by_the_numbers():
+    """Past 256 a block holds Q and two stages of K at the whole dh and two
+    of V at one slice (key tiles of 8): dh 512 takes 181,760 bytes, within
+    an H100's 227 KB; the first width past the opt-in is refused by the
+    shared-memory check alone."""
+    from repro_torch.kernels import flash_attention as fa
+    optin = 227 * 1024
+    assert fa.smem_bytes(512, torch.float32) == 181_760
+    assert fa.smem_bytes(256, torch.float32) == fa.smem_bytes(256) < optin
+    widest = max(d for d in range(264, 2048, 8)
+                 if fa.smem_bytes(d, torch.float32) <= optin)
+    assert 512 <= widest < 2048
+    assert fa.smem_bytes(widest + 8, torch.float32) > optin
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dh", cases.PAST_TILE_DH)
+def test_flash_attention_widths_past_the_kernels_reach_the_device_check(
+        dh, dtype):
+    """No width is refused before the device check: a ``meta`` tensor,
+    standing in for a CUDA one, is refused there and nothing launches."""
+    from repro_torch.kernels import ops
+    dt = getattr(torch, dtype)
+    q = torch.zeros(1, 40, 4, dh, dtype=dt, device="meta")
+    kv = torch.zeros(1, 40, 2, dh, dtype=dt, device="meta")
+    before = ops.launch_counts()["flash_attention"]
+    with pytest.raises(ValueError, match="expected a CUDA tensor"):
+        ops.flash_attention(q, kv, kv, causal=True)
+    assert ops.launch_counts()["flash_attention"] == before
+
