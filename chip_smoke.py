@@ -174,6 +174,19 @@ One JSON object per phase, one per line:
                       (c) ``make_runner(mesh=)`` with a ('lanes', 'page')
                       mesh of shape (1, 4) on the card at sim_small's
                       point, both steppers, bit-equal to ``mesh=None``
+16b. ``mesh_ranks``   the simulator's mesh across processes: (a) in a
+                      child, ``tpch_big`` on a (1, 1) ('lanes', 'page')
+                      DeviceMesh of one NCCL rank, replayed from graphs
+                      with the all-gather inside, bit-equal to
+                      ``mesh=None``, its ms a macro-step, the all-gather's
+                      time and each stage 1's device ms at its shard
+                      offset; (b) two ranks on the one card (``gloo`` on
+                      CUDA tensors, stepped eagerly; NCCL one card a rank
+                      where there are two), (1, 2) and (2,) meshes at
+                      sim_small's point and (1, 2) at ``tpch_big``, cut at
+                      ``MESH_RANK_SLICES``, every leaf of both ranks
+                      bit-equal to ``mesh=None``; ``device_count``, and
+                      ``cross_card`` while the machine has one card
 17. ``kernels``       every kernel against its plain version on inputs
                       captured from phases 8-16, and its time per call
                       (``ms``: CUDA events around one call, median of up to
@@ -212,6 +225,7 @@ development, the check is the run without arguments.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import os
 import shutil
@@ -230,9 +244,10 @@ TIME_LIMIT_S = 1200.0          # the whole script, kernel build included
 #: captured graphs the 24-lane calibrated sweep takes ~40-60 s of the
 #: ~300 it took eagerly, and the fixed stepper holds every validated point
 TARGET_S = 840.0
-#: kept for the phases after sim_full (tpch_probe, page_split, kernels),
-#: and for the kernels phase's timing of the model-stack kernels
-TAIL_S, MODEL_KERNELS_S = 120.0, 100.0
+#: kept for the phases after sim_full (tpch_probe, page_split, mesh_ranks,
+#: kernels: ~175 s on an H100 80GB HBM3 at 700 W, mesh_ranks ~85 s of
+#: it), and for the kernels phase's timing of the model-stack kernels
+TAIL_S, MODEL_KERNELS_S = 200.0, 100.0
 #: a scale-1.0 macro-step (P = 3072) over a scale-0.25 one (P = 768),
 #: which sim_full's budget reads: 1.74 against 1.54 ms replayed from the
 #: runner's graphs on an H100 80GB HBM3 at 700 W (sim_full and
@@ -3052,7 +3067,7 @@ def phase_sim_graphs(dev) -> dict:
                           policies=POLICIES, mesh=mesh)
         rows.append(graph_vs_eager("mesh_1x4", run, spec, cfgs,
                                    shard=run.runners[dev]))
-    counts = graph_kernels_child()
+    counts = json_child("--count-graph-kernels", "sim_graphs", 600)
     out = {"phase": "sim_graphs", "rows": rows, "kernel_counts": counts,
            "seconds": time.time() - t_phase}
     out["ok"] = all(r["ok"] for r in rows) and counts["ok"]
@@ -3065,17 +3080,16 @@ def phase_sim_graphs(dev) -> dict:
 
 
 def count_graph_kernels(dev) -> dict:
-    """The child's side of :func:`graph_kernels_child`: for each runner
+    """The ``--count-graph-kernels`` child of ``sim_graphs``: for each runner
     whose launch counts a gate reads — ``sim_small``'s point under both
     steppers, ``sim_calibrated``'s 24-lane horizon runner run to its end,
     and ``tpch_big``'s (P = 35,328, the page-split kernels) cut where that
-    phase cuts it — one run captures the runner's graphs; then for each
+    phase cuts it — one run captures the runner's graphs (the same runner
+    over one NCCL rank: ``mesh_ranks`` (a)); then for each
     graph the CUDA kernels one replay launches and those of the same body
     run eagerly on copies of the buffers (``torch.profiler``), and the
     buffer-pool kernels the runner counts a replay."""
-    from repro_torch.core.array_sim import compile_workload, make_runner
-    from repro_torch.core.workload import (
-        make_tpch_db, tpch_accessed_bytes, tpch_streams)
+    from repro_torch.core.array_sim import make_runner
     out = {"graphs": [], "ok": True}
 
     def profile(point, spec, cfgs, **kw):
@@ -3097,15 +3111,9 @@ def count_graph_kernels(dev) -> dict:
     profile("sim_calibrated", spec, cfgs,
             time_slice=0.1 * CALIBRATED_SCALE, bandwidth_ref=700e6,
             stepper="horizon")
-    big = TPCH_BIG
-    db = make_tpch_db(scale=big["scale"])
-    streams = tpch_streams(db, n_streams=big["n_streams"], seed=big["seed"])
-    spec = compile_workload(db, streams)
-    _, cfgs = sweep_configs(spec, tpch_accessed_bytes(db, streams), FRACS,
-                            dev, bandwidth=600e6)
-    profile("tpch_big", spec, cfgs, time_slice=0.1, bandwidth_ref=600e6,
-            stepper="horizon", wake_exact=True,
-            max_slices=big["max_slices"])
+    spec, cfgs, kw = tpch_big_point(dev, TPCH_BIG["max_slices"])
+    kw.pop("policies")
+    profile("tpch_big", spec, cfgs, **kw)
     return out
 
 
@@ -3131,8 +3139,7 @@ def _graph_rows(run) -> list:
             b["carry"] = sim._tree_map(torch.clone, b["carry"])
             for name in ("live", "inner", "n_live", "n_in"):
                 b[name] = b[name].clone()
-            replay = _graph_names(cuda_kernels_per_call(
-                lambda rep=rep, key=key: rep.replay(key), reps=5))
+            replay = _replay_kernels(rep, key)
             body = _graph_names(cuda_kernels_per_call(
                 lambda rep=rep, key=key, b=b: rep._body(*key, b), reps=5))
             hand = {name: sum(n for k, n in replay.items()
@@ -3145,6 +3152,7 @@ def _graph_rows(run) -> list:
                    "hand_kernels_a_replay": hand,
                    "split_kernels_a_replay": sum(
                        n for k, n in replay.items() if "split_" in k),
+                   "copies_a_replay": _copies(replay),
                    "unequal": {k: [replay.get(k, 0.0), body.get(k, 0.0)]
                                for k in set(replay) | set(body)
                                if replay.get(k, 0.0) != body.get(k, 0.0)}}
@@ -3154,9 +3162,49 @@ def _graph_rows(run) -> list:
     return rows
 
 
-#: a device-to-device copy that the eager stream runs as a copy engine's
-#: memcpy, a replay runs as a kernel node of the graph under this name
-GRAPH_KERNEL_ALIASES = {"memcpy32_post": "Memcpy DtoD (Device -> Device)"}
+#: a device-to-device copy or a memset that the eager stream runs as a copy
+#: engine's, a replay runs as a kernel node of the graph under these names
+GRAPH_KERNEL_ALIASES = {"memcpy32_post": "Memcpy DtoD (Device -> Device)",
+                        "memcpy128": "Memcpy DtoD (Device -> Device)",
+                        "memset32": "Memset (Device)",
+                        "Memset (Unknown)": "Memset (Device)"}
+
+
+def _replay_kernels(rep, key) -> dict:
+    """The CUDA kernels one replay of graph ``key`` of ``rep`` launches."""
+    return _graph_names(cuda_kernels_per_call(lambda: rep.replay(key),
+                                              reps=5))
+
+
+def _copies(kernels: dict) -> dict:
+    """NCCL's kernels, copies and memsets among ``kernels``."""
+    return {k: n for k, n in kernels.items()
+            if "nccl" in k.lower() or k.startswith(("Memcpy", "Memset"))}
+
+
+def collective_in_graphs(rank_rows: list, plain) -> dict:
+    """What each captured graph of a page-row rank's runner runs beyond the
+    same graph of the one-process runner ``plain`` at the same point (by
+    the profiler, ``copies_a_replay``: NCCL's kernels, copies and
+    memsets; of ``plain`` its replays alone are profiled): the step's
+    all-gathers.  NCCL runs a one-rank all-gather as a
+    device-to-device copy and launches no kernel of its own; ``ok`` asks
+    that every graph holds at least the two all-gathers (B1's and B2's) as
+    NCCL kernels or copies, and nothing else more."""
+    plain = {tuple(key): _copies(_replay_kernels(rep, key))
+             for rep in plain._replays.values() for key in rep.graphs}
+    out, ok = {}, bool(rank_rows)
+    for r in rank_rows:
+        base = plain.get(tuple(r["graph"]), {})
+        mine = r["copies_a_replay"]
+        extra = {k: mine.get(k, 0.0) - base.get(k, 0.0)
+                 for k in set(mine) | set(base)
+                 if mine.get(k, 0.0) != base.get(k, 0.0)}
+        out[str(r["graph"])] = extra
+        ok &= (sum(extra.values()) >= 2 and all(
+            n > 0 and ("nccl" in k.lower() or k.startswith("Memcpy DtoD"))
+            for k, n in extra.items()))
+    return {"extra_a_replay": out, "ok": ok}
 
 
 def _graph_names(kernels: dict) -> dict:
@@ -3169,18 +3217,17 @@ def _graph_names(kernels: dict) -> dict:
     return out
 
 
-def graph_kernels_child() -> dict:
-    """:func:`count_graph_kernels` in a fresh process: the profiler records
-    fewer kernels than ran late in a long process
-    (``tools/profiler_window_drift.py``)."""
-    proc = subprocess.run([sys.executable, os.path.abspath(__file__),
-                           "--count-graph-kernels"],
-                          capture_output=True, text=True, timeout=600)
+def json_child(flag: str, phase: str, timeout: float) -> dict:
+    """This script run with ``flag`` in a fresh process (the profiler
+    records fewer kernels than ran late in a long process,
+    ``tools/profiler_window_drift.py``): the JSON object of its last
+    line; ``phase`` fails if it does not end well."""
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), flag],
+                          capture_output=True, text=True, timeout=timeout)
     lines = proc.stdout.strip().splitlines()
     if proc.returncode != 0 or not lines:
-        fail("sim_graphs", f"the graph kernel count exited "
-                           f"{proc.returncode}: {proc.stdout[-1000:]} "
-                           f"{proc.stderr[-1500:]}")
+        fail(phase, f"{flag} exited {proc.returncode}: "
+                    f"{proc.stdout[-1000:]} {proc.stderr[-2500:]}")
     return json.loads(lines[-1])
 
 
@@ -3583,23 +3630,15 @@ def tpch_big_run(dev, recorder: Recorder) -> dict:
     horizon stepper with ``wake_exact`` over ``tpch_probe``'s lanes, cut
     at ``TPCH_SLICES`` slices; B1-B3 take only the page-split kernels here, and the
     kernels line holds their captured inputs to the plain versions."""
-    from repro_torch.core.array_sim import compile_workload
-    from repro_torch.core.workload import (
-        make_tpch_db, tpch_accessed_bytes, tpch_streams)
     from repro_torch.kernels.pbm_timeline import split_shards, splits
     cfg = TPCH_BIG
-    db = make_tpch_db(scale=cfg["scale"])
-    streams = tpch_streams(db, n_streams=cfg["n_streams"], seed=cfg["seed"])
-    spec = compile_workload(db, streams)
+    spec, cfgs, kw = tpch_big_point(dev, cfg["max_slices"])
     if not splits(spec.n_pages):
         fail("page_split", f"tpch_big: P={spec.n_pages} fits one block")
-    ws = tpch_accessed_bytes(db, streams)
-    _, cfgs = sweep_configs(spec, ws, FRACS, dev, bandwidth=600e6)
+    kw.pop("policies")
     with recorder:
         results, wall, launches, steps, _ = run_sweep_counted(
-            spec, cfgs, dev, time_slice=0.1, bandwidth_ref=600e6,
-            stepper="horizon", wake_exact=True,
-            max_slices=cfg["max_slices"])
+            spec, cfgs, dev, **kw)
     return {"P": spec.n_pages, "shards": split_shards(spec.n_pages),
             "C": spec.n_cols, "Q": spec.n_queries, **cfg,
             "truncated": True, "wall_s": wall, "batched_steps": steps,
@@ -3616,13 +3655,11 @@ def mesh_runner_check(dev) -> dict:
     ``mesh=None``."""
     import torch
     from repro_torch.core.array_sim import Mesh, make_runner
-    scale, fracs = 0.03, (0.2, 0.4, 0.8)
-    spec, ws = micro_workload(scale, 3, 3)
-    _, cfgs = sweep_configs(spec, ws, fracs, dev)
+    spec, cfgs, point = sim_small_point(dev)
     mesh = Mesh([[dev] * 4], ("lanes", "page"))
     out = {"P": spec.n_pages, "mesh": mesh.shape}
     for stepper in ("fixed", "horizon"):
-        kw = dict(time_slice=0.1 * scale, stepper=stepper, policies=POLICIES)
+        kw = dict(point, stepper=stepper)
         plain = make_runner(spec, device=dev, **kw)(cfgs)
         runner = make_runner(spec, mesh=mesh, **kw)
         split = runner(cfgs)
@@ -3650,7 +3687,475 @@ def phase_page_split(dev, recorder: Recorder) -> dict:
     if not out["ok"]:
         fail("page_split", "a split kernel disagrees with the single-stage "
                            "one, or the mesh runner with mesh=None")
-    return out["tpch_big"]["launches"]
+    return out["tpch_big"]["launches"], out["tpch_big"]["ms_per_macro_step"]
+
+
+# ------------------------------------------------------------ mesh ranks ----
+
+#: the slices (b)'s two ranks, which step eagerly, run of each point
+MESH_RANK_SLICES = {"sim_small": 24, "tpch_big": 4}
+#: the share of pages evictable in (a)'s check of B1's rank stages (the
+#: step's own mask is empty at its first step: nothing is cached yet)
+EVICTABLE = 0.7
+#: (a)'s child and (b)'s ranks, each start-up and build included (a
+#: collective of their groups fails past 60 s on its own)
+MESH_CHILD_TIMEOUT_S = 300.0
+
+
+def sim_small_point(dev, max_slices=None):
+    """``sim_small``'s point (scale 0.03, twelve lanes): spec, configs and
+    the runner's knobs (run to its end, or cut at ``max_slices``)."""
+    scale = 0.03
+    spec, ws = micro_workload(scale, 3, 3)
+    _, cfgs = sweep_configs(spec, ws, (0.2, 0.4, 0.8), dev)
+    kw = dict(time_slice=0.1 * scale, policies=POLICIES)
+    if max_slices is not None:
+        kw["max_slices"] = max_slices
+    return spec, cfgs, kw
+
+
+def tpch_big_point(dev, max_slices: int):
+    """``tpch_big`` (TPC-H at scale 4.0, P = 35,328, 24 lanes, the horizon
+    stepper with ``wake_exact``) cut at ``max_slices``: spec, configs and
+    the runner's knobs."""
+    from repro_torch.core.array_sim import compile_workload
+    from repro_torch.core.workload import (
+        make_tpch_db, tpch_accessed_bytes, tpch_streams)
+    cfg = TPCH_BIG
+    db = make_tpch_db(scale=cfg["scale"])
+    streams = tpch_streams(db, n_streams=cfg["n_streams"], seed=cfg["seed"])
+    spec = compile_workload(db, streams)
+    _, cfgs = sweep_configs(spec, tpch_accessed_bytes(db, streams), FRACS,
+                            dev, bandwidth=600e6)
+    return spec, cfgs, dict(time_slice=0.1, bandwidth_ref=600e6,
+                            stepper="horizon", wake_exact=True,
+                            max_slices=max_slices, policies=POLICIES)
+
+
+class Gathers:
+    """While active: the buffer each buffer-pool kernel all-gathers across
+    a page row (shape, dtype) and a clone of its first call's inputs."""
+
+    KERNELS = ("batched_evict", "fifo_grant")
+
+    def __enter__(self):
+        from repro_torch.kernels import collective, ops
+        self.sizes, self.calls, self._tag = {}, {}, None
+        self._saved = [(collective, "all_gather", collective.all_gather)] + [
+            (ops, n, getattr(ops, n)) for n in self.KERNELS]
+        gather = collective.all_gather
+
+        def gathered(x, group):
+            self.sizes.setdefault(self._tag, (tuple(x.shape), x.dtype))
+            return gather(x, group)
+        collective.all_gather = gathered
+        for mod, name, fn in self._saved[1:]:
+            setattr(mod, name, self._tagged(name, fn))
+        return self
+
+    def _tagged(self, name, fn):
+        def call(*args, **static):
+            self.calls.setdefault(name, ([a.clone() for a in args],
+                                         dict(static)))
+            self._tag = name
+            try:
+                return fn(*args, **static)
+            finally:
+                self._tag = None
+        return call
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self._saved:
+            setattr(mod, name, fn)
+
+
+def gather_ms(sizes: dict, group, dev, n: int = 20) -> dict:
+    """Wall ms of one all-gather of each buffer over ``group`` (host clock
+    around ``n`` calls, synchronised), and on an NCCL group the device ms
+    between CUDA events too."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.kernels import collective
+    out = {}
+    for name, (shape, dtype) in sizes.items():
+        buf = torch.zeros(shape, dtype=dtype, device=dev)
+        collective.all_gather(buf, group)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            collective.all_gather(buf, group)
+        torch.cuda.synchronize()
+        row = {"bytes": buf.numel() * buf.element_size(),
+               "ms": (time.perf_counter() - t0) * 1e3 / n,
+               "backend": dist.get_backend(group)}
+        if row["backend"] == "nccl":
+            row["device_ms"] = _time_ms(
+                lambda: collective.all_gather(buf, group), dev, n=n)
+        out[name] = row
+    return out
+
+
+def rank_stages(calls: dict, dev) -> dict:
+    """B1's and B2's rank path at each rank's shard offset of a page row of
+    one and of two ranks, on the inputs of ``calls`` (one step's, kept by
+    :class:`Gathers`): each rank's stage 1 alone into its own buffer
+    (device ms, ``_queued_ms``); the buffers stacked rank-major, as the
+    all-gather lays them out; the finish on them (``Ranks{n, stride}``,
+    the row zeroed) into outputs planted with a sentinel, so that a row
+    it fails to zero shows; and the result against the plain version
+    (``ref``) on the same inputs: mismatches of each output, and a check
+    whose plain version selects nothing fails."""
+    import torch
+    from repro_torch.kernels import pbm_timeline as pt
+    from repro_torch.kernels import ref
+    lib, max_dyn = pt.library(dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    out = {}
+    for name, (args, static) in calls.items():
+        key, sizes = args[0], args[1]
+        L, P = key.shape
+        vmax = int(static["vmax"])
+        stride = 0 if sizes.dim() == 1 else P
+        evict = name == "batched_evict"
+        want = (ref.batched_evict_ref(*args, vmax=vmax),) if evict else \
+            ref.fifo_grant_ref(*args, vmax=vmax)
+        rows, checks = [], []
+        for n_rank in (1, 2):
+            n_loc = pt.split_ranks(P, n_rank, max_dyn[3])
+            n_sh = n_rank * n_loc
+            m_slots, whole = pt._head_slots(P, vmax, n_sh)
+            if whole:
+                continue
+            words = L * n_loc * m_slots
+            bufs = []
+            for rank in range(n_rank):
+                own = torch.empty(words + (0 if evict else L * n_loc),
+                                  dtype=torch.int64, device=dev)
+                if evict:
+                    fn = (lib.pbm_split_evict_cand_f32
+                          if key.dtype == torch.float32
+                          else lib.pbm_split_evict_cand_i32)
+                    call = functools.partial(
+                        fn, key.data_ptr(), args[2].data_ptr(),
+                        args[3].data_ptr(), L, P, vmax, n_sh, rank * n_loc,
+                        n_loc, m_slots, own.data_ptr(), stream)
+                else:
+                    call = functools.partial(
+                        lib.pbm_split_grant_cand, key.data_ptr(),
+                        sizes.data_ptr(), stride, args[3].data_ptr(),
+                        own.data_ptr(), own[words:].data_ptr(), L, P, vmax,
+                        n_sh, rank * n_loc, n_loc, m_slots, stream)
+                if call() != 0:
+                    fail("mesh_ranks", f"{name} stage 1 refused a launch")
+                rows.append({"ranks": n_rank, "rank": rank,
+                             "shards": [rank * n_loc, n_loc, n_sh],
+                             "m_slots": m_slots,
+                             "device_ms": _queued_ms(call)[0]})
+                bufs.append(own)
+            every = torch.stack(bufs)
+            got = (torch.ones((L, P), dtype=torch.bool, device=dev),)
+            if evict:
+                err = lib.pbm_split_evict_finish(
+                    every.data_ptr(), sizes.data_ptr(), stride,
+                    args[2].data_ptr(), args[3].data_ptr(),
+                    got[0].data_ptr(), L, P, vmax, n_sh * m_slots, n_rank,
+                    every.shape[1], stream)
+            else:
+                got += (torch.full((L,), -7.0, device=dev),
+                        torch.full((L,), -7, dtype=torch.int32, device=dev))
+                err = lib.pbm_split_grant_finish(
+                    every.data_ptr(), every[0, words:].data_ptr(),
+                    sizes.data_ptr(), stride, args[2].data_ptr(),
+                    args[3].data_ptr(), got[0].data_ptr(), got[1].data_ptr(),
+                    got[2].data_ptr(), L, P, vmax, n_sh, n_sh * m_slots,
+                    n_rank, every.shape[1], stream)
+            torch.cuda.synchronize()
+            checks.append({
+                "ranks": n_rank, "rc": err,
+                "selected": int(got[0].sum()),
+                "want_selected": int(want[0].sum()),
+                "mismatches": [int((g != w).sum())
+                               for g, w in zip(got, want)]})
+            checks[-1]["ok"] = (err == 0 and checks[-1]["want_selected"] > 0
+                                and not any(checks[-1]["mismatches"]))
+        out[name] = {"L": L, "P": P, "vmax": vmax, "rows": rows,
+                     "finish": checks,
+                     "ok": any(c["ranks"] == 2 for c in checks)
+                     and all(c["ok"] for c in checks)}
+    out["ok"] = bool(calls) and all(v["ok"] for v in out.values())
+    return out
+
+
+def _rendezvous(tmp: str) -> str:
+    return f"file://{os.path.join(tmp, 'rendezvous')}"
+
+
+def nccl_rank_run(dev) -> dict:
+    """Part (a) of ``mesh_ranks``, in a fresh process (its own NCCL group;
+    the profiler counts reliably early in a process): ``tpch_big`` cut at
+    ``TPCH_SLICES`` on a (1, 1) ('lanes', 'page') DeviceMesh of one NCCL
+    rank, its steps replayed from captured graphs with the all-gathers
+    inside, against ``mesh=None`` on the same card: every leaf; ms a
+    macro-step of each, the first run (captures included, as ``page_split``
+    (b) times it) and then one more each, warm; the CUDA kernels of each
+    captured graph against its eager body (``_graph_rows``) and beyond the
+    one-process graph (:func:`collective_in_graphs`); the all-gather's
+    time a call; and B1's and B2's stages at one and two ranks' shard
+    offsets, the finish held to the plain versions (:func:`rank_stages`).
+    ``seconds_parts`` says where the child's time went."""
+    import tempfile
+
+    import torch
+    from repro_torch.core.array_sim import make_runner
+    from repro_torch.core.array_sim.dist import close_mesh, init_mesh
+    from repro_torch.kernels import ops
+    t_phase = time.time()
+    parts = {}
+
+    def lap(name, t=[t_phase]):
+        parts[name] = time.time() - t[0]
+        t[0] = time.time()
+    spec, cfgs, kw = tpch_big_point(dev, TPCH_SLICES)
+    lap("setup")
+    out = {"point": "tpch_big", "P": spec.n_pages,
+           "L": int(cfgs.policy.shape[0]), "max_slices": TPCH_SLICES,
+           "mesh": [1, 1], "backend": "nccl"}
+
+    def timed(run):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        state = run(cfgs)
+        torch.cuda.synchronize()
+        steps = run.stats["cheap_steps"] + run.stats["refresh_steps"]
+        return state, (time.time() - t0) / max(1, steps) * 1e3, steps
+
+    plain = make_runner(spec, device=dev, **kw)
+    want, out["plain_first_ms_per_macro_step"], out["macro_steps"] = \
+        timed(plain)
+    tmp = tempfile.mkdtemp(prefix="mesh_ranks_")
+    try:
+        mesh = init_mesh((1, 1), ("lanes", "page"), "cuda",
+                         init_method=_rendezvous(tmp), rank=0, world_size=1)
+        run = make_runner(spec, mesh=mesh, **kw)
+        ops.reset_launch_counts()
+        got, out["first_ms_per_macro_step"], steps = timed(run)
+        out["launches"] = {k: v for k, v in ops.launch_counts().items()
+                           if k in SIM_KERNELS}
+        turns = {"plain": [], "rank": []}
+        unequal = set(unequal_leaves(want, got))
+        for tag in ("rank", "plain"):
+            state, ms, _ = timed(plain if tag == "plain" else run)
+            turns[tag].append(ms)
+            if tag == "rank":
+                unequal |= set(unequal_leaves(want, state))
+        out["plain_ms_per_macro_step"] = turns["plain"]
+        out["ms_per_macro_step"] = turns["rank"]
+        out["unequal_leaves"] = sorted(unequal)
+        out["steps_equal"] = steps == out["macro_steps"]
+        lap("runs")
+        one = run.runners[run.device]
+        with Gathers() as g:
+            one.cheap(one.init_carry(cfgs), cfgs)
+            torch.cuda.synchronize()
+        out["gather"] = gather_ms(g.sizes, mesh.get_group("page"), dev)
+        args, static = g.calls["batched_evict"]     # every lane freeing
+        pick = torch.Generator(device=dev).manual_seed(TPCH_BIG["seed"])
+        g.calls["batched_evict"] = (
+            [*args[:2], torch.rand(args[2].shape, generator=pick,
+                                   device=dev) < EVICTABLE,
+             torch.full_like(args[3], float(16 << 20))], static)
+        args, static = g.calls["fifo_grant"]        # every lane popping
+        g.calls["fifo_grant"] = (
+            [*args[:2], torch.full_like(args[2], float(1 << 30)),
+             torch.full_like(args[3], int(static["vmax"]))], static)
+        out["stage1"] = rank_stages(g.calls, dev)
+        out["stage1"]["batched_evict"].update(need_free=16 << 20,
+                                              evictable=EVICTABLE)
+        out["stage1"]["fifo_grant"].update(budget=1 << 30, pops="vmax")
+        lap("gather_and_stages")
+        rows = out["graphs"] = _graph_rows(one)
+        out["collective"] = collective_in_graphs(rows, plain)
+        lap("graphs")
+    finally:
+        close_mesh()
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["seconds"] = time.time() - t_phase
+    out["seconds_parts"] = parts
+    out["ok"] = (not out["unequal_leaves"] and out["steps_equal"]
+                 and all(r["ok"] for r in rows) and out["collective"]["ok"]
+                 and out["stage1"]["ok"]
+                 and all(v > 0 for v in out["launches"].values()))
+    return out
+
+
+def mesh_rank_child(rank: int, world: int, tmp: str, backend: str) -> dict:
+    """One rank of part (b) of ``mesh_ranks``: the (1, 2) ('lanes',
+    'page') and (2,) ('lanes',) DeviceMeshes over ``world`` = 2 processes
+    (``backend`` ``gloo`` on CUDA tensors: both ranks on the one card;
+    ``nccl``: one card a rank), ``sim_small``'s point under both steppers
+    and ``tpch_big`` on (1, 2), each cut at ``MESH_RANK_SLICES``.  The
+    (2,) mesh goes through ``make_runner(mesh=)`` itself (each rank's
+    lane shard replayed from its graphs, the lanes all-gathered); on the
+    (1, 2) mesh each rank drives its steps with :func:`eager_loop`, as a
+    ``gloo`` collective cannot be captured (``make_runner`` refuses that
+    page group on a CUDA device, which this records).  Every state goes
+    to ``<tmp>/rank<r>.pt``."""
+    import inspect
+
+    import torch
+    from repro_torch.core.array_sim import make_runner, sim
+    from repro_torch.core.array_sim.dist import close_mesh, init_mesh
+    from repro_torch.core.array_sim.mesh import mesh_ranks
+    knobs = {k: p.default for k, p in
+             inspect.signature(make_runner).parameters.items()
+             if k not in ("spec", "mesh", "sanitize", "device")}
+    res = {"rank": rank, "backend": backend, "runs": {}, "stats": {},
+           "refused": None}
+    states = {}
+    try:
+        meshes = {"1x2": init_mesh((1, 2), ("lanes", "page"), "cuda",
+                                   backend=backend,
+                                   init_method=_rendezvous(tmp), rank=rank,
+                                   world_size=world),
+                  "2": init_mesh((2,), ("lanes",), "cuda", backend=backend,
+                                 init_method=_rendezvous(tmp), rank=rank,
+                                 world_size=world)}
+        dev = torch.device("cuda", torch.cuda.current_device())
+        res["device"] = str(dev)
+        small = sim_small_point(dev, MESH_RANK_SLICES["sim_small"])
+        big = tpch_big_point(dev, MESH_RANK_SLICES["tpch_big"])
+        if backend == "gloo":
+            try:
+                make_runner(small[0], mesh=meshes["1x2"], **small[2])
+            except ValueError as e:
+                res["refused"] = str(e)
+        cases = [("sim_small", "1x2", s) for s in ("fixed", "horizon")] + [
+            ("sim_small", "2", s) for s in ("fixed", "horizon")] + [
+            ("tpch_big", "1x2", "horizon")]
+        for point, name, stepper in cases:
+            spec, cfgs, kw = small if point == "sim_small" else big
+            me = mesh_ranks(meshes[name])
+            t0 = time.time()
+            if me.page_group is None:       # the entry point, replayed
+                run = make_runner(spec, mesh=meshes[name],
+                                  **{**kw, "stepper": stepper})
+                state = run(cfgs)
+                torch.cuda.synchronize()
+                wall, stats = time.time() - t0, dict(run.stats)
+            else:                           # a gloo page row, eager
+                one = sim._runner(spec, dev, page_group=me.page_group,
+                                  **{**knobs, **kw, "stepper": stepper})
+                with Gathers() as g:
+                    state, stats = eager_loop(one, spec, cfgs)
+                torch.cuda.synchronize()
+                wall = time.time() - t0
+            states[point, name, stepper] = sim._tree_map(
+                lambda x: x.cpu(), state)
+            steps = stats["cheap_steps"] + stats["refresh_steps"]
+            row = {"driven": "eager_loop" if me.page_group is not None
+                   else "make_runner", "stats": stats, "wall_s": wall,
+                   "ms_per_macro_step": wall / max(1, steps) * 1e3}
+            if me.page_group is not None and point == "tpch_big":
+                row["gather"] = gather_ms(g.sizes, me.page_group, dev)
+            res["runs"][f"{point}/{name}/{stepper}"] = row
+        torch.save(states, os.path.join(tmp, f"rank{rank}.pt"))
+    finally:
+        close_mesh()
+    return res
+
+
+def two_ranks_one_card(dev) -> dict:
+    """Part (b) of ``mesh_ranks``: two processes of :func:`mesh_rank_child`
+    (``gloo`` on the one card; ``nccl`` one card a rank where the machine
+    has two), every state leaf of both ranks against ``mesh=None`` run on
+    this process's card."""
+    import tempfile
+
+    import torch
+    from repro_torch.core.array_sim import make_runner, sim
+    n_cards = torch.cuda.device_count()
+    backend = "nccl" if n_cards > 1 else "gloo"
+    t0 = time.time()
+    tmp = tempfile.mkdtemp(prefix="mesh_ranks_")
+    try:
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--mesh-rank",
+             str(r), "2", tmp, backend], stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True) for r in range(2)]
+        outs = []
+        deadline = time.time() + MESH_CHILD_TIMEOUT_S
+        try:
+            for p in procs:
+                outs.append(p.communicate(
+                    timeout=max(1.0, deadline - time.time())))
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for r, (p, (so, se)) in enumerate(zip(procs, outs)):
+            if p.returncode != 0 or not so.strip():
+                fail("mesh_ranks", f"rank {r} of (b) exited {p.returncode}: "
+                                   f"{so[-800:]} {se[-2500:]}")
+        ranks = [json.loads(so.strip().splitlines()[-1]) for so, _ in outs]
+        states = [torch.load(os.path.join(tmp, f"rank{r}.pt"),
+                             weights_only=False) for r in range(2)]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    ranks_s = time.time() - t0
+    small = sim_small_point(dev, MESH_RANK_SLICES["sim_small"])
+    big = tpch_big_point(dev, MESH_RANK_SLICES["tpch_big"])
+    want = {}
+    unequal = {}
+    for key in states[0]:
+        point, name, stepper = key
+        spec, cfgs, kw = small if point == "sim_small" else big
+        if (point, stepper) not in want:
+            run = make_runner(spec, device=dev, **{**kw, "stepper": stepper})
+            want[point, stepper] = sim._tree_map(lambda x: x.cpu(),
+                                                 run(cfgs))
+        unequal["/".join(key)] = [
+            unequal_leaves(want[point, stepper], st[key]) for st in states]
+    return {"backend": backend, "ranks": ranks, "unequal_leaves": unequal,
+            "seconds_parts": {"ranks": ranks_s,
+                              "mesh_none": time.time() - t0 - ranks_s},
+            "ok": all(not u for per in unequal.values() for u in per)
+            and len(unequal) == 5
+            and (backend != "gloo" or all(
+                r["refused"] and "nccl" in r["refused"].lower()
+                for r in ranks))}
+
+
+def phase_mesh_ranks(dev, page_split_ms=None) -> dict:
+    """The simulator's mesh across processes on the card: (a) one NCCL
+    rank at ``tpch_big`` (:func:`nccl_rank_run`, a child process); (b) two
+    ranks on the one card (:func:`two_ranks_one_card`).  No run across
+    separate cards exists while the machine has one: ``cross_card`` says
+    so."""
+    import torch
+    t0 = time.time()
+    out = {"phase": "mesh_ranks", "device_count": torch.cuda.device_count(),
+           "gpu": nvidia_smi_line()}
+    if out["device_count"] == 1:
+        out["cross_card"] = "not run: one card"
+        out["nccl_capture"] = (
+            "one rank only: NCCL runs a one-rank all-gather as a device "
+            "copy, so no capture of an NCCL collective across two or more "
+            "ranks has run")
+    out["a"] = json_child("--mesh-nccl", "mesh_ranks", MESH_CHILD_TIMEOUT_S)
+    out["a"]["page_split_b_ms_per_macro_step"] = page_split_ms
+    t_b = time.time()
+    out["b"] = two_ranks_one_card(dev)
+    out["b"]["seconds"] = time.time() - t_b
+    out["seconds"] = time.time() - t0
+    out["ok"] = out["a"]["ok"] and out["b"]["ok"]
+    emit(out)
+    if not out["ok"]:
+        fail("mesh_ranks", "a rank's state differs from mesh=None, a rank "
+                           "stage's finish differs from its plain version, "
+                           "a graph lacks its kernels or its all-gathers, or "
+                           "(b)'s refusal is missing")
+    return out
 
 
 # ------------------------------------------------------------------ main ----
@@ -3665,6 +4170,10 @@ def main() -> int:
                     help=argparse.SUPPRESS)     # the kernels phase's child
     ap.add_argument("--count-graph-kernels", action="store_true",
                     help=argparse.SUPPRESS)     # the sim_graphs phase's
+    ap.add_argument("--mesh-nccl", action="store_true",
+                    help=argparse.SUPPRESS)     # mesh_ranks (a)
+    ap.add_argument("--mesh-rank", nargs=4, help=argparse.SUPPRESS,
+                    metavar=("RANK", "WORLD", "DIR", "BACKEND"))  # (b)
     args = ap.parse_args()
 
     import torch
@@ -3680,6 +4189,14 @@ def main() -> int:
         print(json.dumps(count_graph_kernels(torch.device("cuda"))),
               flush=True)
         return 0
+    if args.mesh_nccl:
+        print(json.dumps(nccl_rank_run(torch.device("cuda"))), flush=True)
+        return 0
+    if args.mesh_rank:
+        rank, world, tmp, backend = args.mesh_rank
+        print(json.dumps(mesh_rank_child(int(rank), int(world), tmp,
+                                         backend)), flush=True)
+        return 0
     dev = torch.device("cuda")
     # full-f32 matrix products on the serving path (PyTorch's default,
     # stated): TF32 would not meet the f32 tolerances
@@ -3694,7 +4211,8 @@ def main() -> int:
                   "serve_small",
                   "model_serve", "sim_calibrated", "sim_fixed",
                   "sim_telemetry", "serve_full", "train", "examples",
-                  "sim_full", "tpch_probe", "page_split", "kernels"]
+                  "sim_full", "tpch_probe", "page_split", "mesh_ranks",
+                  "kernels"]
     phases = [p for p in args.phases.split(",") if p] or all_phases
     unknown = set(phases) - set(all_phases)
     if unknown:
@@ -3807,8 +4325,11 @@ def main() -> int:
             launches, main_p = full["launches"], full["P"]
     if "tpch_probe" in phases:
         by_phase["tpch_probe"] = phase_tpch_probe(dev, recorder)
+    page_split_ms = None
     if "page_split" in phases:
-        by_phase["tpch_big"] = phase_page_split(dev, recorder)
+        by_phase["tpch_big"], page_split_ms = phase_page_split(dev, recorder)
+    if "mesh_ranks" in phases:
+        phase_mesh_ranks(dev, page_split_ms)
 
     kernels_line = None
     if "kernels" in phases:

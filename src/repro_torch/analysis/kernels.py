@@ -79,12 +79,14 @@ _FLOAT_METHODS = {"float": "float32", "half": "float16",
 _KEY_PARAM = ("key", "keys")
 #: files in kernels/ that are not kernel-wrapper modules
 _NON_KERNEL_FILES = {"__init__.py", "ref.py", "ops.py", "cases.py",
-                     "_build.py", "autograd.py"}
+                     "_build.py", "autograd.py", "collective.py"}
 #: the page-split entries (B1-B3 beyond one block) and their plain
 #: versions in ``kernels/ref.py``
 PAGE_SPLIT_ORACLES = {"batched_evict[split]": "evict_page_sharded",
                       "fifo_grant[split]": "grant_page_sharded",
-                      "wake_solve[split]": "wake_solve_ref"}
+                      "wake_solve[split]": "wake_solve_ref",
+                      "batched_evict[ranks]": "evict_rank_sharded",
+                      "fifo_grant[ranks]": "grant_rank_sharded"}
 #: files whose ``cumsum`` of bytes / sizes must be f64
 _PREFIX_DIRS = ("kernels/", "core/array_sim/")
 _BYTE_WORDS = ("byte", "size", "sz")

@@ -50,7 +50,16 @@ Rules
 * ``host-call``: numpy, ``random`` or ``time`` applied to a tensor;
 * ``step-print``: ``print`` in a step region, the counterpart of the JAX
   package's ``jit-host-callback``; ``# analysis: obs`` on a ``def`` is
-  the deliberate debugging escape and silences only this rule.
+  the deliberate debugging escape and silences only this rule;
+* ``step-collective``: a ``torch.distributed`` call in a step region
+  other than the all-gather into a tensor (and the group's size and
+  rank, host values): object collectives pickle through the host, and a
+  barrier, a send / receive or a broadcast of objects wait on it.  The
+  page split's all-gather (``kernels.collective``) is a device collective
+  on NCCL, which reads nothing back and which a capture takes; on the CPU
+  (``gloo``) the whole runner is host code anyway.  A process group
+  (a parameter named ``group`` or ``page_group``) is host structure, as
+  ``spec`` is.
 
 Capture rules
 -------------
@@ -115,13 +124,18 @@ __all__ = ["lint_paths", "lint_source", "repo_src_root", "RULES"]
 #: pragma rule are the JAX package's, verbatim)
 RULES = (
     "sync-coercion", "sync-control-flow", "sync-dynamic-shape",
-    "host-call", "step-print", "capture-host-copy", "capture-first-use",
+    "host-call", "step-print", "step-collective", "capture-host-copy",
+    "capture-first-use",
     "capture-host-read", "unknown-analysis-pragma",
     "deprecated-static-policy", "deprecated-int-policy-id",
     "deprecated-time-passed",
 )
-#: parameters that are always static in step regions
-STATIC_PARAM_NAMES = {"self", "cls", "spec"}
+#: parameters that are always static in step regions (a process group
+#: is host structure)
+STATIC_PARAM_NAMES = {"self", "cls", "spec", "group", "page_group"}
+#: the ``torch.distributed`` calls a step region may make: the page
+#: split's device all-gather and the group's geometry
+STEP_COLLECTIVES = {"all_gather_into_tensor", "get_world_size", "get_rank"}
 #: attribute reads that cut taint: static workload geometry / flags —
 #: ``.spec`` (SimSpec, static by construction), ``.refresh`` (the static
 #: slice-boundary flag), ``.cooperative`` / ``.fifo_tie`` / ``.name``
@@ -666,6 +680,14 @@ class _TracedChecker(ast.NodeVisitor):
                 "belongs in the carried counters (repro_torch.obs); mark a "
                 "deliberate debugging escape with `# analysis: obs`",
             )
+        called = ast.unparse(func)
+        if called.startswith(("dist.", "torch.distributed.")) \
+                and called.rsplit(".", 1)[1] not in STEP_COLLECTIVES:
+            self._emit(
+                "step-collective", node,
+                f"`{called}()` inside a step region: only the all-gather "
+                "into a tensor is a device collective a captured step "
+                "takes; this one goes through or waits on the host")
         self._capture_rules(node, func, args_tainted)
         self.generic_visit(node)
 

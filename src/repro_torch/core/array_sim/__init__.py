@@ -25,6 +25,7 @@ from .convert import (
     state_from_numpy,
     state_to_numpy,
 )
+from .dist import close_mesh, init_mesh
 from .mesh import Mesh
 from .sim import (
     ArrayResult,
@@ -66,6 +67,8 @@ from .validate import (
 
 __all__ = [
     "Mesh",
+    "close_mesh",
+    "init_mesh",
     "ArrayCScan",
     "ArrayLRU",
     "ArrayOPT",

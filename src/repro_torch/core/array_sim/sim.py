@@ -40,9 +40,11 @@ machine:
 
 ``make_runner(telemetry=True)`` threads the carried counters of
 ``repro_torch.obs`` through the loop nest (with it off, the step runs
-not one operator more); ``make_runner(mesh=)`` splits the lanes over the
-devices of a :class:`~repro_torch.core.array_sim.mesh.Mesh` and the page
-axis over blocks of one card; ``make_runner(sanitize=True)`` checks every
+not one operator more); ``make_runner(mesh=)`` runs the lane shards of a
+``torch.distributed`` DeviceMesh at once, one process a device, and
+splits the page axis across the ranks of a page row (or, over the one
+device of a :class:`~repro_torch.core.array_sim.mesh.Mesh`, the page axis
+over blocks of that card); ``make_runner(sanitize=True)`` checks every
 carried leaf and every score row handed to the kernels for NaN and index
 bounds on the device, read only where the loop nest reads it anyway.
 Policy names resolve through
@@ -59,6 +61,7 @@ from typing import List, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ...kernels import collective as kcollective
 from ...kernels import ops as kops
 from ...obs import counters as obs
 from .. import policy_registry
@@ -328,7 +331,8 @@ def make_step(spec: SimSpec, dt: float, time_slice: float,
               vmax: Optional[int] = None, stepper: str = "fixed",
               h_max: float = 8.0, h_io: float = 3.0,
               wake_exact: bool = True, telemetry: bool = False,
-              page_shards: int = 1, sanitize: bool = False, device="cuda"):
+              page_shards: int = 1, sanitize: bool = False, device="cuda",
+              page_group=None):
     """Build ``step(carry, cfg, live=None, lc=None) -> carry`` for a
     policy set, over a lane axis.
 
@@ -376,6 +380,12 @@ def make_step(spec: SimSpec, dt: float, time_slice: float,
     pool and combine the gathered lists, bit-equal to one slice
     (``kernels.ops``); the wake solve runs unsplit, its output feeding
     lane-global jump decisions.  It must divide ``spec.n_pages``.
+    ``page_group`` (the page axis of a ``torch.distributed`` DeviceMesh,
+    one process a device) splits the same two selections across the
+    group's ranks instead: each rank selects in its own slice and the
+    ranks all-gather the candidates inside the step (``kernels.ops``), so
+    every rank of the group must run the same steps in the same order,
+    as replicated state makes them.
 
     ``live`` is an ``(L,)`` bool mask: lanes where it is False come back
     unchanged (``None`` = every lane steps), the telemetry included.
@@ -388,9 +398,14 @@ def make_step(spec: SimSpec, dt: float, time_slice: float,
     """
     if stepper not in ("fixed", "horizon"):
         raise ValueError(f"unknown stepper {stepper!r}: fixed | horizon")
-    if spec.n_pages % int(page_shards):
+    # the one page split B1 and B2 take: blocks of this card, or ranks
+    split = ({"page_shards": page_shards} if page_group is None
+             else {"page_group": page_group})
+    n_page = (int(page_shards) if page_group is None
+              else kcollective.size_rank(page_group)[0])
+    if spec.n_pages % n_page:
         raise ValueError(
-            f"page axis has {page_shards} shards which do not divide the "
+            f"page axis has {n_page} shards which do not divide the "
             f"padded pool size P={spec.n_pages}")
     horizon = stepper == "horizon"
     dev = resolve_device(device)
@@ -941,8 +956,7 @@ def make_step(spec: SimSpec, dt: float, time_slice: float,
             # _LOAD_MAX pops per fine step stood in for
             pops = torch.minimum(h_u * _LOAD_MAX, lc.pop_cap)
             load_mask, load_bytes, n_load = kops.fifo_grant(
-                load_key, page_size, budget, pops, vmax=n_rounds,
-                page_shards=page_shards)
+                load_key, page_size, budget, pops, vmax=n_rounds, **split)
             if probe is not None:
                 probe["B2.budget"] = budget
         else:
@@ -1038,7 +1052,7 @@ def make_step(spec: SimSpec, dt: float, time_slice: float,
                 zero_f)
             need_free = sel(is_coop, need_coop, need_free)
         evict = kops.batched_evict(key, page_size, evictable, need_free,
-                                   vmax=vmax, page_shards=page_shards)
+                                   vmax=vmax, **split)
         if probe is not None:
             probe["B1.keys"] = key
             probe["B1.need_free"] = need_free
@@ -1359,17 +1373,27 @@ def make_runner(
     Off (the default), the steps run exactly the operators they run
     without it.
 
-    ``mesh`` (a :class:`~repro_torch.core.array_sim.mesh.Mesh`; then
-    ``device`` is not read) follows the JAX package's rules: a one-axis
-    mesh splits the lanes evenly over its devices (the lane count must
-    divide), each shard runs on its own device one after the other, and
-    the results are gathered on the first; a two-axis ``('lanes',
-    'page')`` mesh of shape ``(k, n)`` splits the lanes over its k rows and
-    runs each row's n page shards as blocks of that row's one card
-    (``make_step(page_shards=n)``), bit-equal to ``mesh=None``.  Any other
-    number of axes raises ``ValueError``; a row of the page axis that names
-    different cards raises ``NotImplementedError``.  ``runner.lane_mesh``
-    and ``runner.page_axis`` are set as in the JAX package.
+    ``mesh`` (then ``device`` is not read) follows the JAX package's
+    rules: the first axis splits the lanes evenly (the lane count must
+    divide), the second, if any, is the page axis; any other number of
+    axes raises ``ValueError``.  A ``torch.distributed`` DeviceMesh
+    (:mod:`~repro_torch.core.array_sim.dist`) is the ``shard_map``'s
+    counterpart: every rank builds the runner with the same knobs and
+    calls it with the same whole config; each runs the lanes of its
+    ``lanes`` coordinate on its own device, at the same time as the
+    others; the ranks of a page row split B1's and B2's candidate
+    selection across themselves (``make_step(page_group=)``: an
+    all-gather in every step, captured in the CUDA graphs on NCCL; a
+    ``gloo`` page group on a CUDA device raises ``ValueError``, as it
+    cannot be captured); and every rank returns the whole state, the lane
+    shards all-gathered in lane order (the telemetry too), bit-equal to
+    ``mesh=None``.  ``runner.stats`` are the rank's own shard's.  A
+    one-process :class:`~repro_torch.core.array_sim.mesh.Mesh` runs on one
+    device: one runner on all its lanes (the lane count must divide by the
+    lane shards), each page row's n shards as blocks of that card (``make_step(page_shards=n)``), bit-equal to ``mesh=None``;
+    one that names different devices raises ``NotImplementedError``.
+    ``runner.lane_mesh`` and ``runner.page_axis`` are set as in the JAX
+    package.
 
     ``sanitize=True`` is the contract checker's mode
     (``repro_torch.analysis``), the JAX package's checkify run restated
@@ -1401,6 +1425,9 @@ def make_runner(
                  stepper=stepper, h_max=h_max, h_io=h_io,
                  wake_exact=wake_exact, telemetry=telemetry)
     if mesh is not None:
+        from .mesh import is_device_mesh
+        if is_device_mesh(mesh):
+            return _rank_runner(spec, mesh, knobs)
         return _mesh_runner(spec, mesh, knobs)
     return _runner(spec, device, sanitize=sanitize, **knobs)
 
@@ -1611,11 +1638,14 @@ def _captures(dev: torch.device) -> bool:
 
 
 class _CudaGraph:
-    """One step body captured as a CUDA graph into the runner's pool."""
+    """One step body captured as a CUDA graph into the runner's pool.
+    The capture refuses unsafe CUDA calls of this thread only: NCCL's
+    watchdog thread polls the events of earlier collectives meanwhile."""
 
     def __init__(self, body, stream, pool):
         self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph, pool=pool, stream=stream):
+        with torch.cuda.graph(self.graph, pool=pool, stream=stream,
+                              capture_error_mode="thread_local"):
             body()
 
     def replay(self) -> None:
@@ -1805,15 +1835,18 @@ class _Replays:
 
 def _runner(spec, device, page_shards: int = 1, sanitize: bool = False, *,
             bandwidth_ref, time_slice, prefetch_pages, max_slices, policies,
-            step_pages, vmax, stepper, h_max, h_io, wake_exact, telemetry):
+            step_pages, vmax, stepper, h_max, h_io, wake_exact, telemetry,
+            page_group=None):
     """:func:`make_runner` on one device, its page axis split in
-    ``page_shards`` (blocks of that device)."""
+    ``page_shards`` (blocks of that device) or across the ranks of
+    ``page_group``."""
     dev = resolve_device(device)
     pols = resolve_policies(policies)
     dt = float(step_pages) * float(np.max(spec.page_size)) / float(bandwidth_ref)
     kw = dict(policies=pols, vmax=vmax, stepper=stepper, h_max=h_max,
               h_io=h_io, wake_exact=wake_exact, telemetry=telemetry,
-              page_shards=page_shards, sanitize=sanitize, device=dev)
+              page_shards=page_shards, sanitize=sanitize, device=dev,
+              page_group=page_group)
     cheap = make_step(spec, dt, time_slice, prefetch_pages, refresh=False, **kw)
     full = make_step(spec, dt, time_slice, prefetch_pages, refresh=True, **kw)
     n_inner = cheap.n_inner
@@ -1938,60 +1971,80 @@ def _runner(spec, device, page_shards: int = 1, sanitize: bool = False, *,
     return run
 
 
-def _cat_lanes(parts: list, dev: torch.device):
-    """The lane shards' outputs (a tree of lane-major tensors) joined
-    along the lane axis on ``dev``."""
-    first = parts[0]
-    if isinstance(first, torch.Tensor):
-        return torch.cat([p.to(dev) for p in parts])
-    if isinstance(first, tuple):
-        joined = [_cat_lanes([p[i] for p in parts], dev)
-                  for i in range(len(first))]
-        return type(first)(*joined) if hasattr(first, "_fields") \
-            else tuple(joined)
-    if first is None:
-        return None
-    raise TypeError(f"_cat_lanes: a leaf of type {type(first).__name__}")
-
-
 def _mesh_runner(spec, mesh, knobs: dict):
-    """:func:`make_runner` over a :class:`Mesh`: one runner per lane
-    shard's device, every shard run in turn, the states joined on the
-    first device."""
+    """:func:`make_runner` over a one-process :class:`Mesh` of one device:
+    one runner on all the lanes (lane shards on one device would only run
+    in turn, to the same bits), each row's page shards as blocks of the
+    card."""
     from .mesh import lane_devices, page_shards_of
     devices = lane_devices(mesh)
-    n_page = page_shards_of(mesh)
+    dev, k = devices[0], len(devices)
     page_axis = mesh.axis_names[1] if len(mesh.axis_names) == 2 else None
-    runners = {d: _runner(spec, d, n_page, **knobs)
-               for d in dict.fromkeys(devices)}
-    one = runners[devices[0]]
+    one = _runner(spec, dev, page_shards_of(mesh), **knobs)
 
     def run(cfg: ArraySimConfig):
         cfg = _lanes(cfg)
-        L, k = cfg.policy.shape[0], len(devices)
+        L = cfg.policy.shape[0]
         if L % k:
             raise ValueError(
                 f"make_runner(mesh=...): {L} lanes do not divide evenly over "
                 f"the mesh's {k} lane shards")
-        per = L // k
-        outs, stats = [], {"cheap_steps": 0, "refresh_steps": 0}
-        for i, d in enumerate(devices):
-            part = ArraySimConfig(*(x[i * per:(i + 1) * per].to(d)
-                                    for x in cfg))
-            outs.append(runners[d](part))
-            for name in stats:
-                stats[name] += runners[d].stats[name]
-        run.stats = stats
-        return _cat_lanes(outs, devices[0])
+        out = one(ArraySimConfig(*(x.to(dev) for x in cfg)))
+        run.stats = one.stats
+        return out
 
-    run.stats = {"cheap_steps": 0, "refresh_steps": 0}
+    run.stats = one.stats
     for name in ("dt_ref", "stepper", "wake_exact", "telemetry",
-                 "policy_names", "sanitize"):
+                 "policy_names", "sanitize", "trace_count"):
         setattr(run, name, getattr(one, name))
-    run.trace_count = lambda: max(r.trace_count() for r in runners.values())
-    run.device = devices[0]
+    run.device = dev
     run.lane_mesh, run.page_axis = mesh, page_axis
-    run.runners = runners
+    run.runners = {dev: one}
+    return run
+
+
+def _rank_runner(spec, mesh, knobs: dict):
+    """:func:`make_runner` over a ``torch.distributed`` DeviceMesh: this
+    rank's lane shard on its own device, its page row's selections split
+    across the row's ranks, the whole state all-gathered over the lanes
+    axis."""
+    import torch.distributed as dist
+
+    from .mesh import mesh_ranks
+    me = mesh_ranks(mesh)
+    if (me.device.type == "cuda" and me.page_group is not None
+            and dist.get_backend(me.page_group) != "nccl"):
+        raise ValueError(
+            f"make_runner(mesh=...): the page group's backend is "
+            f"{dist.get_backend(me.page_group)!r} on a CUDA device; the "
+            "runner captures its steps, with the all-gather inside, as CUDA "
+            "graphs, which only an NCCL group allows (one card a rank)")
+    one = _runner(spec, me.device, page_group=me.page_group, **knobs)
+
+    # analysis: host -- the rank's loop nest, then the lanes' all-gather
+    def run(cfg: ArraySimConfig):
+        cfg = _lanes(cfg)
+        L, k = cfg.policy.shape[0], me.lane_shards
+        if L % k:
+            raise ValueError(
+                f"make_runner(mesh=...): {L} lanes do not divide evenly over "
+                f"the mesh's {k} lane shards")
+        per, i = L // k, me.lane_shard
+        out = one(ArraySimConfig(*(x[i * per:(i + 1) * per].to(me.device)
+                                   for x in cfg)))
+        run.stats = one.stats
+
+        def gather(x):
+            return kcollective.all_gather(x, me.lanes_group).flatten(0, 1)
+        return _tree_map(gather, out)
+
+    run.stats = one.stats
+    for name in ("dt_ref", "stepper", "wake_exact", "telemetry",
+                 "policy_names", "sanitize", "trace_count"):
+        setattr(run, name, getattr(one, name))
+    run.device = me.device
+    run.lane_mesh, run.page_axis = mesh, me.page_axis
+    run.runners = {me.device: one}
     return run
 
 

@@ -3,7 +3,9 @@
 // Three kernels, one C entry point each (plus one for the second key type of
 // the eviction kernel), and the page-split kernels of the same three
 // functions for rows beyond one block (one C entry point each, two to four
-// launches; see "Page-split candidate selection" below).  Plain C
+// launches; see "Page-split candidate selection" below), whose head paths
+// for the eviction and grant kernels also take one C entry point a stage,
+// for a split across processes.  Plain C
 // interface, no PyTorch headers: the Python
 // side (repro_torch/kernels/pbm_timeline.py) loads the library with ctypes,
 // hands in device pointers and PyTorch's current stream, and checks the
@@ -882,6 +884,19 @@ wake_solve_kernel(const int* __restrict__ key, const float* __restrict__ sizes,
 // other slice: the words are distinct, the index is in them), and the walk
 // of the single-stage whole-row path runs over the lane's sorted row in
 // global memory.
+//
+// Across processes (the ranks of a torch.distributed page group, each
+// holding the replicated (L, P) row): the head paths of batched_evict and
+// fifo_grant run as two C calls with an all-gather between them.  Stage 1
+// launches only the rank's own n_loc shards, shard s of rank j being global
+// shard s0 + s with s0 = j * n_loc, into the rank's own (L, n_loc, m_slots)
+// buffer (fifo_grant's stats (L, n_loc, 2) follow in the same buffer, so one
+// collective carries both); it writes no output.  The all-gather stacks the
+// ranks' buffers rank-major, (n_rank, L, n_loc, ...), and stage 2 reads
+// that layout in place through a rank stride (no transpose: the candidates'
+// order does not matter to a sort, and the stats are summed), zeroes the
+// whole output row itself, and computes the same answer on every rank.  A
+// whole-row path takes no collective: every rank sorts the row it holds.
 // ---------------------------------------------------------------------------
 
 enum { kGateAll = 0, kGateNeed = 1, kGateWake = 2 };
@@ -967,17 +982,18 @@ split_evict_cand(const K* __restrict__ key,
                  const uint8_t* __restrict__ evictable,
                  const float* __restrict__ need_free,
                  uint8_t* __restrict__ out, uint64_t* __restrict__ cand, int P,
-                 int p_loc, int vmax, int m_slots) {
+                 int p_loc, int s0, int vmax, int m_slots) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ double s_wtot[32];
   __shared__ int s_hist[2 * kBins];
   __shared__ int s_pick[3];
   __shared__ int s_count;
   const int lane = blockIdx.x, s = blockIdx.y, t = threadIdx.x;
-  const int base = s * p_loc;
+  const int base = (s0 + s) * p_loc;
   const size_t row = (size_t)lane * P + base;
   uint64_t* dst = cand + ((size_t)lane * gridDim.y + s) * m_slots;
-  for (int p = t; p < p_loc; p += blockDim.x) out[row + p] = 0;
+  if (out != nullptr)                 // else stage 2 zeroes the row
+    for (int p = t; p < p_loc; p += blockDim.x) out[row + p] = 0;
   const int m = vmax < p_loc ? vmax : p_loc;
   if (!(need_free[lane] > 0.0f) || m <= 0) {    // block-uniform
     for (int i = t; i < m_slots; i += blockDim.x) dst[i] = ~0ull;
@@ -1001,7 +1017,7 @@ __global__ void __launch_bounds__(kMaxThreads)
 split_queue_cand(const int* __restrict__ key, const float* __restrict__ sizes,
                  int sizes_stride, const int* __restrict__ pops,
                  void* __restrict__ out, uint64_t* __restrict__ cand,
-                 int* __restrict__ stats, int P, int p_loc, int vmax,
+                 int* __restrict__ stats, int P, int p_loc, int s0, int vmax,
                  int h_cap, int m_slots) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ double s_wtot[32];
@@ -1010,7 +1026,7 @@ split_queue_cand(const int* __restrict__ key, const float* __restrict__ sizes,
   __shared__ int s_count;
   __shared__ int s_part;
   const int lane = blockIdx.x, s = blockIdx.y, t = threadIdx.x;
-  const int base = s * p_loc;
+  const int base = (s0 + s) * p_loc;
   const size_t row = (size_t)lane * P + base;
   const float* sz = sizes + (size_t)lane * sizes_stride + base;
   if (t == 0) {
@@ -1029,7 +1045,7 @@ split_queue_cand(const int* __restrict__ key, const float* __restrict__ sizes,
       if (kWake) bad |= !(sz[p] >= 0.0f && sz[p] <= FLT_MAX);
     }
     if (kWake) reinterpret_cast<int*>(out)[row + p] = h_cap + 1;
-    else reinterpret_cast<uint8_t*>(out)[row + p] = 0;
+    else if (out != nullptr) reinterpret_cast<uint8_t*>(out)[row + p] = 0;
   }
   mine = __reduce_add_sync(kFull, mine);
   if ((t & 31) == 0 && mine) atomicAdd(&s_part, mine);
@@ -1109,19 +1125,40 @@ split_rank(const uint64_t* __restrict__ work, Gate g,
   }
 }
 
+// Where stage 2 reads the candidates: n_rank blocks of words (one a rank,
+// rank_stride words apart), each laid out (L, per) with per = n_cand /
+// n_rank words a lane.  One rank (the one-launch path) is the (L, n_cand)
+// buffer itself.
+struct Ranks {
+  int n;
+  long long stride;
+};
+
+__device__ __forceinline__ size_t ranked(Ranks r, int lane, int per, int i) {
+  const int k = i / per;
+  return (size_t)k * r.stride + (size_t)lane * per + (i - k * per);
+}
+
 // Stage 2 of a head path: the lane's n_cand candidate words sorted in
 // shared memory (c_pad a power of two >= n_cand); returns thread t's word
 // of the sorted order for t < m, else ~0.  Every thread must call it.
 __device__ uint64_t sorted_candidate(const uint64_t* __restrict__ cand,
-                                     int n_cand, int c_pad, int m,
-                                     uint64_t* s_c) {
+                                     Ranks rk, int lane, int n_cand,
+                                     int c_pad, int m, uint64_t* s_c) {
+  const int per = n_cand / rk.n;
   for (int i = threadIdx.x; i < c_pad; i += blockDim.x)
-    s_c[i] = i < n_cand ? cand[i] : ~0ull;
+    s_c[i] = i < n_cand ? cand[ranked(rk, lane, per, i)] : ~0ull;
   __syncthreads();
   bitonic_sort(s_c, c_pad);
   const uint64_t x = (int)threadIdx.x < m ? s_c[threadIdx.x] : ~0ull;
   __syncthreads();                    // s_c may be reused
   return x;
+}
+
+// A rank's stage 2 writes the whole output row: its stage 1 wrote none.
+// The zeros land before the answer's ones, which follow a __syncthreads().
+__device__ __forceinline__ void zero_row(uint8_t* __restrict__ row, int P) {
+  for (int p = threadIdx.x; p < P; p += blockDim.x) row[p] = 0;
 }
 
 __global__ void __launch_bounds__(kMaxThreads)
@@ -1131,7 +1168,7 @@ split_evict_finish(const uint64_t* __restrict__ cand,
                    const uint8_t* __restrict__ evictable,
                    const float* __restrict__ need_free,
                    uint8_t* __restrict__ out, int P, int vmax, int n_cand,
-                   int c_pad) {
+                   int c_pad, Ranks rk, int zero) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ double s_wtot[32];
   const int lane = blockIdx.x, t = threadIdx.x;
@@ -1151,9 +1188,9 @@ split_evict_finish(const uint64_t* __restrict__ cand,
                out_row);
     return;
   }
-  if (idle) return;                   // stage 1 wrote the zeros
-  const uint64_t x = sorted_candidate(cand + (size_t)lane * n_cand, n_cand,
-                                      c_pad, m,
+  if (zero) zero_row(out_row, P);
+  if (idle) return;                   // stage 1 wrote the zeros, or zero
+  const uint64_t x = sorted_candidate(cand, rk, lane, n_cand, c_pad, m,
                                       reinterpret_cast<uint64_t*>(smem));
   const int idx = (int)(x & kIdxMask);
   const bool ev = t < m && ev_row[idx];
@@ -1171,7 +1208,7 @@ split_grant_finish(const uint64_t* __restrict__ cand,
                    const int* __restrict__ pops,
                    uint8_t* __restrict__ mask_out, float* __restrict__ bytes_out,
                    int* __restrict__ n_out, int P, int vmax, int n_sh,
-                   int n_cand, int c_pad) {
+                   int n_cand, int c_pad, Ranks rk, int zero) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ double s_wtot[32];
   __shared__ int s_head;
@@ -1192,12 +1229,15 @@ split_grant_finish(const uint64_t* __restrict__ cand,
         else hi = mid;
       }
       s_part = lo;
-    } else {
+    } else {                          // stats: 2 ints a shard, rank-major
+      const int n_loc = n_sh / rk.n;
+      const Ranks st{rk.n, 2 * rk.stride};
       int part = 0;
-      for (int s = 0; s < n_sh; ++s) part += stats[((size_t)lane * n_sh + s) * 2];
+      for (int s = 0; s < n_sh; ++s) part += stats[ranked(st, lane, 2 * n_loc, 2 * s)];
       s_part = part;
     }
   }
+  if (zero) zero_row(mask_row, P);
   __syncthreads();
   int lim = vmax < P ? vmax : P;
   const int n_pops = pops[lane];
@@ -1209,15 +1249,14 @@ split_grant_finish(const uint64_t* __restrict__ cand,
                mask_row, bytes_out + lane, n_out + lane);
     return;
   }
-  if (lim == 0) {                     // stage 1 wrote the zeros
+  if (lim == 0) {                     // stage 1 wrote the zeros, or zero
     if (t == 0) {
       bytes_out[lane] = 0.0f;
       n_out[lane] = 0;
     }
     return;
   }
-  const uint64_t x = sorted_candidate(cand + (size_t)lane * n_cand, n_cand,
-                                      c_pad, lim,
+  const uint64_t x = sorted_candidate(cand, rk, lane, n_cand, c_pad, lim,
                                       reinterpret_cast<uint64_t*>(smem));
   const int idx = (int)(x & kIdxMask);
   const double sz = t < lim ? (double)sz_row[idx] : 0.0;
@@ -1270,9 +1309,8 @@ split_wake_finish(const uint64_t* __restrict__ cand,
               out_row);
     return;
   }
-  const uint64_t x = sorted_candidate(cand + (size_t)lane * n_cand, n_cand,
-                                      c_pad, m,
-                                      reinterpret_cast<uint64_t*>(smem));
+  const uint64_t x = sorted_candidate(cand, Ranks{1, 0}, lane, n_cand, c_pad,
+                                      m, reinterpret_cast<uint64_t*>(smem));
   const int idx = (int)(x & kIdxMask);
   const double sz = t < m ? (double)sz_row[idx] : 0.0;
   const double csum = block_exclusive(sz, s_wtot) + sz;   // inclusive
@@ -1348,6 +1386,54 @@ inline size_t cand_smem(int p_loc, int m_slots) {
   return head_offset(p_loc) + 8 * (size_t)m_slots;
 }
 
+// Stage 1 of a head path over shards s0 .. s0 + n_loc - 1 of n_sh (all of
+// them in one process; a rank's own across processes, with out = nullptr).
+template <typename K>
+void evict_cand(const void* key, const void* evictable, const void* need_free,
+                void* out, int L, int P, int vmax, int n_sh, int s0, int n_loc,
+                int m_slots, void* cand, cudaStream_t st) {
+  const int p_loc = P / n_sh;
+  split_evict_cand<K><<<dim3(L, n_loc), slice_threads(p_loc),
+                        cand_smem(p_loc, m_slots), st>>>(
+      (const K*)key, (const uint8_t*)evictable, (const float*)need_free,
+      (uint8_t*)out, (uint64_t*)cand, P, p_loc, s0, vmax, m_slots);
+}
+
+void evict_finish(const void* cand, const void* sizes, int sizes_stride,
+                  const void* evictable, const void* need_free, void* out,
+                  int L, int P, int vmax, int n_cand, Ranks rk, int zero,
+                  cudaStream_t st) {
+  const int c_pad = pad_pow2(n_cand);
+  split_evict_finish<<<L, kMaxThreads, 8 * (size_t)c_pad, st>>>(
+      (const uint64_t*)cand, nullptr, (const float*)sizes, sizes_stride,
+      (const uint8_t*)evictable, (const float*)need_free, (uint8_t*)out, P,
+      vmax, n_cand, c_pad, rk, zero);
+}
+
+void grant_cand(const void* key, const void* sizes, int sizes_stride,
+                const void* pops, void* mask_out, void* cand, void* stats,
+                int L, int P, int vmax, int n_sh, int s0, int n_loc,
+                int m_slots, cudaStream_t st) {
+  const int p_loc = P / n_sh;
+  split_queue_cand<false><<<dim3(L, n_loc), slice_threads(p_loc),
+                            cand_smem(p_loc, m_slots), st>>>(
+      (const int*)key, (const float*)sizes, sizes_stride, (const int*)pops,
+      mask_out, (uint64_t*)cand, (int*)stats, P, p_loc, s0, vmax, 0, m_slots);
+}
+
+void grant_finish(const void* cand, const void* stats, const void* sizes,
+                  int sizes_stride, const void* budget, const void* pops,
+                  void* mask_out, void* bytes_out, void* n_out, int L, int P,
+                  int vmax, int n_sh, int n_cand, Ranks rk, int zero,
+                  cudaStream_t st) {
+  const int c_pad = pad_pow2(n_cand);
+  split_grant_finish<<<L, kMaxThreads, 8 * (size_t)c_pad, st>>>(
+      (const uint64_t*)cand, (const int*)stats, nullptr, (const float*)sizes,
+      sizes_stride, (const float*)budget, (const int*)pops,
+      (uint8_t*)mask_out, (float*)bytes_out, (int*)n_out, P, vmax, n_sh,
+      n_cand, c_pad, rk, zero);
+}
+
 template <typename K>
 int split_evict(const void* key, const void* sizes, int sizes_stride,
                 const void* evictable, const void* need_free, void* out,
@@ -1357,15 +1443,10 @@ int split_evict(const void* key, const void* sizes, int sizes_stride,
   const int p_loc = P / n_sh;
   const dim3 grid(L, n_sh);
   if (cand != nullptr) {
-    split_evict_cand<K><<<grid, slice_threads(p_loc),
-                          cand_smem(p_loc, m_slots), st>>>(
-        (const K*)key, (const uint8_t*)evictable, (const float*)need_free,
-        (uint8_t*)out, (uint64_t*)cand, P, p_loc, vmax, m_slots);
-    const int n_cand = n_sh * m_slots, c_pad = pad_pow2(n_cand);
-    split_evict_finish<<<L, kMaxThreads, 8 * (size_t)c_pad, st>>>(
-        (const uint64_t*)cand, nullptr, (const float*)sizes, sizes_stride,
-        (const uint8_t*)evictable, (const float*)need_free, (uint8_t*)out, P,
-        vmax, n_cand, c_pad);
+    evict_cand<K>(key, evictable, need_free, out, L, P, vmax, n_sh, 0, n_sh,
+                  m_slots, cand, st);
+    evict_finish(cand, sizes, sizes_stride, evictable, need_free, out, L, P,
+                 vmax, n_sh * m_slots, Ranks{1, 0}, 0, st);
     return (int)cudaGetLastError();
   }
   Gate g{kGateNeed, n_sh, 0, 0, (const float*)need_free, nullptr, nullptr,
@@ -1379,7 +1460,7 @@ int split_evict(const void* key, const void* sizes, int sizes_stride,
   split_evict_finish<<<L, kMaxThreads, 0, st>>>(
       nullptr, (const uint64_t*)sorted, (const float*)sizes, sizes_stride,
       (const uint8_t*)evictable, (const float*)need_free, (uint8_t*)out, P,
-      vmax, 0, 0);
+      vmax, 0, 0, Ranks{1, 0}, 0);
   return (int)cudaGetLastError();
 }
 
@@ -1514,16 +1595,11 @@ int pbm_split_grant(const void* key, const void* sizes, int sizes_stride,
   const int p_loc = P / n_sh;
   const dim3 grid(L, n_sh);
   if (cand != nullptr) {
-    split_queue_cand<false><<<grid, slice_threads(p_loc),
-                              cand_smem(p_loc, m_slots), st>>>(
-        (const int*)key, (const float*)sizes, sizes_stride, (const int*)pops,
-        mask_out, (uint64_t*)cand, (int*)stats, P, p_loc, vmax, 0, m_slots);
-    const int n_cand = n_sh * m_slots, c_pad = pad_pow2(n_cand);
-    split_grant_finish<<<L, kMaxThreads, 8 * (size_t)c_pad, st>>>(
-        (const uint64_t*)cand, (const int*)stats, nullptr, (const float*)sizes,
-        sizes_stride, (const float*)budget, (const int*)pops,
-        (uint8_t*)mask_out, (float*)bytes_out, (int*)n_out, P, vmax, n_sh,
-        n_cand, c_pad);
+    grant_cand(key, sizes, sizes_stride, pops, mask_out, cand, stats, L, P,
+               vmax, n_sh, 0, n_sh, m_slots, st);
+    grant_finish(cand, stats, sizes, sizes_stride, budget, pops, mask_out,
+                 bytes_out, n_out, L, P, vmax, n_sh, n_sh * m_slots,
+                 Ranks{1, 0}, 0, st);
     return (int)cudaGetLastError();
   }
   Gate g{kGateAll, n_sh, 0, 0, nullptr, nullptr, nullptr, nullptr};
@@ -1536,7 +1612,7 @@ int pbm_split_grant(const void* key, const void* sizes, int sizes_stride,
   split_grant_finish<<<L, kMaxThreads, 0, st>>>(
       nullptr, nullptr, (const uint64_t*)sorted, (const float*)sizes,
       sizes_stride, (const float*)budget, (const int*)pops, (uint8_t*)mask_out,
-      (float*)bytes_out, (int*)n_out, P, vmax, n_sh, 0, 0);
+      (float*)bytes_out, (int*)n_out, P, vmax, n_sh, 0, 0, Ranks{1, 0}, 0);
   return (int)cudaGetLastError();
 }
 
@@ -1551,7 +1627,7 @@ int pbm_split_wake(const void* key, const void* sizes, int sizes_stride,
   split_queue_cand<true><<<grid, slice_threads(p_loc),
                            cand_smem(p_loc, m_slots), st>>>(
       (const int*)key, (const float*)sizes, sizes_stride, (const int*)pops, out,
-      (uint64_t*)cand, (int*)stats, P, p_loc, 0, h_cap, m_slots);
+      (uint64_t*)cand, (int*)stats, P, p_loc, 0, 0, h_cap, m_slots);
   Gate g{kGateWake, n_sh, h_cap, force, nullptr, (const int*)stats,
          (const int*)pops, (const float*)inc};
   const int n_pad = pad_pow2(p_loc);
@@ -1566,6 +1642,64 @@ int pbm_split_wake(const void* key, const void* sizes, int sizes_stride,
       (const float*)sizes, sizes_stride, (const float*)credit0,
       (const float*)inc, (const int*)pops, (int*)out, P, h_cap, n_sh, n_cand,
       c_pad, force);
+  return (int)cudaGetLastError();
+}
+
+// The head paths of batched_evict and fifo_grant across the ranks of a
+// page group, one C call a stage.  Stage 1 (`*_cand`) fills the rank's
+// shards s0 .. s0 + n_loc - 1 of n_sh: `cand` (L, n_loc, m_slots) words
+// and, for fifo_grant, `stats` (L, n_loc, 2) ints; it writes no output.
+// Stage 2 (`*_finish`) reads the n_rank ranks' buffers, rank_stride words
+// apart (`cand`; fifo_grant's `stats` 2 * rank_stride ints apart), zeroes
+// every output row and writes the answer.  One launch each.
+
+int pbm_split_evict_cand_f32(const void* key, const void* evictable,
+                             const void* need_free, int L, int P, int vmax,
+                             int n_sh, int s0, int n_loc, int m_slots,
+                             void* cand, void* stream) {
+  evict_cand<float>(key, evictable, need_free, nullptr, L, P, vmax, n_sh, s0,
+                    n_loc, m_slots, cand, (cudaStream_t)stream);
+  return (int)cudaGetLastError();
+}
+
+int pbm_split_evict_cand_i32(const void* key, const void* evictable,
+                             const void* need_free, int L, int P, int vmax,
+                             int n_sh, int s0, int n_loc, int m_slots,
+                             void* cand, void* stream) {
+  evict_cand<int>(key, evictable, need_free, nullptr, L, P, vmax, n_sh, s0,
+                  n_loc, m_slots, cand, (cudaStream_t)stream);
+  return (int)cudaGetLastError();
+}
+
+int pbm_split_evict_finish(const void* cand, const void* sizes,
+                           int sizes_stride, const void* evictable,
+                           const void* need_free, void* out, int L, int P,
+                           int vmax, int n_cand, int n_rank,
+                           long long rank_stride, void* stream) {
+  evict_finish(cand, sizes, sizes_stride, evictable, need_free, out, L, P,
+               vmax, n_cand, Ranks{n_rank, rank_stride}, 1,
+               (cudaStream_t)stream);
+  return (int)cudaGetLastError();
+}
+
+int pbm_split_grant_cand(const void* key, const void* sizes, int sizes_stride,
+                         const void* pops, void* cand, void* stats, int L,
+                         int P, int vmax, int n_sh, int s0, int n_loc,
+                         int m_slots, void* stream) {
+  grant_cand(key, sizes, sizes_stride, pops, nullptr, cand, stats, L, P, vmax,
+             n_sh, s0, n_loc, m_slots, (cudaStream_t)stream);
+  return (int)cudaGetLastError();
+}
+
+int pbm_split_grant_finish(const void* cand, const void* stats,
+                           const void* sizes, int sizes_stride,
+                           const void* budget, const void* pops,
+                           void* mask_out, void* bytes_out, void* n_out, int L,
+                           int P, int vmax, int n_sh, int n_cand, int n_rank,
+                           long long rank_stride, void* stream) {
+  grant_finish(cand, stats, sizes, sizes_stride, budget, pops, mask_out,
+               bytes_out, n_out, L, P, vmax, n_sh, n_cand,
+               Ranks{n_rank, rank_stride}, 1, (cudaStream_t)stream);
   return (int)cudaGetLastError();
 }
 

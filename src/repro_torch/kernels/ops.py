@@ -77,7 +77,7 @@ def reset_recompute_counts() -> None:
 
 
 def batched_evict(key, sizes, evictable, need_free, *, vmax: int = 64,
-                  page_shards: int = 1):
+                  page_shards: int = 1, page_group=None):
     """Batched evict selection over a policy score array: the policy is
     entirely in ``key`` (f32 or i32, higher = evicted first).
 
@@ -86,8 +86,20 @@ def batched_evict(key, sizes, evictable, need_free, *, vmax: int = 64,
     own ``P / n`` slice and the vmax-bounded prefix runs on the gathered
     list, bit-equal to the unsplit answer (``ref.evict_page_sharded``; on
     the card, one block a shard).  ``n`` must divide P.  A row too long
-    for one block is split on the card whatever ``page_shards`` says."""
+    for one block is split on the card whatever ``page_shards`` says.
+
+    ``page_group`` (a ``torch.distributed`` group: the page axis of a
+    ``DeviceMesh``, one process a device) splits the selection across its
+    ranks instead, each holding the same rows: each rank selects in its
+    own ``P / n`` slice, the ranks all-gather the candidates and every
+    rank computes the same mask (``ref.evict_rank_sharded``; on the card
+    two launches with the all-gather between them)."""
+    if page_group is not None and int(page_shards) > 1:
+        raise ValueError("page_shards and page_group: one page split only")
     if key.device.type == "cpu":
+        if page_group is not None:
+            return ref.evict_rank_sharded(key, sizes, evictable, need_free,
+                                          page_group, vmax=vmax)
         if int(page_shards) > 1:
             return ref.evict_page_sharded(key, sizes, evictable, need_free,
                                           int(page_shards), vmax=vmax)
@@ -95,22 +107,31 @@ def batched_evict(key, sizes, evictable, need_free, *, vmax: int = 64,
                                      vmax=vmax)
     return pbm_timeline.batched_evict_kernel(key, sizes, evictable,
                                              need_free, vmax=vmax,
-                                             page_shards=page_shards)
+                                             page_shards=page_shards,
+                                             page_group=page_group)
 
 
 def fifo_grant(key, sizes, budget, pops, *, vmax: int = 16,
-               page_shards: int = 1):
+               page_shards: int = 1, page_group=None):
     """Budgeted FIFO grant over the request-queue key array (the serial
     I/O server's pop, sized for a macro-step).  ``page_shards`` splits
     the candidate selection over page shards as in :func:`batched_evict`
-    (``ref.grant_page_sharded``), bit-equal to the unsplit answer."""
+    (``ref.grant_page_sharded``), ``page_group`` across the ranks of a
+    page group (``ref.grant_rank_sharded``), bit-equal to the unsplit
+    answer."""
+    if page_group is not None and int(page_shards) > 1:
+        raise ValueError("page_shards and page_group: one page split only")
     if key.device.type == "cpu":
+        if page_group is not None:
+            return ref.grant_rank_sharded(key, sizes, budget, pops,
+                                          page_group, vmax=vmax)
         if int(page_shards) > 1:
             return ref.grant_page_sharded(key, sizes, budget, pops,
                                           int(page_shards), vmax=vmax)
         return ref.fifo_grant_ref(key, sizes, budget, pops, vmax=vmax)
     return pbm_timeline.fifo_grant_kernel(key, sizes, budget, pops,
-                                          vmax=vmax, page_shards=page_shards)
+                                          vmax=vmax, page_shards=page_shards,
+                                          page_group=page_group)
 
 
 def wake_solve(key, sizes, credit0, inc, pops, *, h_cap: int = 64):

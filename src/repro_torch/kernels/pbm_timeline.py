@@ -6,7 +6,12 @@ each over a leading lane axis: one thread block per lane while a lane's
 row fits one block (``MAX_SORT_LEN`` pages) and no split is asked for;
 else the page-split kernels of the same library, one block per (lane,
 page shard) selecting candidates and one block per lane finishing
-(``split_shards``, ``splits``), two to four CUDA launches a call.  Every
+(``split_shards``, ``splits``), two to four CUDA launches a call.  Given
+a ``page_group`` (the ranks of a ``torch.distributed`` page axis, each
+holding the replicated rows), B1 and B2 split their rows across the ranks:
+each rank selects the candidates of its own ``P / n`` slice, the ranks
+all-gather them (:mod:`.collective`) and every rank finishes the same
+answer (``split_ranks``).  Every
 wrapper
 checks device, dtype, shape and contiguity, allocates its outputs with
 ``torch.empty``, launches on PyTorch's current stream without
@@ -24,11 +29,11 @@ from typing import Optional, Tuple
 
 import torch
 
-from . import _build
+from . import _build, collective
 from ._build import check_tensor as _check, raise_on as _raise_on
 from ._build import call_on as _call_on, stream_of as _stream
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 #: longest head that the three kernels select and sort alone (``kHeadCap``
 #: in ``csrc/pbm_timeline.cu``, checked when it is loaded)
 HEAD_CAP = 1024
@@ -68,6 +73,16 @@ def library(device):
         lib.pbm_split_wake.argtypes = [_P, _P, _I, _P, _P, _P, _P, _I, _I,
                                        _I, _I, _I, _P, _P, _P, _P, _P, _I,
                                        _P]
+        cand = [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P]
+        lib.pbm_split_evict_cand_f32.argtypes = cand
+        lib.pbm_split_evict_cand_i32.argtypes = cand
+        lib.pbm_split_evict_finish.argtypes = [_P, _P, _I, _P, _P, _P, _I,
+                                               _I, _I, _I, _I, _LL, _P]
+        lib.pbm_split_grant_cand.argtypes = [_P, _P, _I, _P, _P, _P, _I, _I,
+                                             _I, _I, _I, _I, _I, _P]
+        lib.pbm_split_grant_finish.argtypes = [_P, _P, _P, _I, _P, _P, _P,
+                                               _P, _P, _I, _I, _I, _I, _I,
+                                               _I, _LL, _P]
         if lib.pbm_head_cap() != HEAD_CAP:
             raise RuntimeError(f"pbm_timeline: the library's head capacity "
                                f"{lib.pbm_head_cap()} is not {HEAD_CAP}")
@@ -165,6 +180,17 @@ def _head_slots(P: int, vmax: int, n_sh: int):
                      or n_sh * m_slots > MAX_SORT_LEN)
 
 
+def split_ranks(P: int, n_rank: int, max_dyn: int = HOPPER_SMEM) -> int:
+    """Shards a rank of an ``n_rank``-rank page group selects in: the
+    fewest that divide its ``P / n_rank`` pages and fit a block
+    (``split_shards`` of its slice).  ``n_rank`` must divide P."""
+    if P % int(n_rank):
+        raise ValueError(
+            f"page axis has {n_rank} shards which do not divide the "
+            f"padded pool size P={P}")
+    return split_shards(P // int(n_rank), 1, max_dyn)
+
+
 def _split_buffers(key: torch.Tensor, vmax: int, n_sh: int):
     """``(m_slots, cand, work, sorted)``: a head path's candidate words,
     or a whole-row path's two ``(L, P)`` word rows."""
@@ -176,11 +202,12 @@ def _split_buffers(key: torch.Tensor, vmax: int, n_sh: int):
 
 
 def batched_evict_kernel(key, sizes, evictable, need_free, *,
-                         vmax: int = 64, page_shards: int = 1
-                         ) -> torch.Tensor:
+                         vmax: int = 64, page_shards: int = 1,
+                         page_group=None) -> torch.Tensor:
     """Evict mask ``(L, P)`` bool; ``key`` is f32 or i32 (two
     instantiations, the integer one never touches a float).  A row beyond
-    one block, or ``page_shards > 1``, takes the page-split path."""
+    one block, or ``page_shards > 1``, takes the page-split path; a
+    ``page_group`` splits it across the group's ranks."""
     L, P = key.shape
     _check(key, "key", key.dtype, (L, P))
     lib, max_dyn = library(key.device)
@@ -191,31 +218,38 @@ def batched_evict_kernel(key, sizes, evictable, need_free, *,
     _check(evictable, "evictable", torch.bool, (L, P))
     _check(need_free, "need_free", torch.float32, (L,))
     out = torch.empty((L, P), dtype=torch.bool, device=key.device)
-    n = _sort_len(P, max_dyn[0]) if int(page_shards) == 1 else None
+    n = (_sort_len(P, max_dyn[0])
+         if int(page_shards) == 1 and page_group is None else None)
     if n is not None:
         fn = lib.pbm_batched_evict_f32 if f32 else lib.pbm_batched_evict_i32
         err = _call_on(key, fn, key.data_ptr(), sizes.data_ptr(), stride,
                        evictable.data_ptr(), need_free.data_ptr(),
                        out.data_ptr(), L, P, int(vmax), n, _stream(key))
     else:
-        n_sh = split_shards(P, page_shards, max_dyn[3])
-        fn = lib.pbm_split_evict_f32 if f32 else lib.pbm_split_evict_i32
-        m_slots, cand, work, srt = _split_buffers(key, vmax, n_sh)
-        err = _call_on(key, fn, key.data_ptr(), sizes.data_ptr(), stride,
-                       evictable.data_ptr(), need_free.data_ptr(),
-                       out.data_ptr(), L, P, int(vmax), n_sh, m_slots,
-                       _ptr(cand), _ptr(work), _ptr(srt), _stream(key))
+        n_sh = _split_count(P, page_shards, page_group, max_dyn[3])
+        m_slots, whole = _head_slots(P, vmax, n_sh)
+        if page_group is not None and not whole:
+            err = _evict_ranks(lib, key, sizes, stride, evictable,
+                               need_free, out, int(vmax), n_sh, m_slots,
+                               page_group)
+        else:               # one process, or a whole row on every rank
+            _, cand, work, srt = _split_buffers(key, vmax, n_sh)
+            fn = lib.pbm_split_evict_f32 if f32 else lib.pbm_split_evict_i32
+            err = _call_on(key, fn, key.data_ptr(), sizes.data_ptr(), stride,
+                           evictable.data_ptr(), need_free.data_ptr(),
+                           out.data_ptr(), L, P, int(vmax), n_sh, m_slots,
+                           _ptr(cand), _ptr(work), _ptr(srt), _stream(key))
     _raise_on(err, "batched_evict launch")
     batched_evict_kernel.launches += 1
     return out
 
 
 def fifo_grant_kernel(key, sizes, budget, pops, *, vmax: int = 16,
-                      page_shards: int = 1,
+                      page_shards: int = 1, page_group=None,
                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``(mask (L, P) bool, granted_bytes (L,) f32, n_granted (L,) i32)``.
     A row beyond one block, or ``page_shards > 1``, takes the page-split
-    path."""
+    path; a ``page_group`` splits it across the group's ranks."""
     L, P = key.shape
     _check(key, "key", torch.int32, (L, P))
     lib, max_dyn = library(key.device)
@@ -225,7 +259,8 @@ def fifo_grant_kernel(key, sizes, budget, pops, *, vmax: int = 16,
     mask = torch.empty((L, P), dtype=torch.bool, device=key.device)
     nbytes = torch.empty((L,), dtype=torch.float32, device=key.device)
     n = torch.empty((L,), dtype=torch.int32, device=key.device)
-    n_sort = _sort_len(P, max_dyn[1]) if int(page_shards) == 1 else None
+    n_sort = (_sort_len(P, max_dyn[1])
+              if int(page_shards) == 1 and page_group is None else None)
     if n_sort is not None:
         err = _call_on(key, lib.pbm_fifo_grant,
                        key.data_ptr(), sizes.data_ptr(), stride,
@@ -233,19 +268,85 @@ def fifo_grant_kernel(key, sizes, budget, pops, *, vmax: int = 16,
                        nbytes.data_ptr(), n.data_ptr(), L, P, int(vmax),
                        n_sort, _stream(key))
     else:
-        n_sh = split_shards(P, page_shards, max_dyn[3])
-        m_slots, cand, work, srt = _split_buffers(key, vmax, n_sh)
-        stats = None if cand is None else torch.empty(
-            (L, n_sh, 2), dtype=torch.int32, device=key.device)
-        err = _call_on(key, lib.pbm_split_grant,
-                       key.data_ptr(), sizes.data_ptr(), stride,
-                       budget.data_ptr(), pops.data_ptr(), mask.data_ptr(),
-                       nbytes.data_ptr(), n.data_ptr(), L, P, int(vmax), n_sh,
-                       m_slots, _ptr(cand), _ptr(stats), _ptr(work),
-                       _ptr(srt), _stream(key))
+        n_sh = _split_count(P, page_shards, page_group, max_dyn[3])
+        m_slots, whole = _head_slots(P, vmax, n_sh)
+        if page_group is not None and not whole:
+            err = _grant_ranks(lib, key, sizes, stride, budget, pops,
+                               (mask, nbytes, n), int(vmax), n_sh, m_slots,
+                               page_group)
+        else:               # one process, or a whole row on every rank
+            _, cand, work, srt = _split_buffers(key, vmax, n_sh)
+            stats = None if cand is None else torch.empty(
+                (L, n_sh, 2), dtype=torch.int32, device=key.device)
+            err = _call_on(key, lib.pbm_split_grant,
+                           key.data_ptr(), sizes.data_ptr(), stride,
+                           budget.data_ptr(), pops.data_ptr(),
+                           mask.data_ptr(), nbytes.data_ptr(), n.data_ptr(),
+                           L, P, int(vmax), n_sh, m_slots, _ptr(cand),
+                           _ptr(stats), _ptr(work), _ptr(srt), _stream(key))
     _raise_on(err, "fifo_grant launch")
     fifo_grant_kernel.launches += 1
     return mask, nbytes, n
+
+
+def _split_count(P: int, page_shards: int, group, max_split: int) -> int:
+    """Shards of a page-split call, across the page row's ranks when a
+    ``group`` is given (``split_ranks`` a rank)."""
+    if group is None:
+        return split_shards(P, page_shards, max_split)
+    n_rank = collective.size_rank(group)[0]
+    return n_rank * split_ranks(P, n_rank, max_split)
+
+
+def _evict_ranks(lib, key, sizes, stride: int, evictable, need_free, out,
+                 vmax: int, n_sh: int, m_slots: int, group) -> int:
+    """B1's head path across the ranks of ``group`` (``n_sh`` shards in
+    all, ``m_slots`` candidates a shard): stage 1 over the rank's own
+    shards, the all-gather, stage 2 on every rank.  A whole-row path
+    takes no collective: every rank sorts the row it holds."""
+    L, P = key.shape
+    n_rank, rank = collective.size_rank(group)
+    n_loc = n_sh // n_rank
+    f32 = key.dtype == torch.float32
+    words = L * n_loc * m_slots
+    own = torch.empty((words,), dtype=torch.int64, device=key.device)
+    fn = lib.pbm_split_evict_cand_f32 if f32 else lib.pbm_split_evict_cand_i32
+    err = _call_on(key, fn, key.data_ptr(), evictable.data_ptr(),
+                   need_free.data_ptr(), L, P, vmax, n_sh, rank * n_loc,
+                   n_loc, m_slots, own.data_ptr(), _stream(key))
+    _raise_on(err, "batched_evict stage 1")
+    every = collective.all_gather(own, group)
+    return _call_on(key, lib.pbm_split_evict_finish, every.data_ptr(),
+                    sizes.data_ptr(), stride, evictable.data_ptr(),
+                    need_free.data_ptr(), out.data_ptr(), L, P, vmax,
+                    n_sh * m_slots, n_rank, words, _stream(key))
+
+
+def _grant_ranks(lib, key, sizes, stride: int, budget, pops, outs,
+                 vmax: int, n_sh: int, m_slots: int, group) -> int:
+    """B2's head path across the ranks of ``group``, as
+    :func:`_evict_ranks`; a rank's buffer holds its candidate words and,
+    after them, its shards' stats (two ints a shard), so one all-gather
+    carries both."""
+    L, P = key.shape
+    mask, nbytes, n = outs
+    n_rank, rank = collective.size_rank(group)
+    n_loc = n_sh // n_rank
+    words = L * n_loc * m_slots
+    own = torch.empty((words + L * n_loc,), dtype=torch.int64,
+                      device=key.device)
+    stats = own[words:]                 # (L, n_loc, 2) i32, 8 bytes a shard
+    err = _call_on(key, lib.pbm_split_grant_cand, key.data_ptr(),
+                   sizes.data_ptr(), stride, pops.data_ptr(), own.data_ptr(),
+                   stats.data_ptr(), L, P, vmax, n_sh, rank * n_loc, n_loc,
+                   m_slots, _stream(key))
+    _raise_on(err, "fifo_grant stage 1")
+    every = collective.all_gather(own, group)
+    return _call_on(key, lib.pbm_split_grant_finish, every.data_ptr(),
+                    every[0, words:].data_ptr(), sizes.data_ptr(), stride,
+                    budget.data_ptr(), pops.data_ptr(), mask.data_ptr(),
+                    nbytes.data_ptr(), n.data_ptr(), L, P, vmax, n_sh,
+                    n_sh * m_slots, n_rank, own.numel(), _stream(key))
 
 
 def wake_solve_kernel(key, sizes, credit0, inc, pops, *,

@@ -220,6 +220,53 @@ def grant_page_sharded(key, sizes, budget, pops, n: int, *,
     return _grant_head(kv, top, key.shape[1], sizes, budget, pops)
 
 
+def page_rank_candidates(key: torch.Tensor, group, head: int) -> torch.Tensor:
+    """:func:`page_shard_candidates` with each of ``group``'s n ranks
+    taking one shard: this rank selects its own ``P / n`` slice's first
+    ``min(head, P / n)`` pages (global indices), the ranks all-gather
+    them, and every rank gets the same ``(L, n * m)`` candidates sorted by
+    ascending global index.  ``key`` is the replicated row, as every rank
+    of a page row holds it."""
+    from .collective import all_gather, size_rank
+    L, P = key.shape
+    n, rank = size_rank(group)
+    if P % n:
+        raise ValueError(
+            f"page axis has {n} shards which do not divide the padded pool "
+            f"size P={P}")
+    p_loc = P // n
+    m = min(int(head), p_loc)
+    start = rank * p_loc
+    _, order = _service_order(key[:, start:start + p_loc])
+    every = all_gather(order[:, :m] + start, group)          # (n, L, m)
+    return torch.sort(every.permute(1, 0, 2).reshape(L, n * m), dim=1).values
+
+
+def _rank_head(key: torch.Tensor, group, head: int):
+    """:func:`_split_head` from the ranks' candidates."""
+    cand = page_rank_candidates(key, group, head)
+    kv, pos = _service_order(key.gather(1, cand))
+    take = min(int(head), key.shape[1])
+    return kv[:, :take], cand.gather(1, pos[:, :take])
+
+
+def evict_rank_sharded(key, sizes, evictable, need_free, group, *,
+                       vmax: int = 64) -> torch.Tensor:
+    """:func:`batched_evict_ref` with the candidates selected across the
+    ranks of a page ``group`` (the JAX package's ``_evict_page_sharded``
+    under a ``shard_map``): the same mask on every rank."""
+    _, top = _rank_head(_evict_keys(key, evictable), group, vmax)
+    return _evict_head(top, sizes, evictable, need_free)
+
+
+def grant_rank_sharded(key, sizes, budget, pops, group, *, vmax: int = 16):
+    """:func:`fifo_grant_ref` with the candidates selected across the
+    ranks of a page ``group`` (``_grant_page_sharded``): the same mask,
+    bytes and count on every rank."""
+    kv, top = _rank_head(key, group, vmax)
+    return _grant_head(kv, top, key.shape[1], sizes, budget, pops)
+
+
 NEG_INF = -1e30
 
 

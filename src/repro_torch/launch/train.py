@@ -18,8 +18,11 @@ Weights are drawn by ``models.init_params`` from ``--seed`` (another
 generator than the reference's).  The reference builds a device mesh
 (``launch.mesh.make_local_mesh``) and its input shardings
 (``launch.inputs.cell_shardings``); the port has both (the dry run prices
-cells with them), and this driver runs on one card, which needs neither
-(a mesh across cards is ROADMAP A.11).
+cells with them), and this driver runs on one card, which needs neither.
+The reference's driver builds its mesh only to print its shape, so no
+multi-card training driver is ported; the one mesh across processes the
+port runs is the simulator's (``core.array_sim.init_mesh``, a
+``torch.distributed`` DeviceMesh).
 """
 
 from __future__ import annotations

@@ -18,8 +18,9 @@ Protocol (coordinator-driven, matches the checkpoint contract):
    pipeline's work stealing.
 
 This module provides the pure decision logic (testable on CPU), a copy
-of ``repro.train.elastic``; building a mesh over the surviving devices is
-not ported (one card: ROADMAP A.11).
+of ``repro.train.elastic``, which builds no mesh either: a mesh over the
+surviving devices is the caller's (``core.array_sim.init_mesh`` makes a
+``torch.distributed`` DeviceMesh over a process group).
 """
 
 from __future__ import annotations

@@ -72,6 +72,9 @@ FIRES = {
     "host_call": ("import numpy as np\ndef f(x):\n    return np.asarray(x)\n",
                   "host-call"),
     "print": ("def f(x):\n    print('step')\n    return x\n", "step-print"),
+    "collective": ("import torch.distributed as dist\n"
+                   "def f(x, group):\n    dist.barrier(group=group)\n"
+                   "    return x\n", "step-collective"),
     "host_tensor": ("import torch\ndef f(x):\n"
                     "    return x + torch.tensor([1, 2], device=x.device)\n",
                     "capture-host-copy"),
@@ -258,7 +261,9 @@ def _kernel_tree(tmp_path, cu: str, py: str):
     (k / "wrap.py").write_text(py)
     (k / "ref.py").write_text("def evict_page_sharded():\n    pass\n"
                               "def grant_page_sharded():\n    pass\n"
-                              "def wake_solve_ref():\n    pass\n")
+                              "def wake_solve_ref():\n    pass\n"
+                              "def evict_rank_sharded():\n    pass\n"
+                              "def grant_rank_sharded():\n    pass\n")
     return tmp_path / "pkg"
 
 

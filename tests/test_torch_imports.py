@@ -97,8 +97,46 @@ def test_the_contract_checker_dry_run_and_meshes_are_listed():
                  "repro_torch.analysis.sanitize",
                  "repro_torch.launch.dryrun", "repro_torch.launch.inputs",
                  "repro_torch.launch.mesh", "repro_torch.models.shardctx",
-                 "repro_torch.kernels.accounting"):
+                 "repro_torch.kernels.accounting",
+                 "repro_torch.core.array_sim.dist",
+                 "repro_torch.kernels.collective"):
         assert want in MODULES
+
+
+#: the modules that import ``torch.distributed``: where a mesh is built or
+#: read, where the runner gathers its lanes, and the page split's
+#: collective and its plain version; each inside the function that needs it
+DISTRIBUTED = {"repro_torch/core/array_sim/dist.py",
+               "repro_torch/core/array_sim/mesh.py",
+               "repro_torch/core/array_sim/sim.py",
+               "repro_torch/kernels/collective.py"}
+
+
+def test_torch_distributed_is_imported_only_where_a_mesh_needs_it():
+    """No module of the port imports ``torch.distributed`` at its top
+    level, so importing ``repro_torch`` never needs it; the modules that
+    import it inside a function are the mesh's and the collective's."""
+    import ast
+    src = os.path.join(ROOT, "src")
+    found = set()
+    for name in MODULES:
+        mod = sys.modules.get(name) or __import__(name, fromlist=["x"])
+        path = getattr(mod, "__file__", None)
+        if not path or not path.endswith(".py"):
+            continue
+        tree = ast.parse(open(path).read())
+        top = set(map(id, tree.body))
+        for node in ast.walk(tree):
+            names = ([a.name for a in node.names]
+                     if isinstance(node, ast.Import) else
+                     [node.module or ""] if isinstance(node, ast.ImportFrom)
+                     else [])
+            if any(n == "torch.distributed" or n.startswith(
+                    "torch.distributed.") for n in names):
+                rel = os.path.relpath(path, src)
+                assert id(node) not in top, f"{rel}: a top-level import"
+                found.add(rel)
+    assert found == DISTRIBUTED
 
 
 EXAMPLES = ("torch_quickstart.py", "torch_concurrent_scans_demo.py",

@@ -115,7 +115,7 @@ def test_mesh_lane_count_must_divide_and_a_page_row_is_one_card():
                            mesh=T.Mesh(["cpu", "cpu"], ("lanes",)))
     with pytest.raises(ValueError, match="do not divide"):
         runner(_cfgs(spec, ("pbm",), (16 << 20,) * 3))
-    with pytest.raises(NotImplementedError, match="ROADMAP A.11"):
+    with pytest.raises(NotImplementedError, match="DeviceMesh, one process"):
         T.make_runner(spec, mesh=T.Mesh([["cpu", "meta"]], ("lanes", "page")))
     with pytest.raises(ValueError, match="do not divide"):
         T.make_runner(spec, mesh=T.Mesh([["cpu"] * 3], ("lanes", "page")))
