@@ -334,6 +334,9 @@ TRAIN_BUDGET_S = 90.0
 TRAIN_TIME_BUDGET_S = 0.3
 #: where (a) writes its checkpoint, inside this checkout; removed after
 TRAIN_CKPT_DIR = ".smoke_ckpt"
+#: how far the dry run's predicted peak of (b)'s step (state and live
+#: activations, ``launch.dryrun``) may be from the measured one
+DRYRUN_PEAK_BAR = 0.20
 #: PERF.md's estimate of (b)'s operations in matrix products a step:
 #: 6 x 1.54e9 parameters x 8,192 tokens
 TRAIN_PRODUCT_FLOPS = 7.6e13
@@ -2430,29 +2433,105 @@ def train_kernel_rows(calls: FirstCalls, dev) -> list:
     return rows
 
 
-def train_dryrun(full: dict) -> dict:
+def train_mode_bias(res: dict, dev) -> dict:
+    """The peak of (b)'s step above its own start (its activations: the
+    state exists before it), on (b)'s params and AdamW state and a fresh
+    batch, once with no dispatch mode (as ``launch.train`` runs it) and
+    once under a mode that only calls each operator.  The dry run counts
+    the step under a mode (its counter), so the difference is what a
+    mode's presence costs the allocator, measured in every run
+    (``tools/dryrun_peak_gap.py`` tells it from the counting)."""
+    import contextlib
+    import numpy as np
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import _make_batch
+    from repro_torch.models import build_model
+    from repro_torch.train.optimizer import OptimizerConfig
+    from repro_torch.train.train_step import make_train_step
+
+    class Bare(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            return func(*args, **(kwargs or {}))
+
+    F = TRAIN_FULL
+    cfg = get_config(F["arch"])
+    step = make_train_step(build_model(cfg), OptimizerConfig(
+        warmup_steps=20, total_steps=F["steps"]), F["microbatches"])
+    toks = np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (F["batch"], F["seq"] + 1))
+    batch = _make_batch(cfg, toks, F["seq"], dev)
+    peaks = {}
+    for name, mode in (("no_mode", contextlib.nullcontext()),
+                       ("bare_mode", Bare())):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        start = torch.cuda.memory_allocated()
+        with mode:
+            step(res["params"], res["opt_state"], batch)
+        torch.cuda.synchronize()
+        peaks[name] = torch.cuda.max_memory_allocated() - start
+    return peaks
+
+
+def train_dryrun(full: dict, bias: dict) -> dict:
     """The dry run (``launch.dryrun``, on the meta device) of (b)'s step:
-    its parameter, gradient, optimizer-state and input bytes and its
-    operations, beside the step's measured peak memory and time."""
+    its parameter, gradient, optimizer-state and input bytes, its peak of
+    live activations and its predicted peak (state and activations), its
+    bytes accessed and operations, and the collectives it would move per
+    card under the pod and multi-pod meshes, beside the step's measured
+    peak memory and time.  ``peak_ok``: the predicted peak within
+    ``DRYRUN_PEAK_BAR`` of the measured one, the memory the earlier phases
+    left on the card (``resident_before_bytes``) taken off it.  ``bias``
+    (:func:`train_mode_bias`): the step's activations on the card with no
+    mode and under a bare one, beside the predicted activations."""
     import torch
     from repro_torch.configs import ShapeConfig
     from repro_torch.launch import dryrun
     F = TRAIN_FULL
+    shape = ShapeConfig("train_full_width", F["seq"], F["batch"], "train")
     t0 = time.time()
     cell = dryrun.build_cell(
-        F["arch"], "train_full_width",
-        shape=ShapeConfig("train_full_width", F["seq"], F["batch"], "train"),
+        F["arch"], "train_full_width", shape=shape,
         param_dtype=torch.float32, microbatches=F["microbatches"])
+    seconds = time.time() - t0
     b = cell["bytes"]
     state = b["params"] + b["grads"] + b["opt_state"] + b["inputs"]
+    measured = full["peak_memory_bytes"]
+    step_peak = measured - full["resident_before_bytes"]
+    ratio = b["peak"] / step_peak
+    step_s = full["ms_per_step"] * 1e-3
     return {"flops": cell["flops"], "bytes": b,
             "predicted_state_bytes": state,
-            "measured_peak_bytes": full["peak_memory_bytes"],
-            "peak_over_predicted_state": full["peak_memory_bytes"] / state,
-            "achieved_tflops_per_s": cell["flops"]
-            / (full["ms_per_step"] * 1e-3) / 1e12,
+            "activations_peak": b["activations_peak"],
+            "predicted_peak_bytes": b["peak"],
+            "measured_peak_bytes": measured,
+            "resident_before_bytes": full["resident_before_bytes"],
+            "measured_step_peak_bytes": step_peak,
+            "predicted_over_measured_peak": ratio,
+            "peak_bar": DRYRUN_PEAK_BAR,
+            "peak_ok": abs(ratio - 1) <= DRYRUN_PEAK_BAR,
+            "peak_over_predicted_state": measured / state,
+            "step_activations_no_mode_bytes": bias["no_mode"],
+            "step_activations_bare_mode_bytes": bias["bare_mode"],
+            "mode_bias_bytes": bias["bare_mode"] - bias["no_mode"],
+            "predicted_over_bare_mode_activations":
+                b["activations_peak"] / bias["bare_mode"],
+            "predicted_over_no_mode_activations":
+                b["activations_peak"] / bias["no_mode"],
+            "bytes_accessed": cell["bytes_accessed"],
+            "bytes_accessed_tb_per_s": cell["bytes_accessed"] / step_s
+            / 1e12,
+            "collectives_per_card": {
+                m: {"collective_bytes": r["collective_bytes"],
+                    "collective_total": r["collective_total"],
+                    "activations": r["activations"], "peak": r["peak"]}
+                for m, r in cell["per_card"].items()},
+            "counted": cell["counted"],
+            "achieved_tflops_per_s": cell["flops"] / step_s / 1e12,
             "estimate_flops_in_products": TRAIN_PRODUCT_FLOPS,
-            "seconds": time.time() - t0}
+            "seconds": seconds}
 
 
 def phase_train(dev, calls: FirstCalls) -> dict:
@@ -2527,7 +2606,8 @@ def phase_train(dev, calls: FirstCalls) -> dict:
     ok &= full["ok"]
     full["profile"] = profile_train_step(res, dev)
     out["full_width"] = full
-    out["dryrun"] = train_dryrun(full)
+    out["dryrun"] = train_dryrun(full, train_mode_bias(res, dev))
+    ok &= out["dryrun"]["peak_ok"]
     del res
     torch.cuda.empty_cache()
 

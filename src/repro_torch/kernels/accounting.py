@@ -7,14 +7,18 @@ Inside :func:`card_route`, :mod:`.ops` sends it down the card's route with
 the kernel replaced by a custom operator of this module: its meta
 implementation only shapes the output, and the flop counter counts it
 once, by the kernel's bound formula (:func:`work`, the formula of
-``PERF.md`` §6), never by the plain version's arithmetic.  Under autograd
+``PERF.md`` §6), never by the plain version's arithmetic; the dry run's
+``launch.counting.StepCounter`` counts its bytes the same way
+(:func:`call_work`).  Under autograd
 the card's route differentiates the plain version's VJP, recomputed
 (``kernels.autograd``): those operators run on the card, and the counter
 counts them as they are.  Outside :func:`card_route` a meta tensor stands
 in for a CUDA one, as before: the kernel's wrapper refuses it.
 
-Inside :func:`card_route`, CPU tensors take the same route, with the
-plain version as the operator's CPU implementation (what it computes is
+Each stand-in returns a contiguous output, as the kernels do (their
+fake implementations too, so the dry run's views and copies downstream
+are the card's).  Inside :func:`card_route`, CPU tensors take the same
+route, with the plain version as the operator's CPU implementation (what it computes is
 not counted: a dispatch mode does not see the operators of a call it is
 handling), so a step on real CPU tensors and the same step on meta count
 the same operations.
@@ -24,17 +28,20 @@ from __future__ import annotations
 
 import contextlib
 import contextvars
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
-__all__ = ["KERNELS", "card_route", "op", "takes_card_route", "work"]
+__all__ = ["KERNELS", "call_work", "card_route", "op", "takes_card_route",
+           "work"]
 
 #: the kernels on a model's path, each with a stand-in operator
 KERNELS = ("flash_attention", "mamba2_scan", "mlstm_chunked")
 
 _CARD_ROUTE = contextvars.ContextVar("repro_torch_card_route", default=False)
 _OPS: Dict[str, object] = {}
+#: each stand-in's argument names, the tensors first, and their count
+_SIGNATURES: Dict[str, Tuple[Tuple[str, ...], int]] = {}
 
 
 @contextlib.contextmanager
@@ -91,6 +98,18 @@ def work(kernel: str, args, static) -> tuple:
     return ops, nbytes
 
 
+# analysis: host -- shape arithmetic, for the dry run's counters
+def call_work(kernel: str, args, kwargs) -> tuple:
+    """:func:`work` of one call of ``kernel``'s stand-in operator, from the
+    arguments the operator was called with."""
+    names, n_tensors = _SIGNATURES[kernel]
+    bound = dict(zip(names, args))
+    bound.update(kwargs)
+    tensors = [bound[n] for n in names[:n_tensors]]
+    static = {n: bound[n] for n in names[n_tensors:] if n in bound}
+    return work(kernel, tensors, static)
+
+
 def _define(kernel: str):
     from torch.utils.flop_counter import register_flop_formula
 
@@ -103,45 +122,42 @@ def _define(kernel: str):
                causal: bool = True, window: Optional[int] = None,
                offset: Optional[int] = None) -> torch.Tensor:
             return ref.flash_attention_ref(q, k, v, causal=causal,
-                                           window=window, offset=offset)
+                                           window=window,
+                                           offset=offset).contiguous()
 
         @fn.register_fake
         def _(q, k, v, causal=True, window=None, offset=None):
-            return torch.empty_like(q)
+            return q.new_empty(q.shape)
         names = ("q", "k", "v", "causal", "window", "offset")
     elif kernel == "mamba2_scan":
         @torch.library.custom_op(lib, mutates_args=())
         def fn(xh: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
                c: torch.Tensor) -> torch.Tensor:
-            return ref.mamba2_scan_ref(xh, a, b, c)
+            return ref.mamba2_scan_ref(xh, a, b, c).contiguous()
 
         @fn.register_fake
         def _(xh, a, b, c):
-            return torch.empty_like(xh)
+            return xh.new_empty(xh.shape)
         names = ("xh", "a", "b", "c")
     elif kernel == "mlstm_chunked":
         @torch.library.custom_op(lib, mutates_args=())
         def fn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                a: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
-            return ref.mlstm_chunked_ref(q, k, v, a, i)
+            return ref.mlstm_chunked_ref(q, k, v, a, i).contiguous()
 
         @fn.register_fake
         def _(q, k, v, a, i):
-            return torch.empty_like(v)
+            return v.new_empty(v.shape)
         names = ("q", "k", "v", "a", "i")
     else:
         raise ValueError(f"accounting: {kernel!r} is not on a model's path")
-    n_tensors = sum(1 for n in names if n in ("q", "k", "v", "xh", "a", "b",
-                                                "c", "i"))
+    _SIGNATURES[kernel] = names, sum(
+        1 for n in names if n in ("q", "k", "v", "xh", "a", "b", "c", "i"))
 
     @register_flop_formula(getattr(torch.ops.repro_torch, kernel),
                            get_raw=True)
     def _flops(*args, out_val=None, **kwargs):  # analysis: host -- counting
-        bound = dict(zip(names, args))
-        bound.update(kwargs)
-        tensors = [bound[n] for n in names[:n_tensors]]
-        static = {n: bound[n] for n in names[n_tensors:] if n in bound}
-        return int(work(kernel, tensors, static)[0])
+        return int(call_work(kernel, args, kwargs)[0])
 
     return fn
 

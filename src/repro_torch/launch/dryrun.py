@@ -6,8 +6,9 @@ keeps, this builds the cell's *real* step on the meta device — the train
 step (``train.make_train_step``: ``train_loss`` forward and backward and
 AdamW's update) for train shapes, the prefill forward for prefill shapes,
 ``serve_step`` against a full-length cache for decode shapes — and runs it
-under ``torch.utils.flop_counter.FlopCounterMode``.  No parameter, state
-or cache is allocated.  It records:
+under ``torch.utils.flop_counter.FlopCounterMode`` and the dry run's
+counter (``launch.counting``).  No parameter, state or cache is
+allocated, no process group is made and no card is needed.  It records:
 
 * ``flops``: the operations of the step.  B5-B7 are counted once each, by
   the kernel's bound formula (``kernels.accounting``: flash attention 4 H
@@ -16,13 +17,30 @@ or cache is allocated.  It records:
   plain version's VJP, which the card recomputes in the backward, is
   counted as the operators it runs;
 * ``bytes``: parameters (bf16, as the JAX package's dry run), gradients,
-  optimizer state (f32 moments), cache and inputs, their sum on one H100
-  and the cell's ``status``: ``ok``, ``skipped`` or ``does_not_fit``
-  (the sum above the card's 80 GB; activations are not counted);
-* ``per_card``: the same bytes per card under the reference's pod
-  (16 x 16) and multi-pod (2 x 16 x 16) meshes' sharding rules, as
-  arithmetic (each leaf divided by the product of the mesh axes its spec
-  names).  No collective is counted.
+  optimizer state (f32 moments), cache and inputs, their sum (``total``);
+  ``activations_peak``, the most bytes the step holds at once beyond the
+  params, optimizer state, cache and inputs (its gradients included:
+  the step makes them), and ``peak``, those plus ``activations_peak``;
+  the cell's ``status`` is ``ok``, ``skipped`` or ``does_not_fit``
+  (``peak`` above the card's 80 GB);
+* ``bytes_accessed``: every operator's inputs read and output written
+  once (B5-B7 by ``accounting.work``'s bytes), eager PyTorch's traffic;
+* ``per_card``: under the reference's pod (16 x 16) and multi-pod
+  (2 x 16 x 16) meshes' sharding rules, the bytes per card as arithmetic
+  (each leaf divided by the product of the mesh axes its spec names), the
+  step's ``collective_bytes`` per card by kind (all-gather, all-reduce,
+  reduce-scatter, all-to-all, collective-permute: each collective's
+  result bytes, the JAX dry run's convention) and their
+  ``collective_total``, the per-card ``activations`` (the counterpart of
+  JAX's ``memory.temp_size``) and ``peak``;
+* ``counted``: ``"whole_step"``: every layer, microbatch and recompute
+  is counted as it runs, so no loop body is counted once and no probe is
+  needed.
+
+The three counts come from the step itself: ``launch.counting.StepCounter``
+(a ``TorchDispatchMode``, its rules in its docstring) runs beside
+``FlopCounterMode`` and reads the models' resharding hooks
+(``models.shardctx``).
 
 One place of the models reads data on the host, and is named here, not
 worked around with a real tensor (``DATA_DEPENDENT``): ``serve_step``
@@ -50,7 +68,7 @@ import math
 import os
 import time
 import traceback
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Iterable, List, Optional, Sequence
 
 import torch
 
@@ -69,7 +87,8 @@ from ..train.train_step import make_train_step
 from .inputs import (
     batch_shardings, cache_shardings, cell_mode, input_specs,
 )
-from .mesh import make_production_mesh
+from .counting import MeshPlan, StepCounter
+from .mesh import MeshShape, make_production_mesh
 
 OUT_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..",
                        "experiments", "dryrun_torch")
@@ -81,6 +100,9 @@ DATA_DEPENDENT = {
               "position is a host int (passed as seq_len - 1)",
 }
 PARAM_DTYPE = torch.bfloat16
+#: the meshes each cell is priced under: the reference's pod and multi-pod
+MESHES = {"pod": make_production_mesh(),
+          "multipod": make_production_mesh(multi_pod=True)}
 
 
 def _nbytes(tree) -> int:
@@ -142,27 +164,64 @@ def step_of(cfg, shape: ShapeConfig, params, batch, cache=None,
     return fn, extra
 
 
-def count_flops(fn) -> int:
-    """Operations of ``fn()`` as ``FlopCounterMode`` counts them, B5-B7 on
-    the card's route (``kernels.accounting.card_route``)."""
+def count_step(fn, plans: Sequence[MeshPlan] = (),
+               baseline: Iterable[torch.Tensor] = ()) -> Dict[str, Any]:
+    """One run of ``fn()`` under ``FlopCounterMode`` and
+    ``counting.StepCounter`` together, B5-B7 on the card's route, the
+    ``models.shardctx`` hooks observed: ``{"flops", "activations_peak",
+    "bytes_accessed", "counted", "meshes": {plan name: collectives}}``."""
     from torch.utils.flop_counter import FlopCounterMode
 
     for kernel in accounting.KERNELS:     # formulas before the counter
         accounting.op(kernel)
-    with accounting.card_route(), FlopCounterMode(display=False) as counter:
+    counter = StepCounter(plans, baseline)
+    with accounting.card_route(), FlopCounterMode(display=False) as flops, \
+            counter, shardctx.observe(counter):
         fn()
-    return int(counter.get_total_flops())
+    return {"flops": int(flops.get_total_flops()), **counter.results()}
+
+
+def mesh_plans(cfg, shape: ShapeConfig, model, params, cache=None,
+               meshes: Optional[Dict[str, MeshShape]] = None
+               ) -> List[MeshPlan]:
+    """A :class:`counting.MeshPlan` for each mesh (default: the pod and
+    multi-pod meshes): the cell's rules and its params' (and cache's)
+    specs on it."""
+    mode = cell_mode(cfg, shape)
+    plans = []
+    for name, mesh in (MESHES if meshes is None else meshes).items():
+        rules = mesh_rules(mode, mesh.axis_names)
+        p_specs = param_shardings(model.param_specs, rules, mesh=mesh)
+        c = None if cache is None else (cache, cache_shardings(
+            cfg, shape, rules, cache))
+        plans.append(MeshPlan(name, mesh, rules, (params, p_specs), c))
+    return plans
+
+
+def state_of(params, batch, extra) -> List[torch.Tensor]:
+    """The tensors that exist before the step: params, optimizer state,
+    cache and inputs (not the gradients, which the step makes)."""
+    trees = [params, batch, extra.get("cache") or {}]
+    if "opt_state" in extra:
+        o = extra["opt_state"]
+        trees += [o.mu, o.nu, {"step": o.step}]
+    return [t for tree in trees for t in tree_paths(tree).values()
+            if torch.is_tensor(t)]
 
 
 def build_cell(arch: str, shape_name: str, cfg=None,
                shape: Optional[ShapeConfig] = None,
                param_dtype: torch.dtype = PARAM_DTYPE,
-               microbatches: int = 1) -> Dict[str, Any]:
+               microbatches: int = 1,
+               meshes: Optional[Dict[str, MeshShape]] = None
+               ) -> Dict[str, Any]:
     """One cell's record.  ``cfg`` / ``shape`` override the registry's
     (the tests' smoke configs; ``chip_smoke.py``'s training cell, with its
-    ``param_dtype`` and ``microbatches``)."""
+    ``param_dtype`` and ``microbatches``); ``meshes`` the pod and
+    multi-pod meshes (the tests' small ones)."""
     cfg = get_config(arch) if cfg is None else cfg
     shape = SHAPES[shape_name] if shape is None else shape
+    meshes = MESHES if meshes is None else meshes
     skip = cell_is_skipped(cfg, shape)
     if skip:
         return {"status": "skipped", "reason": skip}
@@ -173,7 +232,9 @@ def build_cell(arch: str, shape_name: str, cfg=None,
     cache = _meta_cache(model, shape) if shape.kind == "decode" else None
     t0 = time.time()
     fn, extra = step_of(cfg, shape, params, batch, cache, microbatches)
-    flops = count_flops(fn)
+    counts = count_step(fn, mesh_plans(cfg, shape, model, params, cache,
+                                       meshes),
+                        state_of(params, batch, extra))
     seconds = time.time() - t0
     parts = {"params": _nbytes(params),
              "grads": _nbytes(extra.get("grads", {})),
@@ -183,9 +244,10 @@ def build_cell(arch: str, shape_name: str, cfg=None,
              "cache": _nbytes(cache) if cache is not None else 0,
              "inputs": _nbytes(batch)}
     total = sum(parts.values())
+    act = counts["activations_peak"]
+    peak = total - parts["grads"] + act
     per_card = {}
-    for mesh_name, multi in (("pod", False), ("multipod", True)):
-        mesh = make_production_mesh(multi_pod=multi)
+    for mesh_name, mesh in meshes.items():
         rules = mesh_rules(mode, mesh.axis_names)
         sizes = mesh_sizes(mesh)
         p_specs = param_shardings(model.param_specs, rules, mesh=mesh)
@@ -204,13 +266,19 @@ def build_cell(arch: str, shape_name: str, cfg=None,
             row["cache"] = _per_card(cache, cache_shardings(
                 cfg, shape, rules, cache), sizes)
         row["total"] = sum(v for k, v in row.items() if k != "chips")
+        coll = counts["meshes"][mesh_name]
+        row.update(coll)
+        row["peak"] = row["total"] - row.get("grads", 0) + row["activations"]
         per_card[mesh_name] = row
-    rec = {"status": "ok" if total <= CARD_BYTES else "does_not_fit",
+    rec = {"status": "ok" if peak <= CARD_BYTES else "does_not_fit",
            "mode": mode, "kind": shape.kind, "n_layers": cfg.n_layers,
            "batch": shape.global_batch, "seq_len": shape.seq_len,
-           "flops": flops, "seconds": round(seconds, 3),
-           "bytes": {**parts, "total": total}, "card_bytes": CARD_BYTES,
-           "per_card": per_card,
+           "flops": counts["flops"],
+           "bytes_accessed": counts["bytes_accessed"],
+           "counted": counts["counted"], "seconds": round(seconds, 3),
+           "bytes": {**parts, "total": total, "activations_peak": act,
+                     "peak": peak},
+           "card_bytes": CARD_BYTES, "per_card": per_card,
            "param_count": cfg.param_count(),
            "active_param_count": cfg.active_param_count()}
     if shape.kind in DATA_DEPENDENT:
@@ -257,7 +325,11 @@ def main(argv=None) -> int:
             with open(path, "w") as f:
                 json.dump(res, f, indent=2)
             extra = (f" flops={res['flops']:.3e} "
-                     f"bytes={res['bytes']['total'] / 1e9:.2f} GB"
+                     f"state={res['bytes']['total'] / 1e9:.2f} GB "
+                     f"peak={res['bytes']['peak'] / 1e9:.2f} GB "
+                     f"pod_collectives="
+                     f"{res['per_card']['pod']['collective_total'] / 1e9:.3f}"
+                     f" GB"
                      if res["status"] in ("ok", "does_not_fit") else
                      " " + res.get("reason", res.get("error", ""))[:120])
             print(f"[{arch}__{shape_name}] {res['status']}{extra}",

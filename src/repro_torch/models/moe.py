@@ -15,8 +15,9 @@ Two implementations of one parameter layout:
 The expert and router products are ``torch.matmul`` / ``einsum``, as the
 JAX package computes them with ``jnp.einsum`` outside any Pallas kernel.
 The reference's ``_constrain_experts`` pins the expert axis to a mesh
-axis (a sharding constraint); it changes no value and has no counterpart
-here.
+axis (a sharding constraint); the port calls ``shardctx.constrain_experts``
+at the same two places, which on one card returns its input (the dry
+run's counter reads each as an all-to-all over "model").
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ import torch.nn.functional as F
 
 from ..configs.base import ArchConfig
 from .layers import ParamSpec
+from .shardctx import constrain_experts
 
 
 def moe_specs(cfg: ArchConfig) -> Dict[str, ParamSpec]:
@@ -55,11 +57,18 @@ def _route(params: Mapping[str, torch.Tensor], x: torch.Tensor,
     return gates, idx, probs
 
 
+def _one_hot(idx: torch.Tensor, e: int) -> torch.Tensor:
+    """``F.one_hot(idx, e)`` in f32 as a comparison, the same operators on
+    every device (``F.one_hot`` checks its range on the host on the CPU
+    and decomposes differently on the meta device)."""
+    return (idx[..., None] == torch.arange(e, device=idx.device)).float()
+
+
 def _aux_loss(probs: torch.Tensor, idx: torch.Tensor, e: int, k: int
               ) -> torch.Tensor:
     """Switch's load-balancing loss ``E * sum(mean prob * mean load)``."""
     me = probs.mean(dim=0)
-    ce = F.one_hot(idx, e).float().sum(1).mean(dim=0) / k
+    ce = _one_hot(idx, e).sum(1).mean(dim=0) / k
     return e * torch.sum(me * ce)
 
 
@@ -109,8 +118,8 @@ def moe_ffn_sorted(params: Mapping[str, torch.Tensor], x: torch.Tensor,
     rows = torch.arange(B, device=x.device)[:, None]
     xd = torch.zeros((B, e * cap + 1, d), dtype=xr.dtype, device=x.device)
     xd[rows, slot] = xr[rows, st] * keep[..., None].to(xr.dtype)
-    xe = xd[:, :e * cap].reshape(B, e, cap, d)
-    ye = _expert_ffn(params, xe, cfg.ffn_act)
+    xe = constrain_experts(xd[:, :e * cap].reshape(B, e, cap, d))
+    ye = constrain_experts(_expert_ffn(params, xe, cfg.ffn_act))
     y_slots = torch.cat([ye.reshape(B, e * cap, d),
                          torch.zeros((B, 1, d), dtype=ye.dtype,
                                      device=x.device)], dim=1)
@@ -131,7 +140,7 @@ def moe_ffn_dense(params: Mapping[str, torch.Tensor], x: torch.Tensor,
     combine = torch.zeros((xf.shape[0], e), dtype=torch.float32,
                           device=x.device)
     for j in range(cfg.top_k):
-        combine = combine + F.one_hot(idx[:, j], e).float() * gates[:, j:j + 1]
+        combine = combine + _one_hot(idx[:, j], e) * gates[:, j:j + 1]
     ye = _expert_ffn(params, xf[None, None].expand(1, e, -1, -1),
                      cfg.ffn_act)[0]                          # (E, S, d)
     y = torch.einsum("esd,se->sd", ye.float(), combine)

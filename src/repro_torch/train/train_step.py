@@ -7,7 +7,9 @@ respect to every leaf of the params tree.  With ``microbatches > 1`` the
 batch's leading axis is split into that many equal parts and each part's
 gradient is added as ``g / microbatches`` in f32, in order, as the
 reference's ``lax.scan`` does; the reported loss is the mean of the parts'
-losses, accumulated the same way.
+losses, accumulated the same way.  The gradients then pass
+``models.shardctx.sync_grads`` (on one card, the identity; the dry run
+reads it as the step's gradient synchronisation).
 
 The step updates ``params`` and ``opt_state`` **in place** (under
 ``torch.no_grad()``) and returns the same trees: the counterpart of the
@@ -22,6 +24,7 @@ from typing import Callable, Dict, List, Tuple
 
 import torch
 
+from ..models import shardctx
 from ..models.transformer import Model
 from .compression import compress_decompress
 from .optimizer import (
@@ -75,6 +78,7 @@ def make_train_step(
 
     def train_step(params, opt_state: OptState, batch):
         loss, metrics, flat_grads = accumulate(params, batch)
+        flat_grads = shardctx.sync_grads(leaves(params), flat_grads)
         grads = from_leaves(params, flat_grads)
         if compress_grads:
             grads = compress_decompress(grads)

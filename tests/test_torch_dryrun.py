@@ -229,7 +229,7 @@ def test_meta_operations_equal_a_real_cpu_step(arch):
         assert rec["status"] == "ok", (shape.kind, rec)
         params, batch, cache = _real_cell(cfg, shape)
         fn, _ = D.step_of(cfg, shape, params, batch, cache)
-        flops = D.count_flops(fn)        # CPU tensors on the card's route
+        flops = D.count_step(fn)["flops"]  # CPU tensors, the card's route
         assert flops == rec["flops"] > 0, (shape.kind, flops, rec["flops"])
 
 
@@ -242,7 +242,12 @@ def test_every_cell_of_the_registry_is_priced_or_skipped(tmp_path):
     assert set(recs) == {f"qwen2_1_5b__{s}" for s in SHAPES}
     assert recs["qwen2_1_5b__long_500k"]["status"] == "skipped"
     train = recs["qwen2_1_5b__train_4k"]
-    assert train["status"] == "ok"     # weights and state; no activations
+    # weights and state fit; a million tokens' activations do not
+    assert train["bytes"]["total"] <= D.CARD_BYTES
+    assert train["bytes"]["peak"] == (
+        train["bytes"]["total"] - train["bytes"]["grads"]
+        + train["bytes"]["activations_peak"]) > D.CARD_BYTES
+    assert train["status"] == "does_not_fit"
     assert recs["qwen2_1_5b__decode_32k"]["status"] == "does_not_fit"
     assert train["bytes"]["params"] == 2 * sum(
         int(np.prod(s.shape)) for s in tree_paths(
@@ -252,3 +257,15 @@ def test_every_cell_of_the_registry_is_priced_or_skipped(tmp_path):
     assert train["per_card"]["pod"]["params"] < train["bytes"]["params"]
     assert recs["qwen2_1_5b__decode_32k"]["bytes"]["cache"] > 0
     assert "host_reads" in recs["qwen2_1_5b__decode_32k"]
+    for name in ("train_4k", "prefill_32k", "decode_32k"):
+        rec = recs[f"qwen2_1_5b__{name}"]
+        assert rec["counted"] == "whole_step"
+        assert rec["bytes_accessed"] > 0 and rec["bytes"]["peak"] > 0
+        for mesh in ("pod", "multipod"):
+            coll = rec["per_card"][mesh]["collective_bytes"]
+            assert set(coll) == {"all-gather", "all-reduce",
+                                 "reduce-scatter", "all-to-all",
+                                 "collective-permute"}
+            assert rec["per_card"][mesh]["collective_total"] == sum(
+                coll.values()) > 0
+    assert train["per_card"]["pod"]["collective_bytes"]["all-gather"] > 0
